@@ -1,0 +1,119 @@
+"""Build and load the port's CUDA kernels at first use.
+
+``nvcc`` compiles every ``tpuseg_torch/csrc/*.cu`` into one shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
+build takes seconds).  The library lives in ``tpuseg_torch/_build/`` under a
+name keyed by a hash of the sources and flags; it is built to a temporary
+name and moved into place with ``os.replace``, so concurrent builds (test
+workers, several processes on one host) never load a half-written file.
+
+A missing ``nvcc`` or a failed build raises ``RuntimeError`` with the
+compiler's output; there is no fallback.
+
+    python -m tpuseg_torch.ops._build     # build now, print the ptxas report
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def find_nvcc() -> str:
+    """``nvcc`` on PATH, else ``$CUDA_HOME/bin/nvcc`` (default
+    ``/usr/local/cuda``); raises ``RuntimeError`` when neither exists."""
+    path = shutil.which("nvcc")
+    if path:
+        return path
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.isfile(path) and os.access(path, os.X_OK):
+        return path
+    raise RuntimeError(
+        "nvcc not found on PATH or under CUDA_HOME "
+        f"({cuda_home}); the CUDA kernels need the CUDA toolkit to build")
+
+
+def _sources(src_dir: str) -> list[str]:
+    srcs = sorted(glob.glob(os.path.join(src_dir, "*.cu")))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {src_dir}")
+    return srcs
+
+
+def library_path(src_dir: str = SRC_DIR, build_dir: str = BUILD_DIR) -> str:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(src_dir):
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(build_dir, f"libtpuseg_torch_{h.hexdigest()[:16]}.so")
+
+
+def build_library(src_dir: str = SRC_DIR, build_dir: str = BUILD_DIR) -> tuple[str, str]:
+    """Compile the sources unless the keyed library exists.
+
+    Returns ``(path, log)``: ``log`` is nvcc's output (the ptxas register
+    and shared-memory report) when this call built, else ``""``."""
+    out = library_path(src_dir, build_dir)
+    if os.path.exists(out):
+        return out, ""
+    nvcc = find_nvcc()
+    os.makedirs(build_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=build_dir)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources(src_dir)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out, proc.stdout + proc.stderr
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build if needed and load the kernel library, with every C entry
+    point's argument and result types declared (pointers and the stream as
+    ``c_void_p``, so no 64-bit value is cut to 32)."""
+    path, _ = build_library()
+    lib = ctypes.CDLL(path)
+    lib.tpuseg_upsample_argmax.argtypes = [
+        ctypes.c_void_p,                  # seg (N, h, w, C) f32|bf16
+        ctypes.c_void_p,                  # out (N, 8h, 8w) uint8
+        ctypes.POINTER(ctypes.c_float),   # host phase weights a[8], b[8]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n h w c
+        ctypes.c_int,                     # dtype: 0 f32, 1 bf16
+        ctypes.c_void_p,                  # cudaStream_t
+    ]
+    lib.tpuseg_upsample_argmax.restype = ctypes.c_int
+    lib.tpuseg_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tpuseg_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+if __name__ == "__main__":
+    path, log = build_library()
+    print(path)
+    print(log)
