@@ -3,9 +3,12 @@
 ``tpuseg`` (JAX, TPU) stays the reference; this package mirrors its module
 paths and names so every function has an obvious counterpart:
 
-- ``tpuseg_torch.models``  — DRN backbone + DRNSeg head (inference forward)
+- ``tpuseg_torch.models``  — DRN backbone + DRNSeg head (inference forward),
+  sparse execution plans (``models.sparse_exec``)
 - ``tpuseg_torch.ops``     — BN folding, polyphase frontend, fused x8
-  upsample+argmax (hand-written CUDA kernel under ``csrc/``)
+  upsample+argmax and fused block-sparse conv (hand-written CUDA kernels
+  under ``csrc/``), gathered and RBGP sparse lowerings
+- ``tpuseg_torch.sparsity`` — pruning masks from JSON pruner configs
 - ``tpuseg_torch.video``   — batched video segmentation serving
 - ``tpuseg_torch.cli``     — ``python -m tpuseg_torch.cli.seg_video``
 
@@ -15,7 +18,9 @@ inside on NCHW-shaped tensors in ``torch.channels_last`` memory, so the
 permutes at the edges are views.  Weights are a flat ``{torch-name: tensor}``
 dict with conv weights in OIHW.  Every device is passed explicitly.
 
-The package imports ``torch`` and never ``jax`` or ``tpuseg``.
+The package imports ``torch`` and never ``jax``.  It imports ``tpuseg`` in
+one place only: ``tpuseg_torch.sparsity`` generates masks through
+``tpuseg.sparsity`` (numpy only), when a pruner config is asked for.
 """
 
 __version__ = "0.1.0"

@@ -1,15 +1,23 @@
 """Video segmentation CLI of the port (counterpart of ``tpuseg/cli/seg_video.py``,
-exact mode).
+exact mode, dense or pruned).
 
 Runs DRNSeg with random weights from seed 0 over a generated video, batch by
 batch, and prints one JSON line with the end-to-end rate (and, with
-``--device-fps``, the device rate timed with CUDA events).
+``--device-fps``, the device rate timed with CUDA events).  With
+``--pr-config-path`` it serves the pruned model: masks from the pruner
+config (masker seed 0), applied to the weights, and every eligible masked
+conv lowered to a sparse plan; a ``{"event": "sparse_plans", ...}`` line
+comes before the result line.
 
 Usage:
   python -m tpuseg_torch.cli.seg_video --video shapes --size 1024x2048 \\
       --batch 8 --frames 32 --device-fps
   python -m tpuseg_torch.cli.seg_video --video synthetic --size 64x128 \\
       --frames 4 --batch 2 --device cpu
+  python -m tpuseg_torch.cli.seg_video --video shapes --size 1024x2048 \\
+      --batch 8 --frames 32 --device-fps \\
+      --pr-config-path optimal_configs/drn_d_22/drn_d_22_block128reg_87.50.json \\
+      --sparse-lowering pallas
 
 ``--device cuda`` (the default) raises when no CUDA device is present; there
 is no silent CPU fallback.
@@ -40,6 +48,22 @@ def parse_args(argv=None):
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--mean", default="0.290,0.328,0.287")
     p.add_argument("--std", default="0.183,0.187,0.184")
+    p.add_argument("--pr-config-path", default=None,
+                   help="serve a PRUNED model: generate masks from this "
+                        "JSON pruner config (e.g. optimal_configs/drn_d_22/"
+                        "*.json), apply them, and run eligible layers "
+                        "through the sparse lowering")
+    p.add_argument("--sparse-lowering", default="gathered",
+                   choices=("gathered", "pallas"),
+                   help="sparse execution family for --pr-config-path: "
+                        "'gathered' (channel gather + small dense cuDNN "
+                        "convs) or 'pallas' (the fused block-sparse CUDA "
+                        "kernel, the port of tpuseg's Pallas kernel)")
+    p.add_argument("--gathered-mode", default="exact",
+                   choices=("exact", "split"),
+                   help="gathered-lowering form: 'exact' (per-out-block "
+                        "supports; dead out-blocks emit zeros with no conv) "
+                        "or 'split' (uniform repeat-padded supports)")
     p.add_argument("--device-fps", action="store_true",
                    help="also report the device rate at --size (CUDA events "
                         "over back-to-back dependent batches; CUDA only)")
@@ -77,11 +101,32 @@ def main(argv=None):
     std = [float(v) for v in args.std.split(",")]
 
     params, state, spec = init_drnseg(0, args.arch, args.classes)
+    exec_plans = None
+    if args.pr_config_path:
+        from tpuseg_torch.models.sparse_exec import build_sparse_plans
+        from tpuseg_torch.ops.fold_bn import fold_bn
+        from tpuseg_torch.sparsity import apply_masks, create_masker
+
+        masker = create_masker(args.pr_config_path, seed=0)
+        masks = masker.generate_masks(params)
+        params = apply_masks(params, masks)
+        # plans are packed from the BN-folded masked weights: the same
+        # values VideoSegmenter's own fold produces from (params, state)
+        exec_plans, report = build_sparse_plans(
+            fold_bn(params, state, spec), masks, spec,
+            lowering=args.sparse_lowering, gathered_mode=args.gathered_mode,
+        )
+        n_sparse = sum(1 for v in report.values() if not v.startswith("dense"))
+        print(json.dumps({"event": "sparse_plans", "lowered": n_sparse,
+                          "total_masked": len(report),
+                          "lowering": args.sparse_lowering,
+                          "gathered_mode": args.gathered_mode}))
     seg = VideoSegmenter(
         params, state, spec, mean, std,
         device=device,
         compute_dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
         batch=args.batch,
+        exec_plans=exec_plans,
     )
     frames = open_frames(args.video, args.frames, h, w)
     result = seg.run(frames, max_frames=args.frames, need_color=False)

@@ -5,8 +5,9 @@ Counterpart of ``tpuseg/models/drn.py``.  The architecture spec
 init are copied from there unchanged, so one seed gives identical weights in
 both packages.  The forward is the eval path only: dense convs through
 ``torch.nn.functional.conv2d`` (cuDNN on the card), eval-mode BatchNorm or
-BN-folded biases, and the same residual rule.  No sparse plans, no train
-mode, no remat.
+BN-folded biases, and the same residual rule.  Convs listed in a
+``sparse_plans`` dict (``tpuseg_torch.models.sparse_exec.build_sparse_plans``)
+run through their sparse lowering instead.  No train mode, no remat.
 
 Layout: parameters are a flat ``{torch-style name: tensor}`` dict with conv
 weights in OIHW (``tpuseg`` stores HWIO; ``tpuseg_torch.models.weights``
@@ -460,37 +461,70 @@ def batch_norm(
     return (out + params[f"{name}.bias"].view(shape)).to(x.dtype)
 
 
-def _conv_maybe_bn(x, params, state, cdef: ConvDef, bdef: BNDef | None, compute_dtype):
+def _sparse_conv(x, plan, cdef: ConvDef):
+    """One conv through its sparse plan, as ``tpuseg`` dispatches it
+    (drn.py:516-546): an ``RbgpPlan`` to ``rbgp_conv_apply``, a plan with
+    ``.apply`` (``CompactSparse``, ``GatheredGroupConv``) to it, otherwise
+    (``FusedSparseConv``) to the fused block-sparse kernel.  NCHW in and
+    out; the plans take NHWC, which is a view of channels_last x."""
+    from tpuseg_torch.ops.rbgp_matmul import RbgpPlan, rbgp_conv_apply
+    from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_apply
+
+    xh = nchw_to_nhwc(x)
+    if isinstance(plan, RbgpPlan):
+        y = rbgp_conv_apply(xh, plan, cdef.stride, cdef.dilation, cdef.padding)
+    elif hasattr(plan, "apply"):
+        y = plan.apply(xh)
+    else:
+        # the kernel takes NHWC-contiguous x: free when x is channels_last
+        y = fused_sparse_conv_apply(xh.contiguous(), plan)
+    return nhwc_to_nchw(y)
+
+
+def _conv_maybe_bn(x, params, state, cdef: ConvDef, bdef: BNDef | None, compute_dtype,
+                   sparse_plans=None):
     """conv -> (folded bias | batch norm).  BN-folded weights
     (``tpuseg_torch.ops.fold_bn``) carry a conv bias and no BN params.
 
-    The bias rides in the cuDNN conv; ``tpuseg`` adds it after the conv in
-    the compute dtype, so in bf16 the two round at different points."""
-    x = conv2d(
-        x,
-        params[f"{cdef.name}.weight"],
-        cdef.stride,
-        cdef.dilation,
-        cdef.padding,
-        compute_dtype,
-        bias=params.get(f"{cdef.name}.bias"),
-    )
+    A dense conv carries the bias inside the cuDNN call; ``tpuseg`` adds it
+    after the conv in the compute dtype, so in bf16 the two round at
+    different points.  A conv with a sparse plan follows ``tpuseg``'s order
+    exactly: the plan's output is cast to the compute dtype, then the bias
+    is added in that dtype (drn.py:556-560)."""
+    plan = sparse_plans.get(cdef.name) if sparse_plans else None
+    bias = params.get(f"{cdef.name}.bias")
+    if plan is not None:
+        out_dtype = x.dtype if compute_dtype is None else compute_dtype
+        x = _sparse_conv(x, plan, cdef).to(out_dtype)
+        if bias is not None:
+            x = x + bias.to(x.dtype).view(1, -1, 1, 1)
+    else:
+        x = conv2d(
+            x,
+            params[f"{cdef.name}.weight"],
+            cdef.stride,
+            cdef.dilation,
+            cdef.padding,
+            compute_dtype,
+            bias=bias,
+        )
     if bdef is not None and f"{bdef.name}.weight" in params:
         x = batch_norm(x, params, state, bdef.name)
     return x
 
 
-def _run_block(x, params, state, block: BlockDef, compute_dtype):
+def _run_block(x, params, state, block: BlockDef, compute_dtype, sparse_plans=None):
     residual = x
     out = x
     n = len(block.convs)
     for i, (cdef, bdef) in enumerate(zip(block.convs, block.bns)):
-        out = _conv_maybe_bn(out, params, state, cdef, bdef, compute_dtype)
+        out = _conv_maybe_bn(out, params, state, cdef, bdef, compute_dtype, sparse_plans)
         if i < n - 1:
             out = F.relu_(out)
     if block.downsample is not None:
         cdef, bdef = block.downsample
-        residual = _conv_maybe_bn(residual, params, state, cdef, bdef, compute_dtype)
+        residual = _conv_maybe_bn(residual, params, state, cdef, bdef, compute_dtype,
+                                  sparse_plans)
     # Bottleneck always adds the residual (drn.py:103); BasicBlock honors the
     # flag (drn.py:61-62) even when a downsample path exists.
     if block.kind == "bottleneck" or block.residual:
@@ -498,13 +532,14 @@ def _run_block(x, params, state, block: BlockDef, compute_dtype):
     return F.relu_(out)
 
 
-def _run_stage(x, params, state, stage: StageDef, compute_dtype):
+def _run_stage(x, params, state, stage: StageDef, compute_dtype, sparse_plans=None):
     if stage.kind == "convs":
         for cdef, bdef in stage.convs:
-            x = F.relu_(_conv_maybe_bn(x, params, state, cdef, bdef, compute_dtype))
+            x = F.relu_(_conv_maybe_bn(x, params, state, cdef, bdef, compute_dtype,
+                                       sparse_plans))
     else:
         for block in stage.blocks:
-            x = _run_block(x, params, state, block, compute_dtype)
+            x = _run_block(x, params, state, block, compute_dtype, sparse_plans)
     return x
 
 
@@ -529,6 +564,7 @@ def drn_forward(
     compute_dtype: torch.dtype | None = None,
     stem_fn: Callable | None = None,
     stem_stages: int = 1,
+    sparse_plans: dict | None = None,
 ) -> torch.Tensor:
     """Run the DRN backbone (inference): NHWC ``x`` -> NHWC feature map.
 
@@ -537,6 +573,9 @@ def drn_forward(
     (``tpuseg_torch.ops.polyphase``), which takes the raw frames and returns
     NHWC features.  When it covers a single conv stage, the trailing ReLU is
     applied here; multi-stage frontends apply their own activations.
+
+    ``sparse_plans`` maps conv names to sparse plans (on ``x``'s device);
+    plans of stages that ``stem_fn`` replaces are not used, as in ``tpuseg``.
 
     Only backbones without a classifier head (the DRNSeg backbone, and
     classification specs built with ``num_classes=0``) are served here.
@@ -559,5 +598,5 @@ def drn_forward(
             continue
         if stage_index == 0:
             x = nhwc_to_nchw(x)
-        x = _run_stage(x, params, state, stage, compute_dtype)
+        x = _run_stage(x, params, state, stage, compute_dtype, sparse_plans)
     return nchw_to_nhwc(x)

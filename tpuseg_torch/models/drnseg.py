@@ -92,11 +92,13 @@ def drnseg_logits(
     compute_dtype: torch.dtype | None = None,
     stem_fn=None,
     stem_stages: int = 1,
+    sparse_plans: dict | None = None,
 ) -> torch.Tensor:
-    """Backbone + seg head: NHWC input -> NHWC logits at stride 8."""
+    """Backbone + seg head: NHWC input -> NHWC logits at stride 8
+    (``sparse_plans``: see ``drn_forward``)."""
     feats = drn_forward(
         params, state, x, spec, compute_dtype=compute_dtype,
-        stem_fn=stem_fn, stem_stages=stem_stages,
+        stem_fn=stem_fn, stem_stages=stem_stages, sparse_plans=sparse_plans,
     )
     seg = conv2d(
         nhwc_to_nchw(feats), params["seg.weight"], compute_dtype=compute_dtype,

@@ -47,3 +47,16 @@ def to_jax_params(
         params_np[k] = np.ascontiguousarray(a)
     state_np = {k: v.detach().cpu().numpy() for k, v in (state or {}).items()}
     return params_np, state_np
+
+
+def oihw_to_hwio_np(a) -> np.ndarray:
+    """One OIHW weight or mask (tensor or array) -> float32 HWIO numpy,
+    ``tpuseg``'s layout, in which the sparse planners run its numpy."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().float().numpy()
+    return np.ascontiguousarray(np.asarray(a, np.float32).transpose(2, 3, 1, 0))
+
+
+def hwio_to_oihw_tensor(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """HWIO numpy -> contiguous OIHW tensor in ``dtype``."""
+    return torch.from_numpy(np.ascontiguousarray(a.transpose(3, 2, 0, 1))).to(dtype)

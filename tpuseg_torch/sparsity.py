@@ -1,0 +1,48 @@
+"""Pruning masks for the port: JSON pruner configs -> 0/1 OIHW masks.
+
+The masks are ``tpuseg.sparsity``'s own (every pruner type: ``block``,
+``block_regular``, ``srmbrep``, ``hb``, ``rmb``, ``rmcdb``, ``grouping``),
+made on the HWIO numpy view of the port's weights and turned back into OIHW
+tensors, so one seed gives the same masks in both packages bit for bit.
+``tpuseg.sparsity`` is numpy only and loads no JAX; it is imported when a
+masker is asked for, never when this module is imported.
+
+Masks are static (``is_static=True``, the construction both serving CLIs
+use): drawn at random from the seed, not from the weights' magnitudes.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+
+
+class Masker:
+    """``generate_masks(params)`` -> ``{layer: float32 OIHW 0/1 tensor}``
+    from ``tpuseg.sparsity``'s masker on the HWIO view of ``params``."""
+
+    def __init__(self, config, seed):
+        from tpuseg.sparsity import create_masker as tpuseg_create_masker
+
+        self._masker = tpuseg_create_masker(config, seed=seed)
+
+    def generate_masks(self, params: Mapping) -> dict[str, torch.Tensor]:
+        from tpuseg_torch.models.weights import from_jax_params, to_jax_params
+
+        hwio, _ = to_jax_params(params)
+        masks = self._masker.generate_masks(hwio, is_static=True)
+        return from_jax_params(masks)[0]
+
+
+def create_masker(config, seed: int | None = 0) -> Masker:
+    """The masker of the config's ``pruner_type`` (a JSON path or dict)."""
+    return Masker(config, seed)
+
+
+def apply_masks(params: Mapping, masks: Mapping) -> dict:
+    """``params[k] * masks[k]`` for every masked layer (a new dict)."""
+    out = dict(params)
+    for k, m in masks.items():
+        out[k] = out[k] * m.to(out[k].dtype)
+    return out

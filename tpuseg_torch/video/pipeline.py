@@ -1,12 +1,13 @@
 """Video segmentation serving: frames -> device -> fused inference -> ids.
 
-Counterpart of ``tpuseg/video/pipeline.py`` in exact mode (no temporal
-reuse, int8, sparse plans, device resize or device outputs yet).  Per batch
-of flat uint8 frames the device runs the BN-folded polyphase frontend
-(normalize fused after space-to-depth), the dilated stages, the 1x1 seg head
-and the fused x8 upsample+argmax CUDA kernel; only uint8 frames go up and
-uint8 class ids come down.  Color and overlay are rebuilt on the host from
-the ids (an integer gather, bit-identical to doing it on the device).
+Counterpart of ``tpuseg/video/pipeline.py`` in exact mode, dense or with
+float sparse execution plans (no temporal reuse, int8, device resize or
+device outputs yet).  Per batch of flat uint8 frames the device runs the
+BN-folded polyphase frontend (normalize fused after space-to-depth), the
+dilated stages, the 1x1 seg head and the fused x8 upsample+argmax CUDA
+kernel; only uint8 frames go up and uint8 class ids come down.  Color and
+overlay are rebuilt on the host from the ids (an integer gather,
+bit-identical to doing it on the device).
 
 ``run`` keeps two batches in flight: each batch's ids are copied to pinned
 host memory with ``non_blocking=True`` and a CUDA event marks the copy's
@@ -26,6 +27,7 @@ from tpuseg_torch.device import resolve_device
 from tpuseg_torch.metrics.meters import FpsMeter
 from tpuseg_torch.models.drn import DrnSpec
 from tpuseg_torch.models.drnseg import drnseg_logits
+from tpuseg_torch.models.sparse_exec import plans_to
 from tpuseg_torch.ops.fold_bn import fold_bn
 from tpuseg_torch.ops.polyphase import FusedStage3Frontend, PolyphaseFrontend
 from tpuseg_torch.ops.upsample import upsample_argmax
@@ -61,7 +63,12 @@ class VideoSegmenter:
     ``from_jax_params``); BN is folded here and the weights move to
     ``device`` in ``compute_dtype`` (conv weights channels_last).  The
     frontend is chosen from the spec: ``FusedStage3Frontend`` for a stage 3
-    of two basic blocks, ``PolyphaseFrontend`` otherwise."""
+    of two basic blocks, ``PolyphaseFrontend`` otherwise.
+
+    ``exec_plans`` serves a pruned model: a per-conv plan dict from
+    ``tpuseg_torch.models.sparse_exec.build_sparse_plans`` (built from the
+    same masked weights, BN-folded), moved to ``device`` once here.  Its
+    dtype is the plans' own, independent of ``compute_dtype``."""
 
     def __init__(
         self,
@@ -76,6 +83,7 @@ class VideoSegmenter:
         batch: int = 8,
         palette: np.ndarray = CITYSCAPE_PALETTE,
         want_overlay: bool = False,
+        exec_plans: dict | None = None,
     ):
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
@@ -103,6 +111,7 @@ class VideoSegmenter:
             if v.dim() == 4:
                 v = v.contiguous(memory_format=torch.channels_last)
             self.params[k] = v
+        self.exec_plans = plans_to(exec_plans, self.device)
         self.mean = torch.tensor(mean, dtype=torch.float32, device=self.device)
         self.std = torch.tensor(std, dtype=torch.float32, device=self.device)
 
@@ -122,7 +131,7 @@ class VideoSegmenter:
             stem_fn, stem_stages = None, 1
         seg = drnseg_logits(
             self.params, {}, x, self.spec, compute_dtype=self.compute_dtype,
-            stem_fn=stem_fn, stem_stages=stem_stages,
+            stem_fn=stem_fn, stem_stages=stem_stages, sparse_plans=self.exec_plans,
         )
         ids = upsample_argmax(seg, self.up_kernel)
         # inputs not divisible by 8 round the feature grid up, so the
