@@ -1,5 +1,5 @@
 """Video segmentation CLI of the port (counterpart of ``tpuseg/cli/seg_video.py``,
-exact mode, dense or pruned).
+exact mode, dense or pruned, float or int8).
 
 Runs DRNSeg with random weights from seed 0 over a generated video, batch by
 batch, and prints one JSON line with the end-to-end rate (and, with
@@ -7,7 +7,11 @@ batch, and prints one JSON line with the end-to-end rate (and, with
 ``--pr-config-path`` it serves the pruned model: masks from the pruner
 config (masker seed 0), applied to the weights, and every eligible masked
 conv lowered to a sparse plan; a ``{"event": "sparse_plans", ...}`` line
-comes before the result line.
+comes before the result line.  With ``--quantize`` the eligible convs of
+stages 4-8 (and the sparse plans that have an int8 lowering) run in int8,
+with activation scales per frame or, with ``--calibrate N``, static scales
+calibrated on the first N frames; an ``{"event": "int8_plans", ...}`` line
+counts the plans by kind.
 
 Usage:
   python -m tpuseg_torch.cli.seg_video --video shapes --size 1024x2048 \\
@@ -18,6 +22,10 @@ Usage:
       --batch 8 --frames 32 --device-fps \\
       --pr-config-path optimal_configs/drn_d_22/drn_d_22_block128reg_87.50.json \\
       --sparse-lowering pallas
+  python -m tpuseg_torch.cli.seg_video --video shapes --size 1024x2048 \
+      --batch 8 --frames 32 --device-fps --quantize --calibrate 8 \
+      [--pr-config-path optimal_configs/drn_d_22/drn_d_22_block128reg_87.50.json \
+       --sparse-lowering pallas]
 
 ``--device cuda`` (the default) raises when no CUDA device is present; there
 is no silent CPU fallback.
@@ -26,7 +34,9 @@ is no silent CPU fallback.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+from collections import Counter
 
 import torch
 
@@ -64,6 +74,16 @@ def parse_args(argv=None):
                    help="gathered-lowering form: 'exact' (per-out-block "
                         "supports; dead out-blocks emit zeros with no conv) "
                         "or 'split' (uniform repeat-padded supports)")
+    p.add_argument("--quantize", action="store_true",
+                   help="int8 serving: stride-1 convs of stages 4-8 with >= 128 "
+                        "channels run in int8 (symmetric PTQ, per-output-channel "
+                        "weight scales; tpuseg_torch.ops.quant), and with "
+                        "--pr-config-path the sparse plans that have an int8 "
+                        "lowering too.  Changes numerics: compare ids with the "
+                        "float run (tpuseg_torch.ops.quant.ids_agreement)")
+    p.add_argument("--calibrate", type=int, default=0, metavar="N",
+                   help="with --quantize: static activation scales calibrated on "
+                        "the first N frames of --video (default: per-frame scales)")
     p.add_argument("--device-fps", action="store_true",
                    help="also report the device rate at --size (CUDA events "
                         "over back-to-back dependent batches; CUDA only)")
@@ -121,14 +141,25 @@ def main(argv=None):
                           "total_masked": len(report),
                           "lowering": args.sparse_lowering,
                           "gathered_mode": args.gathered_mode}))
+    if args.calibrate and not args.quantize:
+        raise SystemExit("error: --calibrate needs --quantize")
+    frames = open_frames(args.video, args.frames, h, w)
+    calib = None
+    if args.quantize and args.calibrate > 0:
+        calib = list(itertools.islice(frames, args.calibrate))
     seg = VideoSegmenter(
         params, state, spec, mean, std,
         device=device,
         compute_dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
         batch=args.batch,
         exec_plans=exec_plans,
+        quantize=args.quantize,
+        calib_frames=calib,
     )
-    frames = open_frames(args.video, args.frames, h, w)
+    if args.quantize:
+        kinds = Counter(type(plan).__name__ for plan in seg.exec_plans.values())
+        print(json.dumps({"event": "int8_plans", "kinds": kinds,
+                          "calibrated_frames": len(calib or ())}))
     result = seg.run(frames, max_frames=args.frames, need_color=False)
     if result["frames"] == 0:
         raise SystemExit(f"error: no frames from {args.video}")

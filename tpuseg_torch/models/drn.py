@@ -6,8 +6,9 @@ init are copied from there unchanged, so one seed gives identical weights in
 both packages.  The forward is the eval path only: dense convs through
 ``torch.nn.functional.conv2d`` (cuDNN on the card), eval-mode BatchNorm or
 BN-folded biases, and the same residual rule.  Convs listed in a
-``sparse_plans`` dict (``tpuseg_torch.models.sparse_exec.build_sparse_plans``)
-run through their sparse lowering instead.  No train mode, no remat.
+``sparse_plans`` dict (``tpuseg_torch.models.sparse_exec.build_sparse_plans``,
+``tpuseg_torch.ops.quant.build_quant_plans``) run through their sparse or
+int8 lowering instead.  No train mode, no remat.
 
 Layout: parameters are a flat ``{torch-style name: tensor}`` dict with conv
 weights in OIHW (``tpuseg`` stores HWIO; ``tpuseg_torch.models.weights``
@@ -462,22 +463,29 @@ def batch_norm(
 
 
 def _sparse_conv(x, plan, cdef: ConvDef):
-    """One conv through its sparse plan, as ``tpuseg`` dispatches it
-    (drn.py:516-546): an ``RbgpPlan`` to ``rbgp_conv_apply``, a plan with
-    ``.apply`` (``CompactSparse``, ``GatheredGroupConv``) to it, otherwise
+    """One conv through its plan, as ``tpuseg`` dispatches it
+    (drn.py:516-546): an ``RbgpPlan`` to ``rbgp_conv_apply``, a
+    ``FusedSparseConvQ`` to the int8 block-sparse kernel, a plan with
+    ``.apply`` (``CompactSparse(Q)``, ``GatheredGroupConv(Q)``,
+    ``QuantConv``, calibration probes) to it, otherwise
     (``FusedSparseConv``) to the fused block-sparse kernel.  NCHW in and
-    out; the plans take NHWC, which is a view of channels_last x."""
+    out; the plans take NHWC-contiguous x, free when x is channels_last."""
     from tpuseg_torch.ops.rbgp_matmul import RbgpPlan, rbgp_conv_apply
-    from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_apply
+    from tpuseg_torch.ops.sparse_conv import (
+        FusedSparseConvQ,
+        fused_sparse_conv_apply,
+        fused_sparse_conv_apply_q,
+    )
 
-    xh = nchw_to_nhwc(x)
+    xh = nchw_to_nhwc(x).contiguous()
     if isinstance(plan, RbgpPlan):
         y = rbgp_conv_apply(xh, plan, cdef.stride, cdef.dilation, cdef.padding)
+    elif isinstance(plan, FusedSparseConvQ):
+        y = fused_sparse_conv_apply_q(xh, plan)
     elif hasattr(plan, "apply"):
         y = plan.apply(xh)
     else:
-        # the kernel takes NHWC-contiguous x: free when x is channels_last
-        y = fused_sparse_conv_apply(xh.contiguous(), plan)
+        y = fused_sparse_conv_apply(xh, plan)
     return nhwc_to_nchw(y)
 
 

@@ -1,5 +1,5 @@
 """Sparse DRN inference: masks -> per-conv execution plans (counterpart of
-``tpuseg/models/sparse_exec.py``, float lowerings).
+``tpuseg/models/sparse_exec.py``).
 
 ``build_sparse_plans`` walks every masked conv of a DRN spec and decides,
 in ``tpuseg``'s order and with its rules and report strings:
@@ -18,6 +18,11 @@ The plan dtype is fixed here (bf16 by default, as ``tpuseg`` builds its
 plans) and is independent of the serving dtype: the fused kernel casts x to
 it.  Plans are built on the CPU; ``plans_to`` moves a plan dict to the card.
 Use BN-folded weights (``tpuseg_torch.ops.fold_bn``).
+
+``quantize_sparse_plans`` lifts a plan dict to int8 where ``tpuseg`` has an
+int8 lowering (``FusedSparseConv`` -> ``FusedSparseConvQ``, ``CompactSparse``
+-> ``CompactSparseQ``, ``GatheredGroupConv`` -> ``GatheredGroupConvQ``, all
+run by kernel B3 on the card); RBGP plans pass through as float.
 """
 
 from __future__ import annotations
@@ -29,12 +34,19 @@ import numpy as np
 import torch
 
 from tpuseg_torch.models.drn import DrnSpec
-from tpuseg_torch.ops.gathered_conv import plan_gathered_conv
+from tpuseg_torch.ops.gathered_conv import (
+    GatheredGroupConv,
+    plan_gathered_conv,
+    quantize_gathered_plan,
+)
 from tpuseg_torch.ops.rbgp_matmul import plan_rbgp
 from tpuseg_torch.ops.sparse_conv import (
     FusedSparseConv,
+    FusedSparseConvQ,
     fused_sparse_conv_apply,
+    fused_sparse_conv_apply_q,
     plan_fused_sparse_conv,
+    quantize_fused_plan,
 )
 
 # Max live-block density at which a 1x1 conv still pays for the gathered
@@ -58,6 +70,41 @@ class CompactSparse:
 
     def to(self, device) -> "CompactSparse":
         return CompactSparse(self.live_in.to(device), self.inner.to(device))
+
+
+@dataclasses.dataclass
+class CompactSparseQ:
+    """``CompactSparse`` with an int8 inner plan: the live channels are
+    gathered first, then quantized (the per-frame scale is taken over the
+    gathered x, as in ``tpuseg``) inside kernel B3's wrapper."""
+
+    live_in: torch.Tensor  # (n_live,) int64 input-channel gather
+    inner: FusedSparseConvQ
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return fused_sparse_conv_apply_q(x.index_select(3, self.live_in), self.inner)
+
+    def to(self, device) -> "CompactSparseQ":
+        return CompactSparseQ(self.live_in.to(device), self.inner.to(device))
+
+
+def quantize_sparse_plans(plans: Mapping, x_scales: Mapping | None = None) -> dict:
+    """Lift a plan dict to int8 where an int8 lowering exists; other plan
+    kinds pass through unchanged.  ``x_scales`` maps conv name -> static
+    activation scale (``tpuseg_torch.ops.quant.calibrate_scales``); convs
+    without one quantize x per frame."""
+    out: dict = {}
+    for name, p in plans.items():
+        xs = (x_scales or {}).get(name)
+        if isinstance(p, FusedSparseConv):
+            out[name] = quantize_fused_plan(p, x_scale=xs)
+        elif isinstance(p, CompactSparse):
+            out[name] = CompactSparseQ(p.live_in, quantize_fused_plan(p.inner, x_scale=xs))
+        elif isinstance(p, GatheredGroupConv):
+            out[name] = quantize_gathered_plan(p, x_scale=xs)
+        else:
+            out[name] = p
+    return out
 
 
 def plans_to(plans: Mapping | None, device) -> dict | None:

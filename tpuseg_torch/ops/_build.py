@@ -2,7 +2,8 @@
 
 ``nvcc`` compiles every ``tpuseg_torch/csrc/*.cu`` into one shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds).  The library lives in ``tpuseg_torch/_build/`` under a
+build takes seconds): one ``nvcc -c`` per source, all started together,
+then one link.  The library lives in ``tpuseg_torch/_build/`` under a
 name keyed by a hash of the sources and flags; it is built to a temporary
 name and moved into place with ``os.replace``, so concurrent builds (test
 workers, several processes on one host) never load a half-written file.
@@ -75,21 +76,32 @@ def build_library(src_dir: str = SRC_DIR, build_dir: str = BUILD_DIR) -> tuple[s
         return out, ""
     nvcc = find_nvcc()
     os.makedirs(build_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=build_dir)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources(src_dir)],
-            capture_output=True, text=True,
-        )
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    log = []
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp_dir:
+        objs, procs = [], []
+        for src in _sources(src_dir):
+            obj = os.path.join(tmp_dir, os.path.basename(src) + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *compile_flags, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for src, proc in zip(_sources(src_dir), procs):
+            text, _ = proc.communicate()
+            log.append(text)
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n{text}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = os.path.join(tmp_dir, "lib.so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        log.append(proc.stdout + proc.stderr)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log[-1]}")
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out, proc.stdout + proc.stderr
+    return out, "".join(log)
 
 
 @functools.cache
@@ -120,6 +132,19 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,                  # cudaStream_t
     ]
     lib.tpuseg_sparse_conv.restype = ctypes.c_int
+    lib.tpuseg_sparse_conv_q.argtypes = [
+        ctypes.c_void_p,                  # xq (N, H, W, Cin) int8, NHWC
+        ctypes.c_void_p,                  # vals_k (nmb, T*S, 128, 128) int8, K-major
+        ctypes.c_void_p,                  # rows (nmb, S) int32
+        ctypes.c_void_p,                  # w_scale (nmb, 1, 128) f32
+        ctypes.c_void_p,                  # x_scale (N,) f32, per frame
+        ctypes.c_void_p,                  # out (N, H, W, Cout) f32
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n h w
+        ctypes.c_int, ctypes.c_int,       # cin cout
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # s kernel dilation
+        ctypes.c_void_p,                  # cudaStream_t
+    ]
+    lib.tpuseg_sparse_conv_q.restype = ctypes.c_int
     lib.tpuseg_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tpuseg_cuda_error_string.restype = ctypes.c_char_p
     return lib

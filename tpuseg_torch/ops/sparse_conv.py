@@ -26,6 +26,20 @@ f32 (N, H, W, Cout) result.
   it launches the hand-written kernel ``tpuseg_torch/csrc/sparse_conv.cu``
   (the port of ``tpuseg.ops.sparse_conv.fused_sparse_conv_apply``); on a
   CPU tensor it runs the plain version.
+
+The int8 half (``tpuseg``'s ``FusedSparseConvQ``, ``quantize_fused_plan``,
+``fused_sparse_conv_apply_q``): per-output-channel symmetric int8 weights,
+x quantized per frame (dynamic absmax) or with a static scale, an exact
+integer conv and the epilogue ``float(acc) * (x_scale[n] * w_scale[o])``.
+
+- ``quantize_activation``: ``tpuseg``'s x quantization, op for op.
+- ``int_conv_exact``: the integer conv in float64, exact below 2**53.
+- ``fused_sparse_conv_q_reference``: the plain version (quantize, exact
+  integer conv on the dense weight rebuilt from the packing, epilogue).
+- ``fused_sparse_conv_apply_q``: the serving entry point.  On a CUDA
+  tensor it quantizes x and launches ``tpuseg_torch/csrc/sparse_conv_q.cu``
+  (kernel B3, the port of ``fused_sparse_conv_apply_q``); on a CPU tensor
+  it runs the plain version.
 """
 
 from __future__ import annotations
@@ -57,7 +71,6 @@ class FusedSparseConv:
     cin: int
     cout: int
     block_density: float
-    rows_per_tile: int = 8  # tpuseg's TPU row tile, kept as a field; nothing reads it
 
     def to(self, device) -> "FusedSparseConv":
         """The plan with ``vals``/``rows`` on ``device`` (dtype unchanged)."""
@@ -192,3 +205,203 @@ def fused_sparse_conv_apply(x: torch.Tensor, plan: FusedSparseConv) -> torch.Ten
 
 
 fused_sparse_conv_apply.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Int8: FusedSparseConvQ and kernel B3
+# ---------------------------------------------------------------------------
+
+QMAX = 127  # symmetric int8 range [-127, 127]
+
+
+@dataclasses.dataclass
+class FusedSparseConvQ:
+    """Int8 packing of a ``FusedSparseConv``: ``vals``/``w_scale``/``rows``
+    are ``tpuseg``'s arrays value for value; ``vals_k`` is the kernel's
+    K-major copy of ``vals`` (int8 tensor-core MMA takes both operands
+    K-major), derived from ``vals`` when the plan is made."""
+
+    vals: torch.Tensor     # (nmb, T*S*bk, bm) int8
+    w_scale: torch.Tensor  # (nmb, 1, bm) f32 per-output-channel
+    rows: torch.Tensor     # (nmb, S) int32
+    taps: np.ndarray
+    s: int
+    bk: int
+    bm: int
+    kernel: int
+    dilation: int
+    cin: int
+    cout: int
+    block_density: float
+    x_scale: float | None = None  # static activation scale; None = per frame
+    vals_k: torch.Tensor | None = None  # (nmb, T*S, bm, bk) int8: vals per tile, transposed
+
+    def __post_init__(self):
+        if self.vals_k is None:
+            nmb, tsk, bm = self.vals.shape
+            self.vals_k = (self.vals.reshape(nmb, tsk // self.bk, self.bk, bm)
+                           .transpose(2, 3).contiguous())
+
+    def to(self, device) -> "FusedSparseConvQ":
+        """The plan with its tensors on ``device`` (dtypes unchanged)."""
+        return dataclasses.replace(
+            self, vals=self.vals.to(device), w_scale=self.w_scale.to(device),
+            rows=self.rows.to(device), vals_k=self.vals_k.to(device))
+
+
+def quantize_fused_plan(plan: FusedSparseConv, x_scale: float | None = None) -> FusedSparseConvQ:
+    """Quantize a packed plan to int8 with per-output-channel scales over
+    the packed values: ``tpuseg``'s numpy on the plan's values as f32, so
+    ``vals``/``w_scale`` equal ``tpuseg``'s bit for bit."""
+    vals = plan.vals.detach().cpu().float().numpy()  # (nmb, TSbk, bm)
+    absmax = np.abs(vals).max(axis=1, keepdims=True)  # (nmb, 1, bm)
+    scale = np.maximum(absmax, 1e-8) / 127.0
+    vq = np.clip(np.round(vals / scale), -QMAX, QMAX).astype(np.int8)
+    return FusedSparseConvQ(
+        vals=torch.from_numpy(vq),
+        w_scale=torch.from_numpy(scale.astype(np.float32)),
+        rows=plan.rows.detach().cpu(),
+        taps=plan.taps,
+        s=plan.s,
+        bk=plan.bk,
+        bm=plan.bm,
+        kernel=plan.kernel,
+        dilation=plan.dilation,
+        cin=plan.cin,
+        cout=plan.cout,
+        block_density=plan.block_density,
+        x_scale=x_scale,
+    )
+
+
+def quantize_activation(x: torch.Tensor, x_scale: float | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(xq, xs)``: int8 ``xq`` of x's shape and the (N,) f32 per-frame
+    scales, ``tpuseg``'s ops in its order.  Dynamic (``x_scale`` None):
+    ``xs = max(max|x| over (H, W, C), 1e-8) / 127``; static: ``x_scale``
+    rounded to f32 for every frame.  Then ``xq = clip(round(x / xs), -127,
+    127)`` with round half to even.  Both divisions are true divisions by
+    a tensor: PyTorch multiplies by the reciprocal when the divisor is a
+    Python scalar, which can differ in the last bit.
+
+    Passes over x are few on purpose (this runs before every int8 conv):
+    the absmax is one fused reduction (the inf-norm; a max of magnitudes is
+    exact in any float dtype) and the division promotes a bf16 x to f32 as
+    it reads it (exact), so no f32 copy of x is made first."""
+    n = x.shape[0]
+    if x_scale is None:
+        absmax = torch.linalg.vector_norm(x.reshape(n, -1), ord=float("inf"), dim=1).float()
+        xs = absmax.clamp_min(1e-8) / torch.full_like(absmax, 127.0)
+    else:
+        xs = torch.full((n,), x_scale, dtype=torch.float32, device=x.device)
+    q = torch.div(x, xs.view((n,) + (1,) * (x.dim() - 1)))  # f32: xs is f32
+    return q.round_().clamp_(-QMAX, QMAX).to(torch.int8), xs
+
+
+def int_conv_exact(xq: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
+    """Stride-1 'same' conv of int8 NHWC ``xq`` with an integer-valued HWIO
+    weight, in float64: one matmul per tap over the padded input.  Every
+    partial sum is an integer below 2**53, so the result is exact whatever
+    the summation order.  Returns f64 (N, H, W, O)."""
+    kh, kw = w.shape[:2]
+    pad = dilation * (kh - 1) // 2
+    n, h, wd, _ = xq.shape
+    xp = F.pad(xq.to(torch.float64), (0, 0, pad, pad, pad, pad))
+    w = w.to(device=xq.device, dtype=torch.float64)
+    acc = None
+    for p in range(kh):
+        for q in range(kw):
+            tap = xp[:, p * dilation:p * dilation + h, q * dilation:q * dilation + wd] @ w[p, q]
+            acc = tap if acc is None else acc.add_(tap)
+    return acc
+
+
+def dequantize(acc: torch.Tensor, xs: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+    """``tpuseg``'s epilogue: ``float32(acc) * (xs[n] * w_scale[o])``, the
+    scale product rounded to f32 first.  ``acc`` is an exact integer, so its
+    f32 rounding equals the kernel's int32 -> f32 conversion."""
+    n = xs.shape[0]
+    return acc.to(torch.float32) * (xs.view(n, 1, 1, 1) * w_scale.reshape(1, 1, 1, -1))
+
+
+def fused_sparse_conv_q_reference(x: torch.Tensor, plan: FusedSparseConvQ) -> torch.Tensor:
+    """Plain version of B3: quantize x, rebuild the dense HWIO int8 weight
+    from ``vals``/``rows`` (padded slots add zeros), compute the integer conv
+    exactly (``int_conv_exact``), apply the epilogue.  NHWC in, f32 out."""
+    xq, xs = quantize_activation(x, plan.x_scale)
+    k, S, bk, bm = plan.kernel, plan.s, plan.bk, plan.bm
+    nmb = plan.cout // bm
+    vals = plan.vals.to(torch.float64).reshape(nmb, k, k, S, bk, bm)
+    w = torch.zeros((k, k, plan.cin, plan.cout), dtype=torch.float64, device=vals.device)
+    for jb, blocks in enumerate(plan.rows.tolist()):
+        for s_i, kb in enumerate(blocks):
+            w[:, :, kb * bk:(kb + 1) * bk, jb * bm:(jb + 1) * bm] += vals[jb, :, :, s_i]
+    return dequantize(int_conv_exact(xq, w, plan.dilation), xs, plan.w_scale)
+
+
+def _check_q(x: torch.Tensor, plan: FusedSparseConvQ) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"x must be (N, H, W, Cin), got shape {tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be NHWC-contiguous")
+    if x.shape[3] != plan.cin:
+        raise ValueError(f"x has {x.shape[3]} channels, the plan {plan.cin}")
+    tensors = (plan.vals, plan.vals_k, plan.rows, plan.w_scale)
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"plan on {plan.vals.device}, x on {x.device}")
+    nmb, T, S = plan.cout // plan.bm, plan.kernel * plan.kernel, plan.s
+    if (plan.vals.dtype != torch.int8 or plan.vals_k.dtype != torch.int8
+            or plan.rows.dtype != torch.int32 or plan.w_scale.dtype != torch.float32
+            or tuple(plan.vals.shape) != (nmb, T * S * plan.bk, plan.bm)
+            or tuple(plan.vals_k.shape) != (nmb, T * S, plan.bm, plan.bk)
+            or tuple(plan.rows.shape) != (nmb, S)
+            or tuple(plan.w_scale.shape) != (nmb, 1, plan.bm)
+            or not all(t.is_contiguous() for t in tensors)):
+        raise ValueError("int8 plan does not match its geometry (contiguous int8 vals "
+                         f"{(nmb, T * S * plan.bk, plan.bm)}, vals_k "
+                         f"{(nmb, T * S, plan.bm, plan.bk)}, int32 rows {(nmb, S)}, "
+                         f"f32 w_scale {(nmb, 1, plan.bm)})")
+    if plan.kernel % 2 == 0:
+        raise ValueError(f"'same' padding needs an odd kernel, got {plan.kernel}")
+    if QMAX * QMAX * T * S * plan.bk >= 2**31:
+        raise ValueError(f"k={plan.kernel}, S={S}: the int32 sum could overflow")
+    if max(x.shape) > 2**31 - 1:
+        raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's int sizes")
+
+
+def fused_sparse_conv_apply_q(x: torch.Tensor, plan: FusedSparseConvQ) -> torch.Tensor:
+    """Int8 stride-1 'same' block-sparse conv of NHWC-contiguous float ``x``
+    -> f32 (N, H, W, Cout).
+
+    On a CUDA tensor this quantizes x (``quantize_activation``), launches
+    the CUDA kernel on the current stream, counts the launch in
+    ``fused_sparse_conv_apply_q.launches`` and raises if the launch fails;
+    on a CPU tensor it runs ``fused_sparse_conv_q_reference``.  Nothing
+    falls back: A/B checks call the plain version by name."""
+    _check_q(x, plan)
+    if x.device.type == "cpu":
+        return fused_sparse_conv_q_reference(x, plan)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    from tpuseg_torch.ops._build import load_library
+
+    xq, xs = quantize_activation(x, plan.x_scale)
+    n, h, w, cin = x.shape
+    out = torch.empty((n, h, w, plan.cout), dtype=torch.float32, device=x.device)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.tpuseg_sparse_conv_q(
+            xq.data_ptr(), plan.vals_k.data_ptr(), plan.rows.data_ptr(),
+            plan.w_scale.data_ptr(), xs.data_ptr(), out.data_ptr(),
+            n, h, w, cin, plan.cout, plan.s, plan.kernel, plan.dilation, stream,
+        )
+    if err != 0:
+        msg = lib.tpuseg_cuda_error_string(err).decode()
+        raise RuntimeError(f"sparse_conv_q kernel launch failed: {msg} ({err})")
+    fused_sparse_conv_apply_q.launches += 1
+    return out
+
+
+fused_sparse_conv_apply_q.launches = 0

@@ -1,13 +1,13 @@
 """Video segmentation serving: frames -> device -> fused inference -> ids.
 
-Counterpart of ``tpuseg/video/pipeline.py`` in exact mode, dense or with
-float sparse execution plans (no temporal reuse, int8, device resize or
-device outputs yet).  Per batch of flat uint8 frames the device runs the
-BN-folded polyphase frontend (normalize fused after space-to-depth), the
-dilated stages, the 1x1 seg head and the fused x8 upsample+argmax CUDA
-kernel; only uint8 frames go up and uint8 class ids come down.  Color and
-overlay are rebuilt on the host from the ids (an integer gather,
-bit-identical to doing it on the device).
+Counterpart of ``tpuseg/video/pipeline.py`` in exact mode: dense, with
+sparse execution plans, or int8 (``quantize=True``, optionally calibrated);
+no temporal reuse, int8 stem, device resize or device outputs yet.  Per
+batch of flat uint8 frames the device runs the BN-folded polyphase frontend
+(normalize fused after space-to-depth), the dilated stages, the 1x1 seg
+head and the fused x8 upsample+argmax CUDA kernel; only uint8 frames go up
+and uint8 class ids come down.  Color and overlay are rebuilt on the host
+from the ids (an integer gather, bit-identical to doing it on the device).
 
 ``run`` keeps two batches in flight: each batch's ids are copied to pinned
 host memory with ``non_blocking=True`` and a CUDA event marks the copy's
@@ -27,9 +27,10 @@ from tpuseg_torch.device import resolve_device
 from tpuseg_torch.metrics.meters import FpsMeter
 from tpuseg_torch.models.drn import DrnSpec
 from tpuseg_torch.models.drnseg import drnseg_logits
-from tpuseg_torch.models.sparse_exec import plans_to
+from tpuseg_torch.models.sparse_exec import plans_to, quantize_sparse_plans
 from tpuseg_torch.ops.fold_bn import fold_bn
 from tpuseg_torch.ops.polyphase import FusedStage3Frontend, PolyphaseFrontend
+from tpuseg_torch.ops.quant import build_quant_plans, calibrate_scales
 from tpuseg_torch.ops.upsample import upsample_argmax
 
 
@@ -68,7 +69,16 @@ class VideoSegmenter:
     ``exec_plans`` serves a pruned model: a per-conv plan dict from
     ``tpuseg_torch.models.sparse_exec.build_sparse_plans`` (built from the
     same masked weights, BN-folded), moved to ``device`` once here.  Its
-    dtype is the plans' own, independent of ``compute_dtype``."""
+    dtype is the plans' own, independent of ``compute_dtype``.
+
+    ``quantize=True`` runs the eligible convs of stages 4-8 in int8
+    (``tpuseg_torch.ops.quant.build_quant_plans``, built from the f32 folded
+    weights before they are cast), with per-frame activation scales; given
+    ``calib_frames`` ((H, W, 3) uint8 frames at the serving size) the scales
+    are calibrated (``calibrate_scales``) and static.  The user's
+    ``exec_plans`` are lifted to int8 with the same scales
+    (``quantize_sparse_plans``) and take precedence per conv, as in
+    ``tpuseg``."""
 
     def __init__(
         self,
@@ -84,6 +94,8 @@ class VideoSegmenter:
         palette: np.ndarray = CITYSCAPE_PALETTE,
         want_overlay: bool = False,
         exec_plans: dict | None = None,
+        quantize: bool = False,
+        calib_frames=None,
     ):
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
@@ -111,9 +123,41 @@ class VideoSegmenter:
             if v.dim() == 4:
                 v = v.contiguous(memory_format=torch.channels_last)
             self.params[k] = v
-        self.exec_plans = plans_to(exec_plans, self.device)
         self.mean = torch.tensor(mean, dtype=torch.float32, device=self.device)
         self.std = torch.tensor(std, dtype=torch.float32, device=self.device)
+        if quantize:
+            # int8 plans from the f32 folded weights (``folded`` is still f32
+            # on the host: only ``self.params`` were cast)
+            exec_plans = self._int8_plans(folded, exec_plans, calib_frames, mean, std)
+        self.exec_plans = plans_to(exec_plans, self.device)
+
+    def _int8_plans(self, folded, user_plans, calib_frames, mean, std) -> dict:
+        """``tpuseg``'s order: dense int8 plans; with calibration frames,
+        static scales from a float forward on this device, then the plans
+        rebuilt with them; the user's plans lifted with the same scales and
+        merged over the dense ones."""
+        plans = build_quant_plans(folded, self.spec)
+        scales = None
+        if calib_frames is not None and len(calib_frames) and plans:
+            arr = np.stack([np.asarray(f) for f in calib_frames])
+            # the frontend needs H and W divisible by 8 (the serving gate in
+            # ids_for); otherwise calibrate on the normalized non-stem path
+            use_stem = arr.shape[1] % 8 == 0 and arr.shape[2] % 8 == 0
+            if use_stem:
+                cal = arr.reshape(arr.shape[0], arr.shape[1], -1)  # raw flat bytes
+            else:
+                cal = ((arr.astype(np.float32) / 255.0 - np.asarray(mean, np.float32))
+                       / np.asarray(std, np.float32))
+            batches = [cal[i:i + self.batch] for i in range(0, len(cal), self.batch)]
+            scales = calibrate_scales(
+                self.params, {}, self.spec, batches, plans=plans,
+                compute_dtype=self.compute_dtype,
+                stem_fn=self.stem_fn if use_stem else None,
+                stem_stages=self.stem_stages if use_stem else 1)
+            plans = build_quant_plans(folded, self.spec, x_scales=scales)
+        if user_plans:
+            plans = {**plans, **quantize_sparse_plans(user_plans, x_scales=scales)}
+        return plans
 
     @torch.inference_mode()
     def ids_for(self, frames_u8: torch.Tensor) -> torch.Tensor:
