@@ -46,8 +46,33 @@ Phases (any failed check raises and the exit code is non-zero):
      calibrated vs dynamic >= INT8_FULL_MIN (0.9 dense, 0.85 pruned);
  13. device fps at batch 32 of those four int8 variants, and B3 vs its plain
      version vs B2 vs the dense cuDNN bf16 conv at layer.6.1.conv2, with the
-     quantize pass and a dense conv through B3.
-The line before the last is the kernels' JSON record; the last line is
+     quantize pass and a dense conv through B3;
+ 14. B4 (``bsr_matmul_xw``, B2's kernel at k=1) and ``sparse_conv_apply``
+     vs their plain versions (TF32 off): the CPU tests' cases in f32 and
+     bf16, x (32768, 512) and (1048576, 512) bf16 against a 512x512
+     BlockPruner 87.5 % weight, the bench's 3x3 d=2 and 1x1 convs at each of
+     its sparsities at batch 1 and the 3x3 at 87.5 % at batch 32, with B4
+     launched exactly once per tap; a non-contiguous x must raise;
+ 15. B5/B6 (``bsr_matmul``, ``bsr_matmul_gathered``: ``csrc/bsr_matmul.cu``)
+     vs their plain version: the CPU tests' cases (ragged rows, an empty
+     row, an all-zero W, a ragged N), and a 512x512 87.5 % W, which has empty
+     rows, on x (512, 32768) and (512, 1048576) bf16;
+ 16. B7a-f (B2's kernel on their packings) vs ``fused_sparse_conv_reference``
+     on the same packing: the CPU tests' kinds, every plan the bench's fused
+     mode launches (each sparsity, the all-ones shared plan) at batch 1, and
+     the 87.5 % plans at batch 32;
+ 17. this slice's paths with every launch count zeroed just before and read
+     just after: ``python -m tpuseg_torch.bench_sparse --fused``'s
+     ``main`` (the bench's main and fused modes: B2, B3, B4, B7a-f) and one
+     call each of ``bsr_matmul`` and ``bsr_matmul_gathered`` at the batch-32
+     shape; exact launch counts;
+ 18. B4, B5, B6 and B7a-f at their batch-32 shapes in turns against their
+     plain versions and one PyTorch call of the same function (a bf16
+     ``torch.matmul`` of the masked dense W, or the masked dense cuDNN
+     conv), a yardstick the port never calls.
+The line before the last is the kernels' JSON record (each kernel's time,
+its plain version's, its bound at the card's published peaks and the
+PyTorch call's, at its main shape); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -94,6 +119,25 @@ INT8_PARITY_MIN = 0.97
 # run at 1024x2048 reads about 0.89, so its floor is 0.85; a broken int8
 # conv reads far lower.
 INT8_FULL_MIN = {"dense": 0.9, "dense_calibrated": 0.9, "pallas": 0.85, "gathered": 0.85}
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense rates, at
+# the full 700 W): each kernel's bound is the larger of its bytes (each
+# input the function needs read once: the nonzero 128x128 weight tiles and
+# the input channel blocks they read; each output written once) over the
+# memory rate and its operations (those nonzero tiles' products) over the
+# peak of their type.
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# slice 4: the bench's conv (bench_sparse's layer-6 shape) at batch 1 and 32
+BENCH_BATCH32 = (32, 128, 256, 512)
+P32 = 32 * 128 * 256  # pixels of the batch-32 conv, the rows of B4's x
+B7_ENTRIES = {  # entry point -> (ROADMAP id, packing, tpuseg/ops/sparse_conv.py line)
+    "shared_sparse_conv_apply": ("B7a", "shared", 450),
+    "fused_phase_sparse_conv_apply": ("B7b", "fused", 555),
+    "imcol_phase_sparse_conv_apply": ("B7c", "fused", 684),
+    "cphase_sparse_conv_apply": ("B7d", "fused", 826),
+    "phase_sparse_conv_apply": ("B7e", "shared", 952),
+    "shared_concat_sparse_conv_apply": ("B7f", "shared", 1091),
+}
 
 
 def _emit(**kw) -> None:
@@ -125,6 +169,60 @@ def _time_turns(torch, fns: dict, iters: dict) -> dict:
     for name in order:
         out[name].append(_time_ms(torch, fns[name], iters[name]))
     return out
+
+
+def _bound(nbytes: float, ops: float, peak: str) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of bytes / memory rate and
+    operations / the peak of their type."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[peak] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _live_tiles(vals) -> int:
+    """Nonzero 128x128 weight tiles of a packing's ``vals`` (every packing
+    stacks its tiles as 128-row slices of a (..., 128) tensor)."""
+    return int((vals.reshape(-1, 128 * 128) != 0).any(1).sum())
+
+
+def _live_in_blocks(vals, rows) -> int:
+    """The 128-channel in-blocks that some nonzero tile of a B2-layout
+    packing reads: ``rows`` (nmb, S) names each slot's in-block, ``vals``
+    (nmb, T*S*128, 128) holds T tiles per slot.  Only these blocks of x
+    enter the function, so a bound counts only their bytes."""
+    nmb, s = rows.shape
+    live = (vals.reshape(nmb, -1, s, 128 * 128) != 0).any(-1).any(1)  # (nmb, S)
+    return len(set(rows[live].tolist()))
+
+
+def _b2_bound(pixels: int, vals, rows, out_channels: int) -> tuple[float, str]:
+    """Bound of B2's function on a bf16 packing over ``pixels`` output
+    pixels: the bf16 x of the in-blocks live tiles read, the live tiles and
+    ``rows`` read once, the f32 y written once; 2*128*128 operations per
+    live tile and pixel."""
+    live = _live_tiles(vals)
+    return _bound(pixels * _live_in_blocks(vals, rows) * 128 * 2 + live * 128 * 128 * 2
+                  + rows.numel() * 4 + pixels * out_channels * 4,
+                  2 * pixels * live * 128 * 128, "bf16")
+
+
+def _close(torch, np, phase, got, want, k_len, **info) -> float:
+    """Raise unless ``got`` is within 2*K*eps of ``want`` relative to
+    max|want| (never looser than 1e-3), K the contraction length: two f32
+    sums of the same exact products in other orders.  Returns the max abs
+    error."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.float32, (
+        got.shape, want.shape, got.dtype, want.dtype)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    tol = min(1e-3, 2 * k_len * float(np.finfo(np.float32).eps))
+    rel = err / scale if scale > 0 else err
+    _emit(phase=phase, max_abs_err=err, rel_err=rel, tol_rel=tol, max_abs_want=scale, **info)
+    if (scale == 0 and err != 0) or rel > tol:
+        raise AssertionError(f"{phase}: kernel differs from its plain version: {rel} > {tol} "
+                             f"({info})")
+    return err
 
 
 def _b2_mask(rng, k, cin, cout, s, dead_out=False):
@@ -405,6 +503,375 @@ def _pruned(torch, params, state, spec, config, lowering, dtype):
     return masked, plans, report
 
 
+def _bench_problem(torch, dev, smi):
+    """The bench's problem: (3x3 OIHW weight, 1x1 OIHW weight, x (1, 128,
+    256, 512) bf16 on the card), drawn as ``tpuseg_torch.bench_sparse``
+    draws them."""
+    from tpuseg_torch import bench_sparse
+
+    rng, w, x = bench_sparse.Bench(dev, smi).problem()
+    return w, bench_sparse.conv1x1_weight(rng), x
+
+
+def _matrix_mask(np, rng, shape, sparsity=0.875):
+    """A (rows, cols) weight and its BlockPruner 128x128 mask."""
+    from tpuseg_torch.sparsity.block import BlockConfig, prune_as_block
+
+    w = (rng.normal(size=shape) * 0.05).astype(np.float32)
+    return w, prune_as_block(w, BlockConfig(sparsity, 128, 128, -1, -1, True))
+
+
+def _b4_vs_plain(torch, np, dev, rng, smi) -> float:
+    """Phase 14: B4 and sparse_conv_apply vs their plain versions."""
+    from tpuseg_torch import bench_sparse
+    from tpuseg_torch.ops import sparse_conv as sc
+
+    worst = 0.0
+
+    def check(x, packed, case):
+        nonlocal worst
+        got, want = sc.bsr_matmul_xw(x, packed), sc.bsr_matmul_xw_reference(x, packed)
+        worst = max(worst, _close(torch, np, "b4_vs_plain", got, want, packed.s * 128,
+                                  case=case, shape=list(x.shape), dtype=str(x.dtype)))
+
+    def block_w(K, M, density, dead_col=False):
+        nz = (rng.random((K // 128, M // 128)) < density).astype(np.float32)
+        nz[0] = 1
+        if dead_col:
+            nz[:, 1] = 0
+        return rng.normal(size=(K, M)).astype(np.float32) * np.kron(
+            nz, np.ones((128, 128), np.float32))
+
+    cases = [  # (P, K, M, density, kind): the CPU tests' kinds
+        (256, 256, 384, 0.4, ""), (200, 256, 384, 0.4, "ragged P"),
+        (384, 512, 256, 0.5, ""), (300, 384, 512, 0.5, "dead column"),
+        (130, 384, 512, 0.0, "all-zero W"), (257, 384, 512, 1.0, "full support"),
+    ]
+    for P, K, M, density, kind in cases:
+        wkm = block_w(K, M, density, dead_col=kind == "dead column")
+        if kind == "all-zero W":
+            wkm[:] = 0
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rng.normal(size=(P, K)).astype(np.float32)).to(dev, dtype)
+            check(x, sc.pack_xw_bsr(wkm, dtype).to(dev), kind)
+    w2, m2 = _matrix_mask(np, rng, (512, 512))
+    packed = sc.pack_xw_bsr(w2 * m2).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    for P in (32768, P32):
+        x = torch.randn((P, 512), generator=gen, device=dev, dtype=torch.bfloat16)
+        check(x, packed, "BlockPruner 87.5 %")
+    del x
+    # sparse_conv_apply: the CPU tests' cases, then the bench's conv
+    for (k, d), dtype in [((1, 1), torch.float32), ((3, 1), torch.float32),
+                          ((3, 2), torch.float32), ((3, 2), torch.bfloat16)]:
+        wk = rng.normal(size=(256, 256, k, k)).astype(np.float32)
+        mk = np.broadcast_to(np.kron(np.array([[1, 1], [0, 1]], np.float32),
+                                     np.ones((128, 128), np.float32))[:, :, None, None],
+                             wk.shape).copy()
+        plan = sc.plan_sparse_conv(wk, mk, dtype=dtype).to(dev)
+        x = torch.from_numpy(rng.normal(size=(1, 8, 16, 256)).astype(np.float32)).to(dev, dtype)
+        _close(torch, np, "sparse_conv_apply_vs_plain", sc.sparse_conv_apply(x, plan, d),
+               sc.sparse_conv_reference(x, plan, d), sum(t[2].s for t in plan.taps) * 128,
+               k=k, dilation=d, dtype=str(dtype), shape=list(x.shape))
+
+    def check_conv(x, plan, dilation, case):
+        torch.cuda.synchronize()
+        sc.bsr_matmul_xw.launches = 0
+        got = sc.sparse_conv_apply(x, plan, dilation=dilation)
+        torch.cuda.synchronize()
+        launches = sc.bsr_matmul_xw.launches
+        _close(torch, np, "sparse_conv_apply_vs_plain", got,
+               sc.sparse_conv_reference(x, plan, dilation),
+               sum(t[2].s for t in plan.taps) * 128, k=plan.kernel, dilation=dilation,
+               dtype="torch.bfloat16", shape=list(x.shape), density=plan.density,
+               dense_taps=sum(t[3] for t in plan.taps), b4_launches=launches, case=case)
+        if launches != len(plan.taps):
+            raise AssertionError(f"sparse_conv_apply launched B4 {launches} times for "
+                                 f"{len(plan.taps)} taps")
+
+    # the bench's main mode: the 3x3 d=2 and the 1x1 conv at each sparsity,
+    # batch 1; then the 3x3 at 87.5 % at batch 32
+    w, w1, x1 = _bench_problem(torch, dev, smi)
+    for sparsity in bench_sparse.SPARSITIES:
+        for wk, d in ((w, 2), (w1, 1)):
+            plan = sc.plan_sparse_conv(wk, bench_sparse.block_mask(wk, sparsity)).to(dev)
+            check_conv(x1, plan, d, f"bench {wk.shape[2]}x{wk.shape[3]} {sparsity * 100} %, "
+                       "batch 1")
+    x = torch.randn(BENCH_BATCH32, generator=gen, device=dev, dtype=torch.bfloat16)
+    check_conv(x, sc.plan_sparse_conv(w, bench_sparse.block_mask(w, 0.875)).to(dev), 2,
+               "bench 3x3 87.5 %, batch 32")
+    del x
+    try:
+        sc.bsr_matmul_xw(torch.zeros((512, 64), device=dev, dtype=torch.bfloat16).t(), packed)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("B4 accepted a non-contiguous x")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _b56_vs_plain(torch, np, dev, rng) -> dict:
+    """Phase 15: B5/B6 vs their plain version; -> entry -> max abs error."""
+    from tpuseg_torch.ops import bsr
+
+    worst = {"bsr_matmul": 0.0, "bsr_matmul_gathered": 0.0}
+
+    def check(packed, x, case):
+        want = bsr.bsr_matmul_reference(packed, x)
+        for name in worst:
+            got = getattr(bsr, name)(packed, x)
+            worst[name] = max(worst[name], _close(
+                torch, np, "b56_vs_plain", got, want, 128 * max(packed.max_nnzb_row, 1),
+                entry=name, case=case, w=list(packed.shape), x=list(x.shape),
+                dtype=str(x.dtype), block_density=packed.block_density))
+            del got
+
+    def kron(c):
+        return np.kron(np.asarray(c, np.float32), np.ones((128, 128), np.float32))
+
+    cases = [  # (M, K, N, coarse mask or density, kind): the CPU tests' kinds
+        (256, 512, 256, 0.25, ""), (256, 512, 256, 0.5, ""), (256, 512, 256, 1.0, ""),
+        (384, 384, 128, [[1, 0, 0], [1, 1, 1], [0, 1, 0]], "ragged rows"),
+        (384, 512, 256, [[0, 1, 0, 1], [0, 0, 0, 0], [1, 1, 1, 0]], "empty row"),
+        (256, 256, 128, [[0, 0], [0, 0]], "all-zero W"),
+        (384, 384, 37, [[1, 0, 0], [1, 1, 1], [0, 1, 0]], "ragged N"),
+    ]
+    for M, K, N, mask, kind in cases:
+        if not isinstance(mask, list):
+            mask = (rng.random((M // 128, K // 128)) < mask).astype(np.float32)
+            mask[:, 0] = 1
+        w = rng.normal(size=(M, K)).astype(np.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            packed = bsr.pack_bsr(w, kron(mask), dtype=dtype).to(dev)
+            x = torch.from_numpy(rng.normal(size=(K, N)).astype(np.float32)).to(dev, dtype)
+            check(packed, x, kind)
+    w, m = _matrix_mask(np, rng, (512, 512))
+    packed = bsr.pack_bsr(w, m).to(dev)
+    if not (np.diff(packed.rowptr) == 0).any():
+        raise AssertionError("the 87.5 % W has no empty row block")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    for n in (32768, P32):
+        x = torch.randn((512, n), generator=gen, device=dev, dtype=torch.bfloat16)
+        check(packed, x, "BlockPruner 87.5 %, empty rows")
+    del x
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _b7_vs_plain(torch, np, dev, rng, smi) -> dict:
+    """Phase 16: each B7 entry point vs fused_sparse_conv_reference on the
+    packing it takes; -> entry -> max abs error."""
+    from tpuseg_torch import bench_sparse
+    from tpuseg_torch.ops import sparse_conv as sc
+
+    worst = {name: 0.0 for name in B7_ENTRIES}
+
+    def check(x, plans, case):
+        for packing, plan in plans.items():
+            want = sc.fused_sparse_conv_reference(x, plan)
+            k_len = plan.kernel * plan.kernel * plan.s * 128
+            for name, (_, pk, _) in B7_ENTRIES.items():
+                if pk != packing:
+                    continue
+                got = getattr(sc, name)(x, plan)
+                worst[name] = max(worst[name], _close(
+                    torch, np, "b7_vs_plain", got, want, k_len, entry=name, case=case,
+                    shape=list(x.shape), dtype=str(x.dtype), s=plan.s))
+                del got
+            del want
+
+    def plans(w, m, d, dtype):
+        return {"shared": sc.plan_shared_sparse_conv(w, m, d, dtype).to(dev),
+                "fused": sc.plan_fused_sparse_conv(w, m, d, dtype).to(dev)}
+
+    def kron_mask(nz, k, cout, cin):
+        m2 = np.kron(np.asarray(nz, np.float32).T, np.ones((128, 128), np.float32))
+        return np.broadcast_to(m2[:, :, None, None], (cout, cin, k, k)).copy()
+
+    # the CPU tests' kinds: test_sparse_conv.py's mask at d = 1, 2; an odd
+    # grid with a per-tap hole and a dead out-block
+    w = rng.normal(size=(256, 512, 3, 3)).astype(np.float32)
+    m = kron_mask([[0, 1], [1, 0], [0, 0], [0, 1]], 3, 256, 512)
+    for d in (1, 2):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rng.normal(size=(2, 8, 16, 512)).astype(np.float32)).to(dev, dtype)
+            check(x, plans(w, m, d, dtype), f"d={d}")
+    w = (rng.normal(size=(384, 384, 3, 3)) * 0.1).astype(np.float32)
+    m = kron_mask([[1, 0, 0], [0, 0, 0], [1, 1, 0]], 3, 384, 384)
+    m[:128, :, 0, 1] = 0
+    x = torch.from_numpy(rng.normal(size=(2, 7, 10, 384)).astype(np.float32)).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        check(x.to(dtype), plans(w, m, 2, dtype), "odd grid, per-tap hole, dead out-block")
+    # the bench's conv at batch 1 on every plan bench_fused launches (each
+    # sparsity, and the shared plan of an all-ones mask), then at batch 32
+    w, _, x1 = _bench_problem(torch, dev, smi)
+    bench_plans = {sparsity: plans(w, bench_sparse.block_mask(w, sparsity), 2, torch.bfloat16)
+                   for sparsity in bench_sparse.SPARSITIES}
+    for sparsity, p in bench_plans.items():
+        check(x1, p, f"bench {sparsity * 100} %, batch 1")
+    check(x1, {"shared": sc.plan_shared_sparse_conv(w, np.ones_like(w), 2).to(dev)},
+          "bench all-ones mask, batch 1")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    x = torch.randn(BENCH_BATCH32, generator=gen, device=dev, dtype=torch.bfloat16)
+    check(x, bench_plans[0.875], "bench 87.5 %, batch 32")
+    del x
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _slice4_paths(torch, dev) -> dict:
+    """Phase 17: this slice's paths, every launch count zeroed just before
+    and read just after: the bench's main and fused modes
+    (``tpuseg_torch.bench_sparse.main(["--fused"])``), then one call each of
+    ``bsr_matmul`` and ``bsr_matmul_gathered`` at the batch-32 shape.
+    -> entry -> launches."""
+    import numpy as np
+
+    from tpuseg_torch import bench_sparse
+    from tpuseg_torch.ops import bsr
+    from tpuseg_torch.ops import sparse_conv as sc
+
+    bench_entries = [sc.bsr_matmul_xw, sc.fused_sparse_conv_apply, sc.fused_sparse_conv_apply_q,
+                     *(getattr(sc, name) for name in B7_ENTRIES)]
+    torch.cuda.synchronize()
+    for e in bench_entries:
+        e.launches = 0
+    t0 = time.perf_counter()
+    rc = bench_sparse.main(["--fused"])
+    torch.cuda.synchronize()
+    launches = {e.__name__: e.launches for e in bench_entries}
+    bench_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"bench_sparse --fused returned {rc}")
+    # per timed function: one untimed and three timed loops of INNER calls
+    calls = 4 * bench_sparse.INNER
+    n_sp = len(bench_sparse.SPARSITIES)
+    want = {name: calls * n_sp for name in launches}
+    want["bsr_matmul_xw"] = calls * n_sp * (1 + bench_sparse.K * bench_sparse.K)  # a launch per tap
+    want["phase_sparse_conv_apply"] += calls  # the density-1.0 probe
+    _emit(phase="slice4_bench_path", command="python -m tpuseg_torch.bench_sparse --fused",
+          seconds=round(bench_s, 3), launches=launches, want=want)
+    if launches != want:
+        raise AssertionError(f"bench launches {launches}; want {want}")
+    rng = np.random.default_rng(4)
+    w, m = _matrix_mask(np, rng, (512, 512))
+    packed = bsr.pack_bsr(w, m).to(dev)
+    x = torch.randn((512, P32), device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    bsr.bsr_matmul.launches = bsr.bsr_matmul_gathered.launches = 0
+    y5 = bsr.bsr_matmul(packed, x)
+    y6 = bsr.bsr_matmul_gathered(packed, x)
+    torch.cuda.synchronize()
+    launches.update(bsr_matmul=bsr.bsr_matmul.launches,
+                    bsr_matmul_gathered=bsr.bsr_matmul_gathered.launches)
+    ok = bool(torch.isfinite(y5).all()) and torch.equal(y5, y6) and y5.shape == (512, P32)
+    _emit(phase="slice4_bsr_path", w=[512, 512], x=[512, P32], finite_and_equal=ok,
+          launches={k: launches[k] for k in ("bsr_matmul", "bsr_matmul_gathered")})
+    if not ok or launches["bsr_matmul"] != 1 or launches["bsr_matmul_gathered"] != 1:
+        raise AssertionError("bsr_matmul / bsr_matmul_gathered path failed")
+    del x, y5, y6
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _slice4_times(torch, np, dev, smi) -> dict:
+    """Phase 18: B4, B5, B6 and B7a-f at their batch-32 shapes, in turns
+    (plain, kernels, library, library, kernels, plain), with each one's
+    bound.  -> kernel name -> {ms, plain_ms, library_ms, bound_ms, bound_by}."""
+    import torch.nn.functional as F
+
+    from tpuseg_torch import bench_sparse
+    from tpuseg_torch.ops import bsr
+    from tpuseg_torch.ops import sparse_conv as sc
+
+    out = {}
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    # B4 and sparse_conv_apply
+    w2, m2 = _matrix_mask(np, rng, (512, 512))
+    packed = sc.pack_xw_bsr(w2 * m2).to(dev)
+    wd = torch.from_numpy(w2 * m2).to(dev, torch.bfloat16)
+    x = torch.randn((P32, 512), generator=gen, device=dev, dtype=torch.bfloat16)
+    turns = _time_turns(torch, {
+        "plain": lambda: sc.bsr_matmul_xw_reference(x, packed),
+        "kernel": lambda: sc.bsr_matmul_xw(x, packed),
+        "library": lambda: torch.matmul(x, wd),
+    }, {"plain": 2, "kernel": 10, "library": 10})
+    out["bsr_matmul_xw"] = {
+        "ms": min(turns["kernel"]), "plain_ms": min(turns["plain"]),
+        "library_ms": min(turns["library"]),
+        **dict(zip(("bound_ms", "bound_by"), _b2_bound(P32, packed.vals, packed.rows, 512)))}
+    _emit(phase="b4_time", x=list(x.shape), w="512x512 BlockPruner 87.5 %", s=packed.s,
+          live_tiles=_live_tiles(packed.vals),
+          live_in_blocks=_live_in_blocks(packed.vals, packed.rows), turns=turns,
+          **out["bsr_matmul_xw"], card=smi)
+    del x
+    # B5 and B6
+    bpacked = bsr.pack_bsr(w2, m2).to(dev)
+    wdm = torch.from_numpy(w2 * m2).to(dev, torch.bfloat16)
+    x = torch.randn((512, P32), generator=gen, device=dev, dtype=torch.bfloat16)
+    turns = _time_turns(torch, {
+        "plain": lambda: bsr.bsr_matmul_reference(bpacked, x),
+        "bsr_matmul": lambda: bsr.bsr_matmul(bpacked, x),
+        "bsr_matmul_gathered": lambda: bsr.bsr_matmul_gathered(bpacked, x),
+        "library": lambda: torch.matmul(wdm, x),
+    }, {"plain": 2, "bsr_matmul": 10, "bsr_matmul_gathered": 10, "library": 10})
+    # the x rows of the K-blocks that live tiles read, the live tiles, the
+    # CSR and the f32 y
+    live = (bpacked.vals.reshape(len(bpacked.colidx), -1) != 0).any(1).cpu().numpy()
+    b56_in_blocks = len(set(bpacked.colidx[live].tolist()))
+    b56 = dict(zip(("bound_ms", "bound_by"), _bound(
+        b56_in_blocks * 128 * P32 * 2 + int(live.sum()) * 128 * 128 * 2
+        + (bpacked.nrb + 1 + len(bpacked.colidx)) * 4 + 512 * P32 * 4,
+        2 * P32 * int(live.sum()) * 128 * 128, "bf16")))
+    for name in ("bsr_matmul", "bsr_matmul_gathered"):
+        out[name] = {"ms": min(turns[name]), "plain_ms": min(turns["plain"]),
+                     "library_ms": min(turns["library"]), **b56}
+    _emit(phase="b56_time", w="512x512 BlockPruner 87.5 %", x=list(x.shape),
+          nnzb=len(bpacked.colidx), live_in_blocks=b56_in_blocks, turns=turns, **b56,
+          card=smi)
+    del x
+    torch.cuda.empty_cache()
+    # B7a-f and sparse_conv_apply at the bench's conv, batch 32
+    w, _, _ = _bench_problem(torch, dev, smi)
+    m = bench_sparse.block_mask(w, 0.875)
+    plans = {"shared": sc.plan_shared_sparse_conv(w, m, 2).to(dev),
+             "fused": sc.plan_fused_sparse_conv(w, m, 2).to(dev)}
+    tplan = sc.plan_sparse_conv(w, m).to(dev)
+    wconv = torch.from_numpy(w * m).to(dev, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    x = torch.randn(BENCH_BATCH32, generator=gen, device=dev, dtype=torch.bfloat16)
+    xn = x.permute(0, 3, 1, 2)
+    fns = {"plain_fused": lambda: sc.fused_sparse_conv_reference(x, plans["fused"]),
+           "plain_shared": lambda: sc.fused_sparse_conv_reference(x, plans["shared"]),
+           "sparse_conv_apply": lambda: sc.sparse_conv_apply(x, tplan, 2),
+           "library": lambda: F.conv2d(xn, wconv, None, 1, 2, 2)}
+    for name, (_, pk, _) in B7_ENTRIES.items():
+        fns[name] = lambda f=getattr(sc, name), p=plans[pk]: f(x, p)
+    iters = {name: 2 if name.startswith("plain") else 10 for name in fns}
+    turns = _time_turns(torch, fns, iters)
+    for name, (_, pk, _) in B7_ENTRIES.items():
+        p = plans[pk]
+        out[name] = {
+            "ms": min(turns[name]), "plain_ms": min(turns[f"plain_{pk}"]),
+            "library_ms": min(turns["library"]),
+            **dict(zip(("bound_ms", "bound_by"), _b2_bound(P32, p.vals, p.rows, p.cout)))}
+    _emit(phase="b7_time", x=list(x.shape), k=3, dilation=2, mask="BlockPruner 87.5 %",
+          s={pk: p.s for pk, p in plans.items()},
+          live_tiles={pk: _live_tiles(p.vals) for pk, p in plans.items()},
+          live_in_blocks={pk: _live_in_blocks(p.vals, p.rows) for pk, p in plans.items()},
+          union_density=plans["shared"].union_density, turns=turns,
+          bounds={n: out[n]["bound_ms"] for n in B7_ENTRIES}, card=smi)
+    del x, xn
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -530,8 +997,13 @@ def main() -> int:
     kern = [_time_ms(torch, lambda: upsample_argmax(x, sym), 20) for _ in range(2)]
     plain.append(_time_ms(torch, lambda: upsample_argmax_reference(x, sym), 3))
     kernel_ms, plain_ms = min(kern), min(plain)
+    # B1's bound: logits read once, ids written once; per output pixel and
+    # class, 2 multiplies and an add of the column pass, the running max, and
+    # the row pass's 3 operations shared by 8 output columns: 4.375 f32 ops
+    n_out = SERVING_LOGITS[0] * 64 * SERVING_LOGITS[1] * SERVING_LOGITS[2]
+    b1_bound = _bound(x.numel() * 2 + n_out, n_out * SERVING_LOGITS[3] * 4.375, "f32")
     _emit(phase="kernel_time", shape=list(SERVING_LOGITS), dtype="bfloat16",
-          kernel_ms=kern, plain_ms=plain, card=smi)
+          kernel_ms=kern, plain_ms=plain, bound_ms=b1_bound[0], bound_by=b1_bound[1], card=smi)
     del x
 
     # 6. B2 vs plain on the card (f32 plain convs with TF32 off, set above)
@@ -614,9 +1086,11 @@ def main() -> int:
         "dense_cudnn": lambda: torch.nn.functional.conv2d(x_nchw, w_dense, None, 1, sd, sd),
     }, {"plain": 3, "kernel": 10, "dense_cudnn": 10})
     b2_ms, b2_plain_ms = min(turns["kernel"]), min(turns["plain"])
+    b2_cudnn_ms = min(turns["dense_cudnn"])
+    b2_bound = _b2_bound(sn * sh * sw, plan.vals, plan.rows, plan.cout)
     _emit(phase="b2_time", conv="layer.6.1.conv2", shape=[sn, sh, sw, sc], dilation=sd,
           s=plan.s, dtype="bfloat16", kernel_ms=turns["kernel"], plain_ms=turns["plain"],
-          dense_cudnn_ms=turns["dense_cudnn"],
+          dense_cudnn_ms=turns["dense_cudnn"], bound_ms=b2_bound[0], bound_by=b2_bound[1],
           kernel_tflops=2 * sn * sh * sw * sk * sk * plan.s * 128 * plan.cout / b2_ms / 1e9,
           card=smi)
 
@@ -732,41 +1206,62 @@ def main() -> int:
         "dense_cudnn": 10, "b3_dense_s4": 5})
     b3_ms, b3_plain_ms = min(turns["b3"]), min(turns["b3_plain"])
     k_ms = min(turns["b3_kernel_only"])
+    # the wrapper's function: bf16 x in (all of it: the per-frame scale is
+    # its absmax), the live int8 tiles, f32 y out, int8 operations
+    b3_live = _live_tiles(qplan.vals)
+    b3_bound = _bound(x.numel() * 2 + b3_live * 128 * 128 + qplan.w_scale.numel() * 4
+                      + qplan.rows.numel() * 4 + sn * sh * sw * qplan.cout * 4,
+                      2 * sn * sh * sw * b3_live * 128 * 128, "int8")
     _emit(phase="b3_time", conv="layer.6.1.conv2", shape=[sn, sh, sw, sc], dilation=sd,
           s=qplan.s, x_dtype="bfloat16", ms=turns, card=smi,
           kernel_tops=2 * sn * sh * sw * sk * sk * qplan.s * 128 * qplan.cout / k_ms / 1e9,
           dense_s4_tops=2 * sn * sh * sw * sk * sk * sc * qplan.cout
           / (min(turns["b3_dense_s4"]) - min(turns["quantize_pass"])) / 1e9)
 
+    del x, x_nchw, xq, out6
+    torch.cuda.empty_cache()
+
+    # 14-16. slice 4's kernels vs their plain versions (TF32 off, set above)
+    b4_err = _b4_vs_plain(torch, np, dev, rng, smi)
+    b56_err = _b56_vs_plain(torch, np, dev, rng)
+    b7_err = _b7_vs_plain(torch, np, dev, rng, smi)
+    # 17. this slice's paths, counts zeroed just before each
+    s4_launches = _slice4_paths(torch, dev)
+    # 18. times at the batch-32 shapes
+    s4_times = _slice4_times(torch, np, dev, smi)
+
     _emit(phase="total", seconds=round(time.perf_counter() - t_start, 1))
-    print(json.dumps({"kernels": [{
-        "name": "upsample_argmax",
-        "route": "cuda",
-        "source": "tpuseg_torch/csrc/upsample_argmax.cu",
-        "replaces": "tpuseg/ops/upsample.py:91",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "sparse_conv",
-        "route": "cuda",
-        "source": "tpuseg_torch/csrc/sparse_conv.cu",
-        "replaces": "tpuseg/ops/sparse_conv.py:270",
-        "launches": b2_launches,
-        "max_abs_err": b2_err,
-        "ms": b2_ms,
-        "plain_ms": b2_plain_ms,
-    }, {
-        "name": "sparse_conv_q",
-        "route": "cuda",
-        "source": "tpuseg_torch/csrc/sparse_conv_q.cu",
-        "replaces": "tpuseg/ops/sparse_conv.py:1294",
-        "launches": b3_launches,
-        "max_abs_err": b3_err,
-        "ms": b3_ms,
-        "plain_ms": b3_plain_ms,
-    }]}), flush=True)
+    sc_src, b2_src = "tpuseg/ops/sparse_conv.py", "tpuseg_torch/csrc/sparse_conv.cu"
+
+    def entry(name, source, replaces, launched, err, ms, plain, bound, library):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launched, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library}
+
+    def s4(name, source, replaces, err):
+        t = s4_times[name]
+        return entry(name, source, replaces, s4_launches[name], err, t["ms"], t["plain_ms"],
+                     (t["bound_ms"], t["bound_by"]), t["library_ms"])
+
+    kernels = [
+        entry("upsample_argmax", "tpuseg_torch/csrc/upsample_argmax.cu",
+              "tpuseg/ops/upsample.py:91", launches, max_abs_err, kernel_ms, plain_ms,
+              b1_bound, None),
+        entry("sparse_conv", b2_src, f"{sc_src}:270", b2_launches, b2_err, b2_ms,
+              b2_plain_ms, b2_bound, b2_cudnn_ms),
+        entry("sparse_conv_q", "tpuseg_torch/csrc/sparse_conv_q.cu", f"{sc_src}:1294",
+              b3_launches, b3_err, b3_ms, b3_plain_ms, b3_bound, None),
+        s4("bsr_matmul_xw", b2_src, f"{sc_src}:84", b4_err),
+        s4("bsr_matmul", "tpuseg_torch/csrc/bsr_matmul.cu", "tpuseg/ops/bsr.py:105",
+           b56_err["bsr_matmul"]),
+        s4("bsr_matmul_gathered", "tpuseg_torch/csrc/bsr_matmul.cu", "tpuseg/ops/bsr.py:187",
+           b56_err["bsr_matmul_gathered"]),
+    ] + [s4(name, b2_src, f"{sc_src}:{line}", b7_err[name])
+         for name, (_, _, line) in B7_ENTRIES.items()]
+    bad = [k["name"] for k in kernels if not k["launches"] > 0]
+    if bad:
+        raise AssertionError(f"kernels never launched on their path: {bad}")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

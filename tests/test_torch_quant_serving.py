@@ -180,13 +180,13 @@ def test_cli_calibrate_needs_quantize():
 
 def test_cli_int8_path_loads_no_jax():
     """The int8 CLI path (with calibration) in a fresh interpreter imports
-    no jax or jaxlib module."""
+    no jax, jaxlib or tpuseg module."""
     code = (
         "import sys\n"
         "from tpuseg_torch.cli import seg_video\n"
         "seg_video.main(['--device', 'cpu', '--video', 'synthetic', '--size', '32x64',"
         " '--frames', '1', '--batch', '1', '--quantize', '--calibrate', '1'])\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpuseg'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -163,15 +163,15 @@ def test_cli_pruned_path(capsys, lowering, lowered):
 
 
 def test_cli_pruned_path_loads_no_jax():
-    """The same pruned path in a fresh interpreter imports no jax or jaxlib
-    module (its masks come from tpuseg.sparsity, which is numpy only)."""
+    """The same pruned path in a fresh interpreter imports no jax, jaxlib or
+    tpuseg module (its masks come from the port's own masker copy)."""
     code = (
         "import sys\n"
         "from tpuseg_torch.cli import seg_video\n"
         f"seg_video.main(['--device', 'cpu', '--video', 'synthetic', '--size', '32x64',"
         f" '--frames', '1', '--batch', '1', '--pr-config-path', {REG!r},"
         " '--sparse-lowering', 'pallas'])\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpuseg'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

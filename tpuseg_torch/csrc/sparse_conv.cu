@@ -1,7 +1,11 @@
 // Fused block-sparse dilated convolution, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel tpuseg/ops/sparse_conv.py::fused_sparse_conv_apply.
-// Same function: a stride-1 "same" k x k conv with dilation d whose weights
+// Replaces the TPU kernel tpuseg/ops/sparse_conv.py::fused_sparse_conv_apply,
+// and with it the TPU kernels that compute the same function on other
+// packings (tpuseg_torch/ops/sparse_conv.py launches it for each): B4
+// bsr_matmul_xw (y = x @ W, a 1x1 conv of x viewed as one image row of P
+// pixels) and B7a-f shared_sparse_conv_apply, fused_phase_, imcol_phase_,
+// cphase_, phase_ and shared_concat_sparse_conv_apply.  Same function: a stride-1 "same" k x k conv with dilation d whose weights
 // are packed per 128-channel output block jb (tpuseg_torch/ops/sparse_conv.py
 // plan_fused_sparse_conv):
 //

@@ -145,6 +145,17 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,                  # cudaStream_t
     ]
     lib.tpuseg_sparse_conv_q.restype = ctypes.c_int
+    lib.tpuseg_bsr_matmul.argtypes = [
+        ctypes.c_void_p,                  # vals (nnzb, 128, 128) f32|bf16
+        ctypes.c_void_p,                  # rowptr (M/128 + 1,) int32
+        ctypes.c_void_p,                  # colidx (nnzb,) int32
+        ctypes.c_void_p,                  # x (K, N), vals' dtype
+        ctypes.c_void_p,                  # y (M, N) f32
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # m k n
+        ctypes.c_int,                     # dtype: 0 f32, 1 bf16
+        ctypes.c_void_p,                  # cudaStream_t
+    ]
+    lib.tpuseg_bsr_matmul.restype = ctypes.c_int
     lib.tpuseg_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tpuseg_cuda_error_string.restype = ctypes.c_char_p
     return lib

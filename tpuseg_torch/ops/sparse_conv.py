@@ -27,6 +27,19 @@ f32 (N, H, W, Cout) result.
   (the port of ``tpuseg.ops.sparse_conv.fused_sparse_conv_apply``); on a
   CPU tensor it runs the plain version.
 
+The same kernel serves ``tpuseg``'s other Pallas kernels of this function:
+
+- ``XwBsr`` / ``pack_xw_bsr`` / ``bsr_matmul_xw`` (kernel B4, y (P, M) =
+  x (P, K) @ W with W column-block sparse): ``XwBsr`` is B2's packing at
+  k = 1, so x is launched as one image row of P pixels;
+  ``bsr_matmul_xw_reference`` is its plain version.  ``SparseConvPlan`` /
+  ``plan_sparse_conv`` / ``sparse_conv_apply`` lower a conv tap by tap onto
+  it; ``sparse_conv_reference`` is the plain version.
+- ``SharedFusedSparseConv`` / ``plan_shared_sparse_conv`` (one K-support
+  for the whole layer, a ``FusedSparseConv`` whose rows all repeat it) and
+  the six round-3 entry points (kernels B7a-f): B2's kernel on the packing
+  each takes, each with its own launch count.
+
 The int8 half (``tpuseg``'s ``FusedSparseConvQ``, ``quantize_fused_plan``,
 ``fused_sparse_conv_apply_q``): per-output-channel symmetric int8 weights,
 x quantized per frame (dynamic absmax) or with a static scale, an exact
@@ -170,6 +183,44 @@ def _check(x: torch.Tensor, plan: FusedSparseConv) -> None:
         raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's int sizes")
 
 
+def _launch_b2(x: torch.Tensor, vals: torch.Tensor, rows: torch.Tensor, s: int, kernel: int,
+               dilation: int, cout: int) -> torch.Tensor:
+    """One launch of kernel B2 (``csrc/sparse_conv.cu``) on NHWC-contiguous
+    CUDA ``x``, whose operands the caller has checked: casts x to the vals
+    dtype, launches on the current stream and raises if the launch fails.
+    Returns the f32 (N, H, W, cout) output."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    from tpuseg_torch.ops._build import load_library
+
+    x = x.to(vals.dtype)
+    n, h, w, cin = x.shape
+    out = torch.empty((n, h, w, cout), dtype=torch.float32, device=x.device)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.tpuseg_sparse_conv(
+            x.data_ptr(), vals.data_ptr(), rows.data_ptr(), out.data_ptr(),
+            n, h, w, cin, cout, s, kernel, dilation, _DTYPE_CODE[vals.dtype], stream,
+        )
+    if err != 0:
+        msg = lib.tpuseg_cuda_error_string(err).decode()
+        raise RuntimeError(f"sparse_conv kernel launch failed: {msg} ({err})")
+    return out
+
+
+def _run_b2(x: torch.Tensor, plan: FusedSparseConv, entry) -> torch.Tensor:
+    """B2's function of ``x`` on ``plan`` for the entry point ``entry``: the
+    plain version on a CPU tensor; on a CUDA tensor one launch of B2,
+    counted in ``entry.launches``."""
+    _check(x, plan)
+    if x.device.type == "cpu":
+        return fused_sparse_conv_reference(x, plan)
+    out = _launch_b2(x, plan.vals, plan.rows, plan.s, plan.kernel, plan.dilation, plan.cout)
+    entry.launches += 1
+    return out
+
+
 def fused_sparse_conv_apply(x: torch.Tensor, plan: FusedSparseConv) -> torch.Tensor:
     """Stride-1 'same' block-sparse conv of NHWC-contiguous ``x`` -> f32
     (N, H, W, Cout).
@@ -179,32 +230,307 @@ def fused_sparse_conv_apply(x: torch.Tensor, plan: FusedSparseConv) -> torch.Ten
     ``fused_sparse_conv_apply.launches`` and raises if the launch fails; on
     a CPU tensor it runs ``fused_sparse_conv_reference``.  Nothing falls
     back: A/B checks call ``fused_sparse_conv_reference`` by name."""
-    _check(x, plan)
-    if x.device.type == "cpu":
-        return fused_sparse_conv_reference(x, plan)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    from tpuseg_torch.ops._build import load_library
-
-    x = x.to(plan.vals.dtype)
-    n, h, w, cin = x.shape
-    out = torch.empty((n, h, w, plan.cout), dtype=torch.float32, device=x.device)
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tpuseg_sparse_conv(
-            x.data_ptr(), plan.vals.data_ptr(), plan.rows.data_ptr(), out.data_ptr(),
-            n, h, w, cin, plan.cout, plan.s, plan.kernel, plan.dilation,
-            _DTYPE_CODE[plan.vals.dtype], stream,
-        )
-    if err != 0:
-        msg = lib.tpuseg_cuda_error_string(err).decode()
-        raise RuntimeError(f"sparse_conv kernel launch failed: {msg} ({err})")
-    fused_sparse_conv_apply.launches += 1
-    return out
+    return _run_b2(x, plan, fused_sparse_conv_apply)
 
 
 fused_sparse_conv_apply.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# XwBsr and kernel B4: y (P, M) = x (P, K) @ W, W column-block sparse
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class XwBsr:
+    """Column-block-sparse weight for ``y = x @ W`` (W: (K, M)); ``tpuseg``'s
+    ``XwBsr``.  Its layout is a ``FusedSparseConv``'s with one tap: for
+    out-block j, ``rows[j]`` lists the S in-blocks with a nonzero (padded
+    with block 0 and zero tiles) and ``vals[j, s*bk + c, m]`` is
+    ``W[rows[j, s]*bk + c, j*bm + m]``."""
+
+    vals: torch.Tensor  # (nmb, S*bk, bm), the plan dtype
+    rows: torch.Tensor  # (nmb, S) int32
+    shape: tuple[int, int]  # (K, M)
+    bk: int
+    bm: int
+    s: int
+    block_density: float
+
+    def to(self, device) -> "XwBsr":
+        """The packing with ``vals``/``rows`` on ``device`` (dtype unchanged)."""
+        return dataclasses.replace(self, vals=self.vals.to(device), rows=self.rows.to(device))
+
+
+def pack_xw_bsr(w_km: np.ndarray, dtype: torch.dtype = torch.bfloat16) -> XwBsr:
+    """Pack a masked (K, M) weight: for each 128-column block, the 128-row
+    blocks with any nonzero, padded to the densest column block's count
+    (S >= 1); ``tpuseg``'s numpy, so ``vals``/``rows`` equal its bytes."""
+    w_km = np.asarray(w_km, np.float32)
+    K, M = w_km.shape
+    bk, bm = BK, BM
+    if K % bk or M % bm:
+        raise ValueError(f"W {w_km.shape} is not a grid of {bk}x{bm} blocks")
+    nkb, nmb = K // bk, M // bm
+    blocks = w_km.reshape(nkb, bk, nmb, bm)
+    nz = np.abs(blocks).sum(axis=(1, 3)) > 0  # (nkb, nmb)
+    S = max(int(nz.sum(axis=0).max()), 1)
+    vals = np.zeros((nmb, S, bk, bm), np.float32)
+    rows = np.zeros((nmb, S), np.int32)
+    for j in range(nmb):
+        for s_i, k in enumerate(np.flatnonzero(nz[:, j])):
+            vals[j, s_i] = blocks[k, :, j, :]
+            rows[j, s_i] = k
+    return XwBsr(vals=torch.from_numpy(vals.reshape(nmb, S * bk, bm)).to(dtype),
+                 rows=torch.from_numpy(rows), shape=(K, M), bk=bk, bm=bm, s=S,
+                 block_density=float(nz.mean()))
+
+
+def xw_dense(w: XwBsr) -> torch.Tensor:
+    """The dense (K, M) f32 weight a packing holds (padded slots add 0)."""
+    K, M = w.shape
+    dense = torch.zeros((K, M), dtype=torch.float32, device=w.vals.device)
+    vals = w.vals.float().reshape(M // w.bm, w.s, w.bk, w.bm)
+    for j, blocks in enumerate(w.rows.tolist()):
+        for s_i, kb in enumerate(blocks):
+            dense[kb * w.bk:(kb + 1) * w.bk, j * w.bm:(j + 1) * w.bm] += vals[j, s_i]
+    return dense
+
+
+def bsr_matmul_xw_reference(x: torch.Tensor, w: XwBsr) -> torch.Tensor:
+    """Plain version of B4: ``x @ W`` with the dense W rebuilt from the
+    packing, in f32 on the upcast operands (x first cast to the vals dtype,
+    as the kernel does)."""
+    return x.to(w.vals.dtype).float() @ xw_dense(w)
+
+
+def bsr_matmul_xw(x: torch.Tensor, w: XwBsr) -> torch.Tensor:
+    """y (P, M) = x (P, K) @ W_sparse (K, M), f32; ``tpuseg``'s
+    ``bsr_matmul_xw`` (kernel B4) without its ``bp`` tile: any P.
+
+    ``XwBsr`` is B2's packing at k = 1, so on a CUDA tensor this views x as
+    one image row of P pixels, (1, 1, P, K), and launches B2's kernel with
+    k = d = 1 (its row segments then run along P), counted in
+    ``bsr_matmul_xw.launches``; on a CPU tensor it runs
+    ``bsr_matmul_xw_reference``."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (P, K), got shape {tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODE or w.vals.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x and vals must be float32 or bfloat16, got {x.dtype}, {w.vals.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous (P, K)")
+    K, M = w.shape
+    nmb = M // w.bm
+    if x.shape[1] != K:
+        raise ValueError(f"x has K={x.shape[1]}, the packing {K}")
+    if w.vals.device != x.device or w.rows.device != x.device:
+        raise ValueError(f"packing on {w.vals.device}, x on {x.device}")
+    if ((w.bk, w.bm) != (BK, BM) or tuple(w.vals.shape) != (nmb, w.s * BK, BM)
+            or tuple(w.rows.shape) != (nmb, w.s) or w.rows.dtype != torch.int32
+            or not (w.vals.is_contiguous() and w.rows.is_contiguous())):
+        raise ValueError("packing vals/rows do not match its geometry (contiguous "
+                         f"{(nmb, w.s * BK, BM)} and int32 {(nmb, w.s)})")
+    if x.shape[0] > 2**31 - 1:
+        raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's int sizes")
+    if x.device.type == "cpu":
+        return bsr_matmul_xw_reference(x, w)
+    out = _launch_b2(x.view(1, 1, x.shape[0], K), w.vals, w.rows, w.s, 1, 1, M)
+    bsr_matmul_xw.launches += 1
+    return out.view(x.shape[0], M)
+
+
+bsr_matmul_xw.launches = 0
+
+
+@dataclasses.dataclass
+class SparseConvPlan:
+    """Per-tap lowering of a stride-1 conv: ``taps`` holds ``(p, q, packed,
+    dense)``, where ``packed`` is the tap's ``XwBsr`` and ``dense`` records
+    ``tpuseg``'s choice of its dense path for that tap.  Both run B4 on
+    ``packed``: a tap that dense has (nearly) every block in its packing,
+    and B4's f32 sum is the dense path's ``preferred_element_type=f32``."""
+
+    taps: list
+    kernel: int
+    dilation: int
+    cin: int
+    cout: int
+    density: float  # mean coarsened block density across taps
+
+    def to(self, device) -> "SparseConvPlan":
+        return dataclasses.replace(
+            self, taps=[(p, q, w.to(device), d) for p, q, w, d in self.taps])
+
+
+def plan_sparse_conv(
+    w_oihw,
+    mask_oihw,
+    dense_threshold: float = 0.9,
+    dtype: torch.dtype = torch.bfloat16,
+) -> SparseConvPlan:
+    """Per-tap sparse/dense lowerings of a masked OIHW weight, ``tpuseg``'s
+    ``plan_sparse_conv``: a tap whose block density reaches
+    ``dense_threshold`` is marked dense.  Channels must be multiples of 128
+    (B4's blocks)."""
+    wm = oihw_to_hwio_np(w_oihw) * oihw_to_hwio_np(mask_oihw)
+    kh, kw, cin, cout = wm.shape
+    if cin % BK or cout % BM:
+        raise ValueError(f"conv {cin}->{cout}: B4 needs channels divisible by {BK}")
+    taps, densities = [], []
+    for p in range(kh):
+        for q in range(kw):
+            packed = pack_xw_bsr(wm[p, q], dtype)
+            densities.append(packed.block_density)
+            taps.append((p, q, packed, packed.block_density >= dense_threshold))
+    return SparseConvPlan(taps=taps, kernel=kh, dilation=1, cin=cin, cout=cout,
+                          density=float(np.mean(densities)))
+
+
+def _per_tap(x: torch.Tensor, plan: SparseConvPlan, dilation: int, matmul) -> torch.Tensor:
+    n, h, w_, cin = x.shape
+    pad = dilation * (plan.kernel - 1) // 2
+    xp = F.pad(x.to(plan.taps[0][2].vals.dtype), (0, 0, pad, pad, pad, pad))
+    y = None
+    for p, q, wt, _dense in plan.taps:
+        dy, dx = p * dilation, q * dilation
+        t = matmul(xp[:, dy:dy + h, dx:dx + w_].reshape(n * h * w_, cin), wt)
+        y = t if y is None else y.add_(t)
+    return y.view(n, h, w_, plan.cout)
+
+
+def sparse_conv_apply(x: torch.Tensor, plan: SparseConvPlan, dilation: int = 1) -> torch.Tensor:
+    """Stride-1 'same' conv of NHWC ``x`` with per-tap block-sparse matmuls,
+    ``tpuseg``'s ``sparse_conv_apply`` (padding = dilation*(k-1)/2): one
+    ``bsr_matmul_xw`` (B4) per tap on the tap's shifted copy of x, dense
+    or sparse, summed in f32 in tap order.  -> f32 (N, H, W, Cout)."""
+    return _per_tap(x, plan, dilation, bsr_matmul_xw)
+
+
+def sparse_conv_reference(x: torch.Tensor, plan: SparseConvPlan, dilation: int = 1) -> torch.Tensor:
+    """Plain version of ``sparse_conv_apply``: the same taps through
+    ``bsr_matmul_xw_reference``, on any device."""
+    return _per_tap(x, plan, dilation, bsr_matmul_xw_reference)
+
+
+# ---------------------------------------------------------------------------
+# The round-3 conv variants (B7a-f): B2's function on two packings
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SharedFusedSparseConv(FusedSparseConv):
+    """``tpuseg``'s shared-union packing: ONE K-support for the whole layer
+    (the union over taps and out-blocks), ``union_rows`` (``tpuseg``'s tuple
+    ``rows``), with ``vals`` in B2's layout on it.  ``rows`` is that support
+    broadcast to a contiguous (nmb, S) int32 tensor, so the packing is the
+    operand B2's kernel takes."""
+
+    union_rows: tuple  # (S,) python ints: global union K-block ids
+
+    @property
+    def union_density(self) -> float:
+        return self.block_density
+
+
+def plan_shared_sparse_conv(
+    w_oihw,
+    mask_oihw,
+    dilation: int = 1,
+    dtype: torch.dtype = torch.bfloat16,
+) -> SharedFusedSparseConv:
+    """Pack a masked stride-1 conv (OIHW weight and mask) on its global
+    union support: ``tpuseg``'s numpy on the HWIO view, so ``vals`` and
+    ``union_rows`` equal its ``vals``/``rows``."""
+    wm = oihw_to_hwio_np(w_oihw) * oihw_to_hwio_np(mask_oihw)
+    kh, kw, cin, cout = wm.shape
+    bk, bm = BK, BM
+    if cin % bk or cout % bm:
+        raise ValueError(f"conv {cin}->{cout}: channels must be divisible by {bk}")
+    nkb, nmb = cin // bk, cout // bm
+    T = kh * kw
+    nz = np.zeros((T, nkb, nmb), bool)
+    for t in range(T):
+        p, q = divmod(t, kw)
+        nz[t] = np.abs(wm[p, q].reshape(nkb, bk, nmb, bm)).sum(axis=(1, 3)) > 0
+    union = nz.any(axis=(0, 2))  # (nkb,)
+    rows = tuple(int(k) for k in np.flatnonzero(union)) or (0,)
+    S = len(rows)
+    vals = np.zeros((nmb, T, S, bk, bm), np.float32)
+    for j in range(nmb):
+        for t in range(T):
+            p, q = divmod(t, kw)
+            for s_i, k in enumerate(rows):
+                if nz[t, k, j]:
+                    vals[j, t, s_i] = wm[p, q][k * bk:(k + 1) * bk, j * bm:(j + 1) * bm]
+    taps = np.array([(p * dilation, q * dilation) for p in range(kh) for q in range(kw)],
+                    np.int32)
+    return SharedFusedSparseConv(
+        vals=torch.from_numpy(vals.reshape(nmb, T * S * bk, bm)).to(dtype),
+        rows=torch.tensor(rows, dtype=torch.int32).expand(nmb, S).contiguous(),
+        taps=taps, s=S, bk=bk, bm=bm, kernel=kh, dilation=dilation, cin=cin, cout=cout,
+        block_density=S / nkb, union_rows=rows)
+
+
+# tpuseg's six round-3 kernels compute B2's function under six sets of TPU
+# VMEM/DMA workarounds (xmat concat, phase pre-shift, im2col DMA, aligned
+# concat, out_split); none carries over, so each entry point is B2's kernel
+# on the packing it takes, with its own launch count.  Their rows_per_tile,
+# out_split and w % 8 constraints go with the workarounds.
+
+
+def shared_sparse_conv_apply(x: torch.Tensor, plan: SharedFusedSparseConv) -> torch.Tensor:
+    """B7a, ``tpuseg``'s ``shared_sparse_conv_apply``
+    (``tpuseg/ops/sparse_conv.py:450``): B2 on the shared-union packing."""
+    return _run_b2(x, plan, shared_sparse_conv_apply)
+
+
+shared_sparse_conv_apply.launches = 0
+
+
+def fused_phase_sparse_conv_apply(x: torch.Tensor, plan: FusedSparseConv) -> torch.Tensor:
+    """B7b, ``tpuseg``'s ``fused_phase_sparse_conv_apply``
+    (``tpuseg/ops/sparse_conv.py:555``): B2 on B2's packing."""
+    return _run_b2(x, plan, fused_phase_sparse_conv_apply)
+
+
+fused_phase_sparse_conv_apply.launches = 0
+
+
+def imcol_phase_sparse_conv_apply(x: torch.Tensor, plan: FusedSparseConv) -> torch.Tensor:
+    """B7c, ``tpuseg``'s ``imcol_phase_sparse_conv_apply``
+    (``tpuseg/ops/sparse_conv.py:684``): B2 on B2's packing."""
+    return _run_b2(x, plan, imcol_phase_sparse_conv_apply)
+
+
+imcol_phase_sparse_conv_apply.launches = 0
+
+
+def cphase_sparse_conv_apply(x: torch.Tensor, plan: FusedSparseConv) -> torch.Tensor:
+    """B7d, ``tpuseg``'s ``cphase_sparse_conv_apply``
+    (``tpuseg/ops/sparse_conv.py:826``): B2 on B2's packing."""
+    return _run_b2(x, plan, cphase_sparse_conv_apply)
+
+
+cphase_sparse_conv_apply.launches = 0
+
+
+def phase_sparse_conv_apply(x: torch.Tensor, plan: SharedFusedSparseConv) -> torch.Tensor:
+    """B7e, ``tpuseg``'s ``phase_sparse_conv_apply``
+    (``tpuseg/ops/sparse_conv.py:952``): B2 on the shared-union packing."""
+    return _run_b2(x, plan, phase_sparse_conv_apply)
+
+
+phase_sparse_conv_apply.launches = 0
+
+
+def shared_concat_sparse_conv_apply(x: torch.Tensor,
+                                    plan: SharedFusedSparseConv) -> torch.Tensor:
+    """B7f, ``tpuseg``'s ``shared_concat_sparse_conv_apply``
+    (``tpuseg/ops/sparse_conv.py:1091``): B2 on the shared-union packing."""
+    return _run_b2(x, plan, shared_concat_sparse_conv_apply)
+
+
+shared_concat_sparse_conv_apply.launches = 0
 
 
 # ---------------------------------------------------------------------------

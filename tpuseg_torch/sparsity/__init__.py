@@ -1,11 +1,11 @@
 """Pruning masks for the port: JSON pruner configs -> 0/1 OIHW masks.
 
-The masks are ``tpuseg.sparsity``'s own (every pruner type: ``block``,
-``block_regular``, ``srmbrep``, ``hb``, ``rmb``, ``rmcdb``, ``grouping``),
-made on the HWIO numpy view of the port's weights and turned back into OIHW
-tensors, so one seed gives the same masks in both packages bit for bit.
-``tpuseg.sparsity`` is numpy only and loads no JAX; it is imported when a
-masker is asked for, never when this module is imported.
+The maskers are the port's own copy of ``tpuseg``'s masker family (every
+pruner type: ``block``, ``block_regular``, ``srmbrep``, ``hb``, ``rmb``,
+``rmcdb``, ``grouping``), numpy only, in the modules of this package; they
+compute on the HWIO numpy view of the port's weights and the masks come
+back as OIHW tensors, so one seed gives the same masks in both packages bit
+for bit.
 
 Masks are static (``is_static=True``, the construction both serving CLIs
 use): drawn at random from the seed, not from the weights' magnitudes.
@@ -17,15 +17,25 @@ from typing import Mapping
 
 import torch
 
+# every masker module registers its pruner type with base's registry
+from tpuseg_torch.sparsity import (  # noqa: F401
+    base,
+    block,
+    block_regular,
+    grouping,
+    hb,
+    rmb,
+    rmcdb,
+    srmbrep,
+)
+
 
 class Masker:
     """``generate_masks(params)`` -> ``{layer: float32 OIHW 0/1 tensor}``
-    from ``tpuseg.sparsity``'s masker on the HWIO view of ``params``."""
+    from the config's masker on the HWIO view of ``params``."""
 
     def __init__(self, config, seed):
-        from tpuseg.sparsity import create_masker as tpuseg_create_masker
-
-        self._masker = tpuseg_create_masker(config, seed=seed)
+        self._masker = base.create_masker(config, seed=seed)
 
     def generate_masks(self, params: Mapping) -> dict[str, torch.Tensor]:
         from tpuseg_torch.models.weights import from_jax_params, to_jax_params
