@@ -19,7 +19,10 @@ Phases (any failed check raises and the exit code is non-zero):
   6. the block-sparse conv kernel (B2) vs its plain version (f32 convs, TF32
      off) at the CPU tests' shapes, a 1x1, an S=2 and an all-zero plan, f32
      and bf16 plans, then each of the 7 B2 plans of block128reg_87.50 at its
-     batch-32 serving input; a non-contiguous input must raise;
+     batch-32 serving input; on each of those 7 the served bf16+bias route
+     (one B2 launch writing bf16(bf16(y) + bias)) bit-equal to the two
+     passes it replaces (B2's f32 y, cast, bias add); a non-contiguous
+     input must raise;
   7. pruned slice parity in f32: block128_75.00 masks, Pallas lowering, f32
      plans, CUDA with the kernel vs CPU with the plain versions, ids
      agreement >= 0.999;
@@ -28,7 +31,8 @@ Phases (any failed check raises and the exit code is non-zero):
      exactly 7 times per forward, ids agreement with the f32 masked-dense
      path >= 0.9), then the device rate at batch 32 for the Pallas lowering,
      the gathered lowering and masked dense;
-  9. B2 vs plain vs the dense cuDNN conv at the layer.6.1.conv2 serving shape;
+  9. B2 vs plain vs the dense cuDNN conv at the layer.6.1.conv2 serving shape,
+     and the bf16+bias route vs the two passes it replaces;
  10. the int8 block-sparse conv kernel (B3) vs its exact plain version,
      bit-equal: the CPU tests' shapes with per-frame and static scales, f32
      and bf16 x; the quantize pass on the card vs on the CPU; then every B3
@@ -67,9 +71,11 @@ Phases (any failed check raises and the exit code is non-zero):
      call each of ``bsr_matmul`` and ``bsr_matmul_gathered`` at the batch-32
      shape; exact launch counts;
  18. B4, B5, B6 and B7a-f at their batch-32 shapes in turns against their
-     plain versions and one PyTorch call of the same function (a bf16
-     ``torch.matmul`` of the masked dense W, or the masked dense cuDNN
-     conv), a yardstick the port never calls.
+     plain versions and one PyTorch call of the same function (for B4-B6
+     ``torch.mm(..., out_dtype=torch.float32)`` of the masked dense bf16 W,
+     which writes the f32 y they write, beside the bf16-out
+     ``torch.matmul``; for B7 the masked dense cuDNN conv), a yardstick the
+     port never calls.
 The line before the last is the kernels' JSON record (each kernel's time,
 its plain version's, its bound at the card's published peaks and the
 PyTorch call's, at its main shape); the last line is
@@ -240,11 +246,13 @@ def _b2_mask(rng, k, cin, cout, s, dead_out=False):
     return m
 
 
-def _b2_vs_plain(torch, np, dev, rng, served: dict) -> float:
+def _b2_vs_plain(torch, np, dev, rng, served: dict, folded: dict) -> float:
     """Phase 6: B2 on the card vs its plain version on the same inputs: the
     CPU tests' shapes and kinds, then every B2 plan of ``served`` (the
     FusedSparseConv plans and each CompactSparse's inner plan) at its
-    batch-32 serving input."""
+    batch-32 serving input, and on each the served bf16+bias route
+    (``models/drn.py``, ``folded``'s bias) bit-equal to the two passes."""
+    from tpuseg_torch.models import drn as tdrn
     from tpuseg_torch.models.sparse_exec import CompactSparse
     from tpuseg_torch.ops.sparse_conv import (
         FusedSparseConv, fused_sparse_conv_apply, fused_sparse_conv_reference,
@@ -307,7 +315,23 @@ def _b2_vs_plain(torch, np, dev, rng, served: dict) -> float:
         check(x, plan, f"{name} serving input"
               + (" (CompactSparse survivors)" if isinstance(p, CompactSparse) else ""))
         served_b2 += 1
-        del x
+        # the served bf16 route vs the two passes, on the conv's full input
+        pd = p.to(dev)
+        cin = folded[f"{name}.weight"].shape[1]
+        x = tdrn.nhwc_to_nchw(torch.randn((n, h, w, cin), generator=gen, device=dev,
+                                          dtype=torch.bfloat16))
+        bias = folded[f"{name}.bias"].to(dev)
+        got = tdrn._sparse_conv_bias_bf16(x, pd, bias)
+        want = (tdrn._sparse_conv(x, pd, None).to(torch.bfloat16)
+                + bias.to(torch.bfloat16).view(1, -1, 1, 1))
+        torch.cuda.synchronize()
+        mism = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        _emit(phase="b2_bf16_bias_route", conv=name, kind=type(p).__name__,
+              shape=[n, h, w, cin], mismatches=mism, max_abs_want=float(want.abs().max()))
+        if mism or got.shape != want.shape or got.dtype != torch.bfloat16:
+            raise AssertionError(f"{name}: the bf16+bias route differs from the two passes "
+                                 f"in {mism} values")
+        del x, got, want
     if served_b2 != B2_PER_FORWARD:
         raise AssertionError(f"the served config has {served_b2} B2 plans; "
                              f"want {B2_PER_FORWARD}")
@@ -800,11 +824,12 @@ def _slice4_times(torch, np, dev, smi) -> dict:
     turns = _time_turns(torch, {
         "plain": lambda: sc.bsr_matmul_xw_reference(x, packed),
         "kernel": lambda: sc.bsr_matmul_xw(x, packed),
-        "library": lambda: torch.matmul(x, wd),
-    }, {"plain": 2, "kernel": 10, "library": 10})
+        "library": lambda: torch.mm(x, wd, out_dtype=torch.float32),
+        "library_bf16_out": lambda: torch.matmul(x, wd),
+    }, {"plain": 2, "kernel": 10, "library": 10, "library_bf16_out": 10})
     out["bsr_matmul_xw"] = {
         "ms": min(turns["kernel"]), "plain_ms": min(turns["plain"]),
-        "library_ms": min(turns["library"]),
+        "library_ms": min(turns["library"]), "library_bf16_out_ms": min(turns["library_bf16_out"]),
         **dict(zip(("bound_ms", "bound_by"), _b2_bound(P32, packed.vals, packed.rows, 512)))}
     _emit(phase="b4_time", x=list(x.shape), w="512x512 BlockPruner 87.5 %", s=packed.s,
           live_tiles=_live_tiles(packed.vals),
@@ -819,8 +844,10 @@ def _slice4_times(torch, np, dev, smi) -> dict:
         "plain": lambda: bsr.bsr_matmul_reference(bpacked, x),
         "bsr_matmul": lambda: bsr.bsr_matmul(bpacked, x),
         "bsr_matmul_gathered": lambda: bsr.bsr_matmul_gathered(bpacked, x),
-        "library": lambda: torch.matmul(wdm, x),
-    }, {"plain": 2, "bsr_matmul": 10, "bsr_matmul_gathered": 10, "library": 10})
+        "library": lambda: torch.mm(wdm, x, out_dtype=torch.float32),
+        "library_bf16_out": lambda: torch.matmul(wdm, x),
+    }, {"plain": 2, "bsr_matmul": 10, "bsr_matmul_gathered": 10, "library": 10,
+        "library_bf16_out": 10})
     # the x rows of the K-blocks that live tiles read, the live tiles, the
     # CSR and the f32 y
     live = (bpacked.vals.reshape(len(bpacked.colidx), -1) != 0).any(1).cpu().numpy()
@@ -831,7 +858,8 @@ def _slice4_times(torch, np, dev, smi) -> dict:
         2 * P32 * int(live.sum()) * 128 * 128, "bf16")))
     for name in ("bsr_matmul", "bsr_matmul_gathered"):
         out[name] = {"ms": min(turns[name]), "plain_ms": min(turns["plain"]),
-                     "library_ms": min(turns["library"]), **b56}
+                     "library_ms": min(turns["library"]),
+                     "library_bf16_out_ms": min(turns["library_bf16_out"]), **b56}
     _emit(phase="b56_time", w="512x512 BlockPruner 87.5 %", x=list(x.shape),
           nnzb=len(bpacked.colidx), live_in_blocks=b56_in_blocks, turns=turns, **b56,
           card=smi)
@@ -1009,7 +1037,9 @@ def main() -> int:
     # 6. B2 vs plain on the card (f32 plain convs with TF32 off, set above)
     masked, plans, report = _pruned(torch, params, state, spec, SERVED_CONFIG, "pallas",
                                     torch.bfloat16)
-    b2_err = _b2_vs_plain(torch, np, dev, rng, plans)
+    from tpuseg_torch.ops.fold_bn import fold_bn
+
+    b2_err = _b2_vs_plain(torch, np, dev, rng, plans, fold_bn(masked, state, spec))
     torch.cuda.empty_cache()
 
     # 7. pruned slice parity in f32: CUDA (kernel) vs CPU (plain versions)
@@ -1080,17 +1110,23 @@ def main() -> int:
     w_dense = masked["layer.6.1.conv2.weight"].to(dev, torch.bfloat16).contiguous(
         memory_format=torch.channels_last)
     x_nchw = x.permute(0, 3, 1, 2)
+    from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_bias_bf16
+
+    bias6 = torch.randn(plan.cout, device=dev).to(torch.bfloat16)
     turns = _time_turns(torch, {
         "plain": lambda: fused_sparse_conv_reference(x, plan),
         "kernel": lambda: fused_sparse_conv_apply(x, plan),
         "dense_cudnn": lambda: torch.nn.functional.conv2d(x_nchw, w_dense, None, 1, sd, sd),
-    }, {"plain": 3, "kernel": 10, "dense_cudnn": 10})
+        "bf16_bias_route": lambda: fused_sparse_conv_bias_bf16(x, plan, bias6),
+        "two_passes": lambda: fused_sparse_conv_apply(x, plan).to(torch.bfloat16) + bias6,
+    }, {"plain": 3, "kernel": 10, "dense_cudnn": 10, "bf16_bias_route": 10, "two_passes": 10})
     b2_ms, b2_plain_ms = min(turns["kernel"]), min(turns["plain"])
     b2_cudnn_ms = min(turns["dense_cudnn"])
     b2_bound = _b2_bound(sn * sh * sw, plan.vals, plan.rows, plan.cout)
     _emit(phase="b2_time", conv="layer.6.1.conv2", shape=[sn, sh, sw, sc], dilation=sd,
           s=plan.s, dtype="bfloat16", kernel_ms=turns["kernel"], plain_ms=turns["plain"],
-          dense_cudnn_ms=turns["dense_cudnn"], bound_ms=b2_bound[0], bound_by=b2_bound[1],
+          dense_cudnn_ms=turns["dense_cudnn"], bf16_bias_route_ms=turns["bf16_bias_route"],
+          two_passes_ms=turns["two_passes"], bound_ms=b2_bound[0], bound_by=b2_bound[1],
           kernel_tflops=2 * sn * sh * sw * sk * sk * plan.s * 128 * plan.cout / b2_ms / 1e9,
           card=smi)
 

@@ -5,8 +5,9 @@
 // packings (tpuseg_torch/ops/sparse_conv.py launches it for each): B4
 // bsr_matmul_xw (y = x @ W, a 1x1 conv of x viewed as one image row of P
 // pixels) and B7a-f shared_sparse_conv_apply, fused_phase_, imcol_phase_,
-// cphase_, phase_ and shared_concat_sparse_conv_apply.  Same function: a stride-1 "same" k x k conv with dilation d whose weights
-// are packed per 128-channel output block jb (tpuseg_torch/ops/sparse_conv.py
+// cphase_, phase_ and shared_concat_sparse_conv_apply.  Same function: a
+// stride-1 "same" k x k conv with dilation d whose weights are packed per
+// 128-channel output block jb (tpuseg_torch/ops/sparse_conv.py
 // plan_fused_sparse_conv):
 //
 //   y[n,i,j, jb*128+m] = sum_t sum_s sum_c
@@ -14,65 +15,97 @@
 //
 // pad = d*(k-1)/2, (dy_t, dx_t) = (p*d, q*d) for t = p*k + q, x zero outside
 // the image; x and vals share one dtype (the wrapper casts x), products
-// accumulate in f32 and y is f32 (N, H, W, Cout), NHWC.
+// accumulate in f32 and y is f32 (N, H, W, Cout), NHWC.  The bf16 path can
+// instead write the served layer's bf16 output with its bias,
+// bf16(float(bf16(y)) + float(bias[o])), rounded to nearest even at both
+// steps: the cast-then-bias order of tpuseg's served convs.
 //
-// Design: an implicit GEMM.  One CUDA block computes the output of one row
-// segment of up to 256 pixels (n, i, j0 .. j0+255) for one out-block jb, 256
-// pixels x 128 channels.  The reduction runs over (kernel row p, support slot
-// s, 64-channel slice): for each, the block stages ONE halo slab of x, the
-// 256 + 2*pad pixels (n, i + p*d - pad, j0 - pad ..) of that slice, zero-
-// filled outside the image by cp.async's src-size operand (which replaces the
-// TPU version's padded copy of x), and the k weight slices of taps (p, 0..k-1).
-// Tap q then reads the slab shifted by q*d rows, so one load of x serves all
-// k taps of a kernel row.  None of the TPU kernel's Mosaic workarounds (W
-// padded to 8, the tap-concatenated xmat in VMEM, rows_per_tile) carry over.
+// Zero tiles are skipped.  Each packing carries, per out-block, the list of
+// its live (tap, slot) steps t*S + s (`steps`, built with the plan from the
+// nonzero mask that filled `vals`) and their count (`nsteps`); the bf16 path
+// walks only those, and a step whose kernel row falls outside the image
+// (its x tile is all zero padding) is skipped too.  An out-block with no
+// live step reads nothing and writes zeros.  On finite x this is the
+// function exactly (a skipped tile adds only +0 products); an Inf or NaN
+// in x would not propagate through a skipped tile.  Served activations are
+// finite.
 //
-// - bf16: 8 warps in a 4 (pixels) x 2 (channels) grid, each owning a 64 x 64
-//   accumulator tile of 4 x 4 wmma 16x16x16 fragments (tensor-core mma.sync,
-//   f32 accumulate).  Stages flow through a 2-deep cp.async ring in shared
-//   memory, so the loads of step c+1 overlap the MMAs of step c; slab rows are
-//   80 bf16 (160 bytes) apart, so any row shift keeps the 32-byte alignment
-//   wmma needs.  The f32 tile is staged through shared memory and leaves as
-//   coalesced float4 stores (a warp writes one pixel's 512 contiguous bytes).
-// - f32: a CUDA-core path (the plan is f32 only for exact parity checks): 128
-//   consecutive pixels of the flattened (n, i, j) index per block, 16-channel
-//   chunks loaded synchronously into shared memory, 8 x 8 outputs per
-//   thread, fmaf in K order.
+// bf16 design: an implicit GEMM on wgmma, fed by TMA.  One CTA computes one
+// row segment of 256 output pixels (n, i, j0 .. j0+255) for one out-block jb:
+// M = 256 pixels, N = 128 channels, K = the live (tap, slot, 64-channel
+// slice) steps.  Per step, one TMA load of a 4-D tensor map over x (C, W, H,
+// N) with a box of (64 channels, 256 pixels, 1, 1) at (c0, j0 + q*d - pad,
+// i + p*d - pad, n) brings the tap-shifted A tile; TMA fills coordinates
+// outside x with zeros, which is the "same" padding, so there is no halo
+// logic and no padded copy of x.  Two TMA loads of a 2-D map over vals
+// bring B, the 64 x 128 slice of vals[jb] for (t, s), N-contiguous, which
+// wgmma takes as its MN-major operand.  Both land 128-byte swizzled in a
+// 4-stage mbarrier ring (48 KB a stage).  Warp specialisation: one producer
+// thread starts the TMA loads; two consumer warpgroups (setmaxnreg moves
+// registers to them) each own 128 pixels x 128 channels, two m64n128k16
+// accumulators of 64 f32 registers a thread, and release a stage as soon as
+// wgmma.wait_group says the MMAs reading it are done (one group in flight),
+// with no block-wide barrier in the loop.  The epilogue writes the f32 (or
+// bf16 + bias) tile straight from the accumulators; pixels past the row end
+// are not written.  The grid is every (row segment, out-block) pair,
+// out-block fastest, so an out-block with few or no steps finishes early
+// and the hardware scheduler fills its SM with the next CTA.
 //
-// What bounds it on the H100.  At the serving shape of layer.6.1.conv2
-// (x (32,128,256,512) bf16, d=4, S=1, nmb=4): 1.24 TFLOP of MMA, ~1.3 ms at
-// the bf16 peak; 2.1 GB of f32 y written once, ~0.6 ms at 3.35 TB/s.  What
-// each block pulls through L2 is the rest: per out-block, all of vals[jb]
-// (T*S*32 KB) and, per kernel row, one slab of x.  A first version (128-pixel
-// tiles, one shifted x window per tap) moved 4.6 KB per output pixel and
-// out-block through L2 and ran at 166 TFLOP/s; this one moves ~1.9 KB.  The
-// warp-level mma.sync path is kept; wgmma + TMA (Hopper's full tensor-core
-// rate) are left for a later change.
+// What bounds it on the H100.  At the serving shape of layer.6.1.conv2 (x
+// (32,128,256,512) bf16, d=4, S=1, four live out-blocks, 9 taps): 1.24 TFLOP
+// of MMA, 1.25 ms at the bf16 peak; the f32 y (2.15 GB) takes 0.64 ms at
+// 3.35 TB/s, the bf16 y of the served route half that.  The kernel runs it
+// in about 2.2 ms, ~560 TFLOP/s (PERF.md, measured with
+// tpuseg_torch/ab_sparse_conv.py).  Per 64-channel step a CTA pulls 32 KB of
+// x and 16 KB of weights through L2 for 4.2 MFLOP, but L2 is not what holds
+// it: a variant that loaded one halo window of x per kernel row and let the
+// k taps read it at row offsets q*d (the descriptor's start moved by whole
+// 128-byte rows, which works with the base offset left 0) read x a third
+// as often and ran 16 % slower here; a variant with 128-pixel tiles and two
+// CTAs per SM, whose epilogues overlap the other's main loop, ran 15 %
+// slower.  What remains is the shared-memory traffic of m64n128k16 (6 KB
+// read per 262 KFLOP, plus the TMA writes) and the epilogue, which is not
+// overlapped with MMAs.  An N of 256 would read each A tile once for twice
+// the columns, but an out-block is 128 channels and its neighbours read
+// other in-blocks.
+//
+// f32 path (the plan is f32 only for exact parity checks): CUDA cores, 128
+// consecutive pixels of the flattened (n, i, j) index per block, 16-channel
+// chunks loaded synchronously into shared memory, 8 x 8 outputs per thread,
+// fmaf in K order, every step (zero tiles included).
 //
 // C interface (ctypes): tpuseg_sparse_conv returns the cudaError_t of the
 // launch (0 on success); it launches on the given stream, does not
 // synchronize and allocates nothing.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only; the encoder is fetched at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int kBN = 128;       // output channels per CUDA block (one out-block)
 constexpr int kBlockK = 128;   // channels per support block
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // f32 path
 
-// bf16 tensor-core path
-constexpr int kRowBM = 256;    // output pixels per CUDA block (one row segment)
-constexpr int kBK = 64;        // channels per pipeline step
-constexpr int kChunksPerBlock = kBlockK / kBK;
-constexpr int kAPitch = kBK + 16;  // bf16 per slab row: 160 bytes, a multiple of 32
-constexpr int kBPitch = kBN + 8;   // bf16 per weight row
-constexpr int kCPitch = kBN + 4;   // f32 per staged output row
+// bf16 wgmma path
+constexpr int kTileM = 256;                       // output pixels per CTA (one row segment)
+constexpr int kBK = 64;                           // channels per step: one 128-byte swizzle row
+constexpr int kChunks = kBlockK / kBK;            // steps per (tap, slot)
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;                     // warpgroups, 128 pixels each
+constexpr int kWsThreads = (kConsumers + 1) * 128;  // + the producer warpgroup
+constexpr int kABytes = kTileM * kBK * 2;         // 32 KB
+constexpr int kBBytes = kBK * kBN * 2;            // 16 KB: two 64-column TMA boxes
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr int kWsSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;  // + barriers, alignment
+// wgmma shared-memory descriptors (byte offsets): A K-major, 128-byte rows,
+// 8-row groups 1024 B apart; B MN-major, 64-column halves 8 KB apart
+// (leading), 8-row K groups 1024 B apart (stride)
+constexpr uint32_t kASbo = 1024;
+constexpr uint32_t kBLbo = 8192;
+constexpr uint32_t kBSbo = 1024;
 
 // f32 CUDA-core path
 constexpr int kBM = 128;           // output pixels per CUDA block (flattened)
@@ -84,138 +117,253 @@ struct Geom {
   long long pixels;  // n * h * w
 };
 
-// Shared memory of the bf16 kernel: two stages of (slab + k weight slices),
-// at least the staged f32 output tile.
-struct Bf16Smem {
-  int a_rows, a_stage, b_stage, stage, bytes;  // elements, except bytes
-};
-__host__ __device__ inline Bf16Smem bf16_smem(int k, int pad) {
-  Bf16Smem m;
-  m.a_rows = (kRowBM + 2 * pad + 15) / 16 * 16;
-  m.a_stage = m.a_rows * kAPitch;
-  m.b_stage = k * kBK * kBPitch;
-  m.stage = m.a_stage + m.b_stage;
-  const int ring = 2 * m.stage * 2;
-  const int ctile = kRowBM * kCPitch * 4;
-  m.bytes = ring > ctile ? ring : ctile;
-  return m;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr), "l"(gmem),
-               "r"(src_bytes));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
-__global__ void __launch_bounds__(kThreads, 1)
-sparse_conv_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                        const __nv_bfloat16* __restrict__ vals,
-                        const int* __restrict__ rows, float* __restrict__ out, Geom g) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
-  const Bf16Smem sm = bf16_smem(g.k, g.pad);
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
 
-  const int nmb = g.cout / kBN;
-  const int segs = (g.w + kRowBM - 1) / kRowBM;  // row segments per image row
-  const long long tile = blockIdx.x / nmb;
-  const int jb = blockIdx.x % nmb;
-  const long long row = tile / segs;             // n * h + i
-  const int j0 = static_cast<int>(tile % segs) * kRowBM;
-  const int i = static_cast<int>(row % g.h);
-  const long long img_row0 = row - i;            // n * h
-  const int tid = threadIdx.x;
-  const int steps = g.k * g.s * kChunksPerBlock;
-  const int slab = kRowBM + 2 * g.pad;           // slab pixels actually read
-  const long long vals_jb = static_cast<long long>(jb) * g.k * g.k * g.s * kBlockK * kBN;
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
 
-  // stage `step` = (kernel row p, support slot s, 64-channel slice) into `slot`
-  auto load_stage = [&](int slot, int step) {
-    const int p = step / (g.s * kChunksPerBlock);
-    const int rem = step - p * (g.s * kChunksPerBlock);
-    const int s = rem / kChunksPerBlock;
-    const int chunk = rem - s * kChunksPerBlock;
-    __nv_bfloat16* a = ring + slot * sm.stage;
-    __nv_bfloat16* b = a + sm.a_stage;
-    const int ii = i + p * g.dil - g.pad;
-    const bool row_ok = ii >= 0 && ii < g.h;
-    const long long xrow = ((img_row0 + ii) * g.w) * g.cin +
-                           __ldg(rows + jb * g.s + s) * kBlockK + chunk * kBK;
-    for (int idx = tid; idx < slab * 8; idx += kThreads) {
-      const int r = idx >> 3;
-      const int c = idx & 7;
-      const int j = j0 - g.pad + r;
-      const bool ok = row_ok && j >= 0 && j < g.w;
-      const __nv_bfloat16* src = ok ? x + xrow + static_cast<long long>(j) * g.cin + c * 8 : x;
-      cp_async_16(a + r * kAPitch + c * 8, src, ok ? 16 : 0);
-    }
-    for (int idx = tid; idx < g.k * kBK * 16; idx += kThreads) {
-      const int q = idx / (kBK * 16);
-      const int r = (idx / 16) % kBK;
-      const int c = idx & 15;
-      const long long vrow =
-          static_cast<long long>((p * g.k + q) * g.s + s) * kBlockK + chunk * kBK + r;
-      cp_async_16(b + (q * kBK + r) * kBPitch + c * 8, vals + vals_jb + vrow * kBN + c * 8, 16);
-    }
-  };
+// Wait until the phase of `bar` with parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
 
-  const int warp = tid >> 5;
-  const int wm = warp >> 1;  // pixels wm*64 .. +64
-  const int wn = warp & 1;   // channels wn*64 .. +64
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][4];
-#pragma unroll
-  for (int i2 = 0; i2 < 4; ++i2)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i2][j], 0.0f);
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
 
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait_all();
-    __syncthreads();  // step landed for all threads; the other slot is free
-    if (step + 1 < steps) load_stage((step + 1) & 1, step + 1);
-    cp_async_commit();
-    const __nv_bfloat16* a = ring + (step & 1) * sm.stage;
-    const __nv_bfloat16* b = a + sm.a_stage;
-    for (int q = 0; q < g.k; ++q) {
-      const __nv_bfloat16* aq = a + (wm * 64 + q * g.dil) * kAPitch;
-      const __nv_bfloat16* bq = b + q * kBK * kBPitch + wn * 64;
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// 128-byte-swizzle shared-memory matrix descriptor (base offset 0: the
+// swizzle follows the absolute shared-memory address, as TMA writes it)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accumulator reads or writes across wgmma
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[4];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[4];
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define TPUSEG_D8(i)                                                                     \
+  "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), \
+      "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+
+// d (64 x 128, f32) += A (64 x 16, K-major) * B (16 x 128, MN-major), both in
+// shared memory
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : TPUSEG_D8(0), TPUSEG_D8(8), TPUSEG_D8(16), TPUSEG_D8(24), TPUSEG_D8(32),
+        TPUSEG_D8(40), TPUSEG_D8(48), TPUSEG_D8(56)
+      : "l"(da), "l"(db), "r"(1));
+}
+#undef TPUSEG_D8
+
+// Write one m64 accumulator (rows r, r + 8 of the warp's 16) of a tile: f32,
+// or bf16 with the bias added after the cast (no add without a bias: +0.0
+// would turn -0.0 into +0.0).
+__device__ __forceinline__ void store_acc(const float (&d)[64], int r, int valid,
+                                          long long pix0, int cout, int col, void* out,
+                                          bool bf16_out, bool has_bias, const float (&bias)[32]) {
 #pragma unroll
-        for (int i2 = 0; i2 < 4; ++i2)
-          wmma::load_matrix_sync(fa[i2], aq + i2 * 16 * kAPitch + kk, kAPitch);
+  for (int half = 0; half < 2; ++half) {
+    const int rr = r + 8 * half;
+    if (rr >= valid) continue;
+    const long long base = (pix0 + rr) * cout + col;
+    if (bf16_out) {
+      __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + base;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::load_matrix_sync(fb[j], bq + kk * kBPitch + j * 16, kBPitch);
-#pragma unroll
-        for (int i2 = 0; i2 < 4; ++i2)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i2][j], fa[i2], fb[j], acc[i2][j]);
+      for (int j = 0; j < 16; ++j) {
+        __nv_bfloat16 b0 = __float2bfloat16_rn(d[j * 4 + 2 * half]);
+        __nv_bfloat16 b1 = __float2bfloat16_rn(d[j * 4 + 2 * half + 1]);
+        if (has_bias) {
+          b0 = __float2bfloat16_rn(__bfloat162float(b0) + bias[2 * j]);
+          b1 = __float2bfloat16_rn(__bfloat162float(b1) + bias[2 * j + 1]);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(o + j * 8) = __halves2bfloat162(b0, b1);
       }
+    } else {
+      float* o = static_cast<float*>(out) + base;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<float2*>(o + j * 8) =
+            make_float2(d[j * 4 + 2 * half], d[j * 4 + 2 * half + 1]);
     }
   }
-  cp_async_wait_all();
-  __syncthreads();  // every warp is done with the ring before it becomes the C tile
+}
 
-  float* sC = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i2 = 0; i2 < 4; ++i2)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(sC + (wm * 64 + i2 * 16) * kCPitch + wn * 64 + j * 16,
-                              acc[i2][j], kCPitch, wmma::mem_row_major);
+__global__ void __launch_bounds__(kWsThreads, 1)
+sparse_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap vmap, const int* __restrict__ rows,
+                         const int* __restrict__ steps, const int* __restrict__ nsteps,
+                         const __nv_bfloat16* __restrict__ bias, void* __restrict__ out,
+                         int bf16_out, Geom g) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+
+  const int nmb = g.cout / kBN;
+  const int segs = (g.w + kTileM - 1) / kTileM;
+  const int ts_len = g.k * g.k * g.s;
+  const int jb = static_cast<int>(blockIdx.x % nmb);
+  const long long tile = blockIdx.x / nmb;
+  const long long row = tile / segs;  // n * h + i
+  const int j0 = static_cast<int>(tile % segs) * kTileM;
+  const int i = static_cast<int>(row % g.h);
+  const int n = static_cast<int>(row / g.h);
+  const int live = __ldg(nsteps + jb);
+  const int* jsteps = steps + static_cast<long long>(jb) * ts_len;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kConsumers * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  const int valid = min(kRowBM, g.w - j0);
-  float* orow = out + (row * g.w + j0) * g.cout + jb * kBN;
-  for (int idx = tid; idx < valid * (kBN / 4); idx += kThreads) {
-    const int r = idx / (kBN / 4);
-    const int c4 = idx % (kBN / 4);
-    *reinterpret_cast<float4*>(orow + static_cast<long long>(r) * g.cout + c4 * 4) =
-        *reinterpret_cast<const float4*>(sC + r * kCPitch + c4 * 4);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // producer warpgroup: one thread starts every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int e = 0; e < live; ++e) {
+        const int ts = __ldg(jsteps + e);
+        const int t = ts / g.s;
+        const int s = ts - t * g.s;
+        const int p = t / g.k;
+        const int ii = i + p * g.dil - g.pad;
+        if (ii < 0 || ii >= g.h) continue;  // the whole x tile is zero padding
+        const int jj = j0 + (t - p * g.k) * g.dil - g.pad;
+        const int c0 = __ldg(rows + jb * g.s + s) * kBlockK;
+        const int vrow = (jb * ts_len + ts) * kBlockK;
+        for (int c = 0; c < kChunks; ++c) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* a = smem + stage * kStageBytes;
+          mbar_expect_tx(&full[stage], kStageBytes);
+          tma_load_4d(a, &xmap, &full[stage], c0 + c * kBK, jj, ii, n);
+          tma_load_2d(a + kABytes, &vmap, &full[stage], 0, vrow + c * kBK);
+          tma_load_2d(a + kABytes + kBBytes / 2, &vmap, &full[stage], kBN / 2, vrow + c * kBK);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // consumer warpgroups: pixels wg*128 .. +127 of the tile, all 128 channels
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    float acc0[64], acc1[64];
+#pragma unroll
+    for (int r = 0; r < 64; ++r) acc0[r] = acc1[r] = 0.0f;
+    const int lane = threadIdx.x & 31;
+    int stage = 0, held = -1;
+    uint32_t phase = 0;
+    for (int e = 0; e < live; ++e) {
+      const int t = __ldg(jsteps + e) / g.s;
+      const int ii = i + (t / g.k) * g.dil - g.pad;
+      if (ii < 0 || ii >= g.h) continue;
+      for (int c = 0; c < kChunks; ++c) {
+        mbar_wait(&full[stage], phase);
+        const uint32_t a = smem_u32(smem + stage * kStageBytes) + wg * 128 * (kBK * 2);
+        const uint32_t b = smem_u32(smem + stage * kStageBytes + kABytes);
+        fence_acc(acc0);
+        fence_acc(acc1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          const uint64_t db = sw128_desc(b + kk * 16 * (kBN / 2) * 2, kBLbo, kBSbo);
+          wgmma_m64n128k16(acc0, sw128_desc(a + kk * 32, 16, kASbo), db);
+          wgmma_m64n128k16(acc1, sw128_desc(a + 64 * (kBK * 2) + kk * 32, 16, kASbo), db);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous step's MMAs are done: release its stage
+        fence_acc(acc0);
+        fence_acc(acc1);
+        if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+        held = stage;
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc0);
+    fence_acc(acc1);
+
+    const int r = wg * 128 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+    const int col = jb * kBN + (lane & 3) * 2;
+    float bv[32];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      bv[2 * j] = bias != nullptr ? __bfloat162float(bias[col + j * 8]) : 0.0f;
+      bv[2 * j + 1] = bias != nullptr ? __bfloat162float(bias[col + j * 8 + 1]) : 0.0f;
+    }
+    const int valid = min(kTileM, g.w - j0);
+    const long long pix0 = row * g.w + j0;
+    const bool bf16 = bf16_out != 0, has_bias = bias != nullptr;
+    store_acc(acc0, r, valid, pix0, g.cout, col, out, bf16, has_bias, bv);
+    store_acc(acc1, r + 64, valid, pix0, g.cout, col, out, bf16, has_bias, bv);
   }
 }
 
@@ -330,19 +478,57 @@ sparse_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ va
 }
 
 constexpr int kMaxSmem = 232448;  // opt-in shared memory per block on sm_90
+static_assert(kWsSmem <= kMaxSmem, "the bf16 ring does not fit shared memory");
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched through the runtime's entry-point query
+// (the library links no libcuda); null where it is missing.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor map with a 128-byte swizzle; dims and box innermost first,
+// strides in bytes of dims 1.. .
+bool bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+              const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace
 
-extern "C" int tpuseg_sparse_conv(const void* x, const void* vals, const void* rows, void* out,
-                                  int n, int h, int w, int cin, int cout, int s, int k, int dil,
-                                  int dtype, void* stream) {
+// dtype: 0 f32 (x, vals, out f32; steps, nsteps, bias unused), 1 bf16 (x,
+// vals bf16; out f32, or bf16 with out_bf16 = 1, then bias (cout,) bf16 or
+// null).
+extern "C" int tpuseg_sparse_conv(const void* x, const void* vals, const void* rows,
+                                  const void* steps, const void* nsteps, const void* bias,
+                                  void* out, int n, int h, int w, int cin, int cout, int s, int k,
+                                  int dil, int dtype, int out_bf16, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || s <= 0 || k <= 0 || (k & 1) == 0 || dil <= 0 ||
       cin <= 0 || cin % kBlockK != 0 || cout <= 0 || cout % kBN != 0 ||
       ((uintptr_t)x & 15u) != 0 || ((uintptr_t)vals & 15u) != 0 || ((uintptr_t)out & 15u) != 0 ||
-      ((uintptr_t)rows & 3u) != 0) {
+      ((uintptr_t)rows & 3u) != 0 || (out_bf16 != 0 && out_bf16 != 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  Geom g;
+  Geom g = {};
   g.h = h;
   g.w = w;
   g.cin = cin;
@@ -353,22 +539,39 @@ extern "C" int tpuseg_sparse_conv(const void* x, const void* vals, const void* r
   g.pad = dil * (k - 1) / 2;
   g.pixels = static_cast<long long>(n) * h * w;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 block(kThreads);
   if (dtype == 1) {
-    const long long ctas = static_cast<long long>(n) * h * ((w + kRowBM - 1) / kRowBM) *
-                           (cout / kBN);
-    const Bf16Smem sm = bf16_smem(k, g.pad);
-    if (ctas > 0x7fffffffLL || sm.bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+    const long long nmb = cout / kBN;
+    const long long ctas = static_cast<long long>(n) * h * ((w + kTileM - 1) / kTileM) * nmb;
+    const long long vrows = nmb * k * k * s * kBlockK;
+    if (steps == nullptr || nsteps == nullptr || ((uintptr_t)steps & 3u) != 0 ||
+        ((uintptr_t)nsteps & 3u) != 0 || ((uintptr_t)bias & 3u) != 0 ||
+        (bias != nullptr && out_bf16 == 0) || ctas > 0x7fffffffLL || vrows > 0x7fffffffLL) {
+      return (int)cudaErrorInvalidValue;
+    }
+    CUtensorMap xmap, vmap;
+    const cuuint64_t xdims[4] = {(cuuint64_t)cin, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)n};
+    const cuuint64_t xstrides[3] = {(cuuint64_t)cin * 2, (cuuint64_t)w * cin * 2,
+                                    (cuuint64_t)h * w * cin * 2};
+    const cuuint32_t xbox[4] = {kBK, kTileM, 1, 1};
+    const cuuint64_t vdims[2] = {kBN, (cuuint64_t)vrows};
+    const cuuint64_t vstrides[1] = {kBN * 2};
+    const cuuint32_t vbox[2] = {kBN / 2, kBK};
+    if (!bf16_map(&xmap, x, 4, xdims, xstrides, xbox) ||
+        !bf16_map(&vmap, vals, 2, vdims, vstrides, vbox)) {
+      return (int)cudaErrorInvalidValue;
+    }
     const cudaError_t e = cudaFuncSetAttribute(
-        sparse_conv_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm.bytes);
+        sparse_conv_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWsSmem);
     if (e != cudaSuccess) return (int)e;
-    sparse_conv_bf16_kernel<<<dim3(static_cast<unsigned>(ctas)), block, sm.bytes, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(vals),
-        static_cast<const int*>(rows), static_cast<float*>(out), g);
+    sparse_conv_wgmma_kernel<<<dim3(static_cast<unsigned>(ctas)), dim3(kWsThreads), kWsSmem,
+                               st>>>(xmap, vmap, static_cast<const int*>(rows),
+                                     static_cast<const int*>(steps),
+                                     static_cast<const int*>(nsteps),
+                                     static_cast<const __nv_bfloat16*>(bias), out, out_bf16, g);
   } else if (dtype == 0) {
     const long long ctas = (g.pixels + kBM - 1) / kBM * (cout / kBN);
-    if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    sparse_conv_f32_kernel<<<dim3(static_cast<unsigned>(ctas)), block, 0, st>>>(
+    if (ctas > 0x7fffffffLL || out_bf16 != 0) return (int)cudaErrorInvalidValue;
+    sparse_conv_f32_kernel<<<dim3(static_cast<unsigned>(ctas)), dim3(kThreads), 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(vals),
         static_cast<const int*>(rows), static_cast<float*>(out), g);
   } else {

@@ -489,6 +489,25 @@ def _sparse_conv(x, plan, cdef: ConvDef):
     return nhwc_to_nchw(y)
 
 
+def _sparse_conv_bias_bf16(x, plan, bias):
+    """bf16 serving of a bf16 ``FusedSparseConv`` or ``CompactSparse`` plan:
+    one launch of the fused block-sparse kernel writes the conv's bf16
+    output with its bias added, the bits of the cast-then-bias passes
+    (``tpuseg_torch.ops.sparse_conv.fused_sparse_conv_bias_bf16``).  None
+    for every other plan (RBGP, gathered, int8, f32 plans, calibration
+    probes), which keeps the two passes.  NCHW in and out."""
+    from tpuseg_torch.models.sparse_exec import CompactSparse
+    from tpuseg_torch.ops.sparse_conv import FusedSparseConv, fused_sparse_conv_bias_bf16
+
+    if isinstance(plan, CompactSparse) and plan.inner.vals.dtype == torch.bfloat16:
+        y = plan.apply_bias_bf16(nchw_to_nhwc(x).contiguous(), bias)
+    elif isinstance(plan, FusedSparseConv) and plan.vals.dtype == torch.bfloat16:
+        y = fused_sparse_conv_bias_bf16(nchw_to_nhwc(x).contiguous(), plan, bias)
+    else:
+        return None
+    return nhwc_to_nchw(y)
+
+
 def _conv_maybe_bn(x, params, state, cdef: ConvDef, bdef: BNDef | None, compute_dtype,
                    sparse_plans=None):
     """conv -> (folded bias | batch norm).  BN-folded weights
@@ -498,14 +517,19 @@ def _conv_maybe_bn(x, params, state, cdef: ConvDef, bdef: BNDef | None, compute_
     after the conv in the compute dtype, so in bf16 the two round at
     different points.  A conv with a sparse plan follows ``tpuseg``'s order
     exactly: the plan's output is cast to the compute dtype, then the bias
-    is added in that dtype (drn.py:556-560)."""
+    is added in that dtype (drn.py:556-560).  In bf16 a ``FusedSparseConv``
+    or ``CompactSparse`` plan does both in its kernel's epilogue, bit for
+    bit (``_sparse_conv_bias_bf16``)."""
     plan = sparse_plans.get(cdef.name) if sparse_plans else None
     bias = params.get(f"{cdef.name}.bias")
     if plan is not None:
         out_dtype = x.dtype if compute_dtype is None else compute_dtype
-        x = _sparse_conv(x, plan, cdef).to(out_dtype)
-        if bias is not None:
-            x = x + bias.to(x.dtype).view(1, -1, 1, 1)
+        y = _sparse_conv_bias_bf16(x, plan, bias) if out_dtype == torch.bfloat16 else None
+        if y is None:
+            y = _sparse_conv(x, plan, cdef).to(out_dtype)
+            if bias is not None:
+                y = y + bias.to(y.dtype).view(1, -1, 1, 1)
+        x = y
     else:
         x = conv2d(
             x,

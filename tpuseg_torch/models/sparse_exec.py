@@ -45,6 +45,7 @@ from tpuseg_torch.ops.sparse_conv import (
     FusedSparseConvQ,
     fused_sparse_conv_apply,
     fused_sparse_conv_apply_q,
+    fused_sparse_conv_bias_bf16,
     plan_fused_sparse_conv,
     quantize_fused_plan,
 )
@@ -67,6 +68,11 @@ class CompactSparse:
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         return fused_sparse_conv_apply(x.index_select(3, self.live_in), self.inner)
+
+    def apply_bias_bf16(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+        """The served bf16 route (``fused_sparse_conv_bias_bf16``) of the
+        compacted conv."""
+        return fused_sparse_conv_bias_bf16(x.index_select(3, self.live_in), self.inner, bias)
 
     def to(self, device) -> "CompactSparse":
         return CompactSparse(self.live_in.to(device), self.inner.to(device))

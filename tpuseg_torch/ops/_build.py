@@ -124,11 +124,15 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,                  # x (N, H, W, Cin) f32|bf16, NHWC
         ctypes.c_void_p,                  # vals (nmb, T*S*128, 128), x's dtype
         ctypes.c_void_p,                  # rows (nmb, S) int32
-        ctypes.c_void_p,                  # out (N, H, W, Cout) f32
+        ctypes.c_void_p,                  # steps (nmb, T*S) int32: live step ids
+        ctypes.c_void_p,                  # nsteps (nmb,) int32
+        ctypes.c_void_p,                  # bias (Cout,) bf16 or null (bf16 out only)
+        ctypes.c_void_p,                  # out (N, H, W, Cout) f32, or bf16
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n h w
         ctypes.c_int, ctypes.c_int,       # cin cout
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # s kernel dilation
         ctypes.c_int,                     # dtype: 0 f32, 1 bf16
+        ctypes.c_int,                     # out_bf16: 1 writes bf16(bf16(y) + bias)
         ctypes.c_void_p,                  # cudaStream_t
     ]
     lib.tpuseg_sparse_conv.restype = ctypes.c_int

@@ -18,7 +18,10 @@ and the conv is
 
 with pad = d*(k-1)/2, taps (dy_t, dx_t) = (p*d, q*d) for t = p*k + q, x
 zero outside the image, x cast to the vals dtype, f32 accumulation and an
-f32 (N, H, W, Cout) result.
+f32 (N, H, W, Cout) result.  Beside ``tpuseg``'s arrays each packing
+carries its live steps, built from the same nonzero mask: ``steps`` (nmb,
+T*S) int32, each out-block's step ids t*S + s of nonzero tiles, and
+``nsteps`` (nmb,) their count.  The kernel walks only those.
 
 - ``fused_sparse_conv_reference``: the plain version (per out-block channel
   gather + dense ``F.conv2d`` in f32 on the upcast operands).
@@ -26,6 +29,11 @@ f32 (N, H, W, Cout) result.
   it launches the hand-written kernel ``tpuseg_torch/csrc/sparse_conv.cu``
   (the port of ``tpuseg.ops.sparse_conv.fused_sparse_conv_apply``); on a
   CPU tensor it runs the plain version.
+- ``fused_sparse_conv_bias_bf16``: the route bf16 serving takes
+  (``models/drn.py``): one launch of the same kernel writes
+  ``bf16(float(bf16(y)) + float(bias))``, the bits of ``tpuseg``'s
+  cast-then-bias passes; ``fused_sparse_conv_bias_bf16_reference`` is those
+  two passes.
 
 The same kernel serves ``tpuseg``'s other Pallas kernels of this function:
 
@@ -84,10 +92,28 @@ class FusedSparseConv:
     cin: int
     cout: int
     block_density: float
+    # the live steps, built with the packing from its nonzero mask: per
+    # out-block the step ids t*S + s of its nonzero tiles, in order, padded
+    # with 0 (``steps``), and their count (``nsteps``); the kernel walks
+    # only these
+    steps: torch.Tensor = dataclasses.field(kw_only=True)   # (nmb, T*S) int32
+    nsteps: torch.Tensor = dataclasses.field(kw_only=True)  # (nmb,) int32
 
     def to(self, device) -> "FusedSparseConv":
-        """The plan with ``vals``/``rows`` on ``device`` (dtype unchanged)."""
-        return dataclasses.replace(self, vals=self.vals.to(device), rows=self.rows.to(device))
+        """The plan with its tensors on ``device`` (dtypes unchanged)."""
+        return dataclasses.replace(self, vals=self.vals.to(device), rows=self.rows.to(device),
+                                   steps=self.steps.to(device), nsteps=self.nsteps.to(device))
+
+
+def _step_list(live: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(steps, nsteps)`` of a (nmb, T*S) bool mask of live tiles: each
+    out-block's live step ids t*S + s in order, padded with 0, and their
+    count."""
+    steps = np.zeros(live.shape, np.int32)
+    for j, row in enumerate(live):
+        ids = np.flatnonzero(row)
+        steps[j, :len(ids)] = ids
+    return torch.from_numpy(steps), torch.from_numpy(live.sum(axis=1).astype(np.int32))
 
 
 def plan_fused_sparse_conv(
@@ -114,6 +140,7 @@ def plan_fused_sparse_conv(
     S = max(int(union.sum(axis=1).max()), 1)
     vals = np.zeros((nmb, T, S, bk, bm), np.float32)
     rows = np.zeros((nmb, S), np.int32)
+    live = np.zeros((nmb, T, S), bool)
     for j in range(nmb):
         for s_i, k in enumerate(np.flatnonzero(union[j])):
             rows[j, s_i] = k
@@ -121,8 +148,10 @@ def plan_fused_sparse_conv(
                 p, q = divmod(t, kw)
                 if nz[j, t, k]:
                     vals[j, t, s_i] = wm[p, q][k * bk:(k + 1) * bk, j * bm:(j + 1) * bm]
+                    live[j, t, s_i] = True
     taps = np.array([(p * dilation, q * dilation) for p in range(kh) for q in range(kw)],
                     np.int32)
+    steps, nsteps = _step_list(live.reshape(nmb, T * S))
     return FusedSparseConv(
         vals=torch.from_numpy(vals.reshape(nmb, T * S * bk, bm)).to(dtype),
         rows=torch.from_numpy(rows),
@@ -135,6 +164,8 @@ def plan_fused_sparse_conv(
         cin=cin,
         cout=cout,
         block_density=float(union.mean()),
+        steps=steps,
+        nsteps=nsteps,
     )
 
 
@@ -167,14 +198,8 @@ def _check(x: torch.Tensor, plan: FusedSparseConv) -> None:
         raise ValueError("x must be NHWC-contiguous")
     if x.shape[3] != plan.cin:
         raise ValueError(f"x has {x.shape[3]} channels, the plan {plan.cin}")
-    if plan.vals.device != x.device or plan.rows.device != x.device:
-        raise ValueError(f"plan on {plan.vals.device}, x on {x.device}")
     nmb, T = plan.cout // plan.bm, plan.kernel * plan.kernel
-    if (tuple(plan.vals.shape) != (nmb, T * plan.s * plan.bk, plan.bm)
-            or tuple(plan.rows.shape) != (nmb, plan.s) or plan.rows.dtype != torch.int32
-            or not (plan.vals.is_contiguous() and plan.rows.is_contiguous())):
-        raise ValueError("plan vals/rows do not match its geometry (contiguous "
-                         f"{(nmb, T * plan.s * plan.bk, plan.bm)} and int32 {(nmb, plan.s)})")
+    _check_packing(plan, nmb, T, x.device)
     if plan.kernel % 2 == 0:
         raise ValueError(f"'same' padding needs an odd kernel, got {plan.kernel}")
     if max(x.shape) > 2**31 - 1:
@@ -183,25 +208,46 @@ def _check(x: torch.Tensor, plan: FusedSparseConv) -> None:
         raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's int sizes")
 
 
-def _launch_b2(x: torch.Tensor, vals: torch.Tensor, rows: torch.Tensor, s: int, kernel: int,
-               dilation: int, cout: int) -> torch.Tensor:
+def _check_packing(p, nmb: int, T: int, device) -> None:
+    """A B2-layout packing (``FusedSparseConv`` or ``XwBsr``) on ``device``
+    whose tensors match its geometry."""
+    tensors = (p.vals, p.rows, p.steps, p.nsteps)
+    if any(t.device != device for t in tensors):
+        raise ValueError(f"plan on {p.vals.device}, x on {device}")
+    if (tuple(p.vals.shape) != (nmb, T * p.s * p.bk, p.bm)
+            or tuple(p.rows.shape) != (nmb, p.s) or tuple(p.steps.shape) != (nmb, T * p.s)
+            or tuple(p.nsteps.shape) != (nmb,)
+            or any(t.dtype != torch.int32 for t in tensors[1:])
+            or not all(t.is_contiguous() for t in tensors)):
+        raise ValueError("plan tensors do not match its geometry (contiguous vals "
+                         f"{(nmb, T * p.s * p.bk, p.bm)}, int32 rows {(nmb, p.s)}, steps "
+                         f"{(nmb, T * p.s)} and nsteps {(nmb,)})")
+
+
+def _launch_b2(x: torch.Tensor, p, kernel: int, dilation: int, cout: int,
+               bias: torch.Tensor | None = None, bf16_out: bool = False) -> torch.Tensor:
     """One launch of kernel B2 (``csrc/sparse_conv.cu``) on NHWC-contiguous
-    CUDA ``x``, whose operands the caller has checked: casts x to the vals
-    dtype, launches on the current stream and raises if the launch fails.
-    Returns the f32 (N, H, W, cout) output."""
+    CUDA ``x`` and the packing ``p`` (``vals``, ``rows``, ``steps``,
+    ``nsteps``, ``s``), whose operands the caller has checked: casts x to
+    the vals dtype, launches on the current stream and raises if the launch
+    fails.  Returns the f32 (N, H, W, cout) output, or with ``bf16_out``
+    (bf16 plans) the bf16 ``bf16(float(bf16(y)) + float(bias))``."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     from tpuseg_torch.ops._build import load_library
 
-    x = x.to(vals.dtype)
+    x = x.to(p.vals.dtype)
     n, h, w, cin = x.shape
-    out = torch.empty((n, h, w, cout), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, h, w, cout), dtype=torch.bfloat16 if bf16_out else torch.float32,
+                      device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.tpuseg_sparse_conv(
-            x.data_ptr(), vals.data_ptr(), rows.data_ptr(), out.data_ptr(),
-            n, h, w, cin, cout, s, kernel, dilation, _DTYPE_CODE[vals.dtype], stream,
+            x.data_ptr(), p.vals.data_ptr(), p.rows.data_ptr(), p.steps.data_ptr(),
+            p.nsteps.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+            n, h, w, cin, cout, p.s, kernel, dilation, _DTYPE_CODE[p.vals.dtype],
+            int(bf16_out), stream,
         )
     if err != 0:
         msg = lib.tpuseg_cuda_error_string(err).decode()
@@ -216,7 +262,7 @@ def _run_b2(x: torch.Tensor, plan: FusedSparseConv, entry) -> torch.Tensor:
     _check(x, plan)
     if x.device.type == "cpu":
         return fused_sparse_conv_reference(x, plan)
-    out = _launch_b2(x, plan.vals, plan.rows, plan.s, plan.kernel, plan.dilation, plan.cout)
+    out = _launch_b2(x, plan, plan.kernel, plan.dilation, plan.cout)
     entry.launches += 1
     return out
 
@@ -234,6 +280,39 @@ def fused_sparse_conv_apply(x: torch.Tensor, plan: FusedSparseConv) -> torch.Ten
 
 
 fused_sparse_conv_apply.launches = 0
+
+
+def fused_sparse_conv_bias_bf16_reference(x: torch.Tensor, plan: FusedSparseConv,
+                                          bias: torch.Tensor | None) -> torch.Tensor:
+    """Plain version of the served bf16 route: the two passes it replaces
+    (``models/drn.py``, ``tpuseg``'s cast-then-bias order), B2's f32 output
+    cast to bf16, then the bf16 bias added in bf16."""
+    y = fused_sparse_conv_reference(x, plan).to(torch.bfloat16)
+    return y if bias is None else y + bias.to(torch.bfloat16)
+
+
+def fused_sparse_conv_bias_bf16(x: torch.Tensor, plan: FusedSparseConv,
+                                bias: torch.Tensor | None) -> torch.Tensor:
+    """The served bf16 route of a bf16 plan: ``bf16(float(bf16(y)) +
+    float(bias_bf16))`` (N, H, W, Cout) bf16, y = B2's f32 function of
+    ``x``, each step rounded to nearest even; no add without a bias.
+
+    On a CUDA tensor one launch of B2 writes it (half the bytes of the f32
+    y, and no cast-and-bias pass), counted in
+    ``fused_sparse_conv_apply.launches``; on a CPU tensor it runs
+    ``fused_sparse_conv_bias_bf16_reference``.  ``models/drn.py`` takes
+    this route for bf16 serving; every public entry point returns f32."""
+    _check(x, plan)
+    if plan.vals.dtype != torch.bfloat16:
+        raise TypeError(f"the bf16 route needs a bf16 plan, got {plan.vals.dtype}")
+    if bias is not None and (bias.dim() != 1 or bias.shape[0] != plan.cout):
+        raise ValueError(f"bias must be ({plan.cout},), got {tuple(bias.shape)}")
+    if x.device.type == "cpu":
+        return fused_sparse_conv_bias_bf16_reference(x, plan, bias)
+    b = None if bias is None else bias.to(device=x.device, dtype=torch.bfloat16).contiguous()
+    out = _launch_b2(x, plan, plan.kernel, plan.dilation, plan.cout, bias=b, bf16_out=True)
+    fused_sparse_conv_apply.launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -256,10 +335,13 @@ class XwBsr:
     bm: int
     s: int
     block_density: float
+    steps: torch.Tensor  # (nmb, S) int32: the live slots per out-block, in order
+    nsteps: torch.Tensor  # (nmb,) int32
 
     def to(self, device) -> "XwBsr":
-        """The packing with ``vals``/``rows`` on ``device`` (dtype unchanged)."""
-        return dataclasses.replace(self, vals=self.vals.to(device), rows=self.rows.to(device))
+        """The packing with its tensors on ``device`` (dtypes unchanged)."""
+        return dataclasses.replace(self, vals=self.vals.to(device), rows=self.rows.to(device),
+                                   steps=self.steps.to(device), nsteps=self.nsteps.to(device))
 
 
 def pack_xw_bsr(w_km: np.ndarray, dtype: torch.dtype = torch.bfloat16) -> XwBsr:
@@ -277,13 +359,16 @@ def pack_xw_bsr(w_km: np.ndarray, dtype: torch.dtype = torch.bfloat16) -> XwBsr:
     S = max(int(nz.sum(axis=0).max()), 1)
     vals = np.zeros((nmb, S, bk, bm), np.float32)
     rows = np.zeros((nmb, S), np.int32)
+    live = np.zeros((nmb, S), bool)
     for j in range(nmb):
         for s_i, k in enumerate(np.flatnonzero(nz[:, j])):
             vals[j, s_i] = blocks[k, :, j, :]
             rows[j, s_i] = k
+            live[j, s_i] = True
+    steps, nsteps = _step_list(live)
     return XwBsr(vals=torch.from_numpy(vals.reshape(nmb, S * bk, bm)).to(dtype),
                  rows=torch.from_numpy(rows), shape=(K, M), bk=bk, bm=bm, s=S,
-                 block_density=float(nz.mean()))
+                 block_density=float(nz.mean()), steps=steps, nsteps=nsteps)
 
 
 def xw_dense(w: XwBsr) -> torch.Tensor:
@@ -323,18 +408,14 @@ def bsr_matmul_xw(x: torch.Tensor, w: XwBsr) -> torch.Tensor:
     nmb = M // w.bm
     if x.shape[1] != K:
         raise ValueError(f"x has K={x.shape[1]}, the packing {K}")
-    if w.vals.device != x.device or w.rows.device != x.device:
-        raise ValueError(f"packing on {w.vals.device}, x on {x.device}")
-    if ((w.bk, w.bm) != (BK, BM) or tuple(w.vals.shape) != (nmb, w.s * BK, BM)
-            or tuple(w.rows.shape) != (nmb, w.s) or w.rows.dtype != torch.int32
-            or not (w.vals.is_contiguous() and w.rows.is_contiguous())):
-        raise ValueError("packing vals/rows do not match its geometry (contiguous "
-                         f"{(nmb, w.s * BK, BM)} and int32 {(nmb, w.s)})")
+    if (w.bk, w.bm) != (BK, BM):
+        raise ValueError(f"packing blocks {(w.bk, w.bm)}, the kernel's {(BK, BM)}")
+    _check_packing(w, nmb, 1, x.device)
     if x.shape[0] > 2**31 - 1:
         raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's int sizes")
     if x.device.type == "cpu":
         return bsr_matmul_xw_reference(x, w)
-    out = _launch_b2(x.view(1, 1, x.shape[0], K), w.vals, w.rows, w.s, 1, 1, M)
+    out = _launch_b2(x.view(1, 1, x.shape[0], K), w, 1, 1, M)
     bsr_matmul_xw.launches += 1
     return out.view(x.shape[0], M)
 
@@ -456,19 +537,22 @@ def plan_shared_sparse_conv(
     rows = tuple(int(k) for k in np.flatnonzero(union)) or (0,)
     S = len(rows)
     vals = np.zeros((nmb, T, S, bk, bm), np.float32)
+    live = np.zeros((nmb, T, S), bool)
     for j in range(nmb):
         for t in range(T):
             p, q = divmod(t, kw)
             for s_i, k in enumerate(rows):
                 if nz[t, k, j]:
                     vals[j, t, s_i] = wm[p, q][k * bk:(k + 1) * bk, j * bm:(j + 1) * bm]
+                    live[j, t, s_i] = True
+    steps, nsteps = _step_list(live.reshape(nmb, T * S))
     taps = np.array([(p * dilation, q * dilation) for p in range(kh) for q in range(kw)],
                     np.int32)
     return SharedFusedSparseConv(
         vals=torch.from_numpy(vals.reshape(nmb, T * S * bk, bm)).to(dtype),
         rows=torch.tensor(rows, dtype=torch.int32).expand(nmb, S).contiguous(),
         taps=taps, s=S, bk=bk, bm=bm, kernel=kh, dilation=dilation, cin=cin, cout=cout,
-        block_density=S / nkb, union_rows=rows)
+        block_density=S / nkb, union_rows=rows, steps=steps, nsteps=nsteps)
 
 
 # tpuseg's six round-3 kernels compute B2's function under six sets of TPU
