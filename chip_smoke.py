@@ -33,24 +33,34 @@ Phases (any failed check raises and the exit code is non-zero):
      the gathered lowering and masked dense;
   9. B2 vs plain vs the dense cuDNN conv at the layer.6.1.conv2 serving shape,
      and the bf16+bias route vs the two passes it replaces;
- 10. the int8 block-sparse conv kernel (B3) vs its exact plain version,
-     bit-equal: the CPU tests' shapes with per-frame and static scales, f32
-     and bf16 x; the quantize pass on the card vs on the CPU; then every B3
-     plan the served int8 configurations launch (the 7 lifted B2 plans of
-     block128reg_87.50, the full-support packings of the 13 dense int8
-     convs, one gathered packing) at its batch-32 serving input; a
-     non-contiguous input must raise;
+ 10. the quantize kernels (``csrc/quantize.cu``) vs ``quantize_activation``
+     on the CPU, bit for bit on xq and xs (bf16 and f32, per-frame and
+     static, with and without a channel map, a 40x frame and an all-zero
+     frame; a NaN frame's scale NaN on both sides); the int8 block-sparse
+     conv kernel (B3) vs its exact plain version, bit-equal: the CPU tests'
+     shapes with per-frame and static scales, f32 and bf16 x; then every
+     int8 plan the served configurations launch (13 ``QuantConv``, the 7
+     lifted B2 plans of block128reg_87.50, ``CompactSparseQ`` through its
+     channel map, one ``GatheredGroupConvQ``) at its batch-32 serving input,
+     on the f32 route and on the served bf16+bias route (0 mismatches
+     against the plain f32 y cast and biased); a non-contiguous input must
+     raise;
  11. int8 slice parity in f32 (TF32 off), dense and block128_75.00 Pallas:
      every int8 conv's CUDA output is bit-equal to the CPU plain version on
      the activation the CUDA run gave it, and CUDA vs CPU ids agree >= 0.97;
  12. int8 at full width and size, bf16, batch 8, 32 frames: dense (per-frame
      scales), dense calibrated on 8 frames, block128reg_87.50 under the
      Pallas and the gathered lowering; B3 launched exactly 13 / 13 / 11 / 13
-     times per forward and B2 never; ids agreement with the float runs and
-     calibrated vs dynamic >= INT8_FULL_MIN (0.9 dense, 0.85 pruned);
- 13. device fps at batch 32 of those four int8 variants, and B3 vs its plain
-     version vs B2 vs the dense cuDNN bf16 conv at layer.6.1.conv2, with the
-     quantize pass and a dense conv through B3;
+     times per forward and B2 never, the quantize kernel once per B3 launch
+     and the absmax kernel too except in the calibrated run (0); ids
+     agreement with the float runs and calibrated vs dynamic >=
+     INT8_FULL_MIN (0.9 dense, 0.85 pruned);
+ 13. device fps at batch 32 of those four int8 variants, and at
+     layer.6.1.conv2: B3's served route (quantize + B3 with its bf16+bias
+     epilogue), B3 alone (bf16 and f32 out), the quantize kernels alone
+     (per-frame and static), their plain versions, B2, the dense cuDNN bf16
+     conv with bias (context only: no PyTorch call computes an int8 conv on
+     CUDA) and the dense S=4 conv through B3's served route;
  14. B4 (``bsr_matmul_xw``, B2's kernel at k=1) and ``sparse_conv_apply``
      vs their plain versions (TF32 off): the CPU tests' cases in f32 and
      bf16, x (32768, 512) and (1048576, 512) bf16 against a 512x512
@@ -59,8 +69,9 @@ Phases (any failed check raises and the exit code is non-zero):
      launched exactly once per tap; a non-contiguous x must raise;
  15. B5/B6 (``bsr_matmul``, ``bsr_matmul_gathered``: ``csrc/bsr_matmul.cu``)
      vs their plain version: the CPU tests' cases (ragged rows, an empty
-     row, an all-zero W, a ragged N), and a 512x512 87.5 % W, which has empty
-     rows, on x (512, 32768) and (512, 1048576) bf16;
+     row, an all-zero W, a ragged N through the non-TMA path), and a
+     512x512 87.5 % W, which has empty rows, on x (512, 32768) and
+     (512, 1048576) bf16;
  16. B7a-f (B2's kernel on their packings) vs ``fused_sparse_conv_reference``
      on the same packing: the CPU tests' kinds, every plan the bench's fused
      mode launches (each sparsity, the all-ones shared plan) at batch 1, and
@@ -78,7 +89,8 @@ Phases (any failed check raises and the exit code is non-zero):
      port never calls.
 The line before the last is the kernels' JSON record (each kernel's time,
 its plain version's, its bound at the card's published peaks and the
-PyTorch call's, at its main shape); the last line is
+PyTorch call's, at its main shape; B3's time is its served route, the
+``quantize`` entry the quantize kernels' per-frame pass); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -346,20 +358,72 @@ def _b2_vs_plain(torch, np, dev, rng, served: dict, folded: dict) -> float:
     return worst
 
 
+def _quantize_vs_cpu(torch, np, dev, rng) -> float:
+    """Phase 10: the quantize kernels (``quantize_activation`` on the card)
+    vs ``quantize_activation`` on the CPU, bit for bit on xq and xs: bf16
+    and f32, per-frame and static, a frame of 40x the range and an all-zero
+    frame, with and without a channel map; a frame holding a NaN must get a
+    NaN scale on both sides (its xq is not compared: PyTorch's cast of a NaN
+    to int8 is undefined).  -> the max |difference| of xq (0)."""
+    from tpuseg_torch.ops.sparse_conv import quantize_activation
+
+    x = torch.from_numpy(rng.normal(size=(4, 32, 48, 384)).astype(np.float32))
+    x[1] *= 40.0
+    x[2] = 0.0
+    x[3, 7, 9, 300] = float("nan")
+    chan = torch.cat([torch.arange(128), torch.arange(256, 384)]).to(torch.int32)
+    worst = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for x_scale in (None, 0.013):
+            for cmap in (None, chan):
+                xd = x.to(dev, dtype)
+                before = (quantize_activation.launches, quantize_activation.absmax_launches)
+                xq_d, xs_d = quantize_activation(
+                    xd, x_scale, None if cmap is None else cmap.to(dev))
+                torch.cuda.synchronize()
+                launched = (quantize_activation.launches - before[0],
+                            quantize_activation.absmax_launches - before[1])
+                xq_c, xs_c = quantize_activation(x.to(dtype), x_scale, cmap)
+                xq_d, xs_d = xq_d.cpu(), xs_d.cpu()
+                same = (torch.equal(xq_d[:3], xq_c[:3]) and torch.equal(xs_d[:3], xs_c[:3])
+                        and xs_d[3].isnan() == xs_c[3].isnan()
+                        and (x_scale is not None or bool(xs_d[3].isnan())))
+                if x_scale is not None:
+                    same = same and torch.equal(xs_d[3], xs_c[3])
+                err = int((xq_d[:3].int() - xq_c[:3].int()).abs().max())
+                worst = max(worst, err)
+                _emit(phase="b3_quantize_pass_vs_cpu", x_dtype=str(dtype), shape=list(x.shape),
+                      scale="static" if x_scale else "per-frame",
+                      channel_map=cmap is not None, bit_equal=same, max_abs_err=err,
+                      nan_frame_scale=float(xs_d[3]), launches=launched)
+                if not same:
+                    raise AssertionError(f"the quantize kernels differ from the CPU "
+                                         f"({dtype}, {x_scale}, map {cmap is not None})")
+                if launched != (1, 0 if x_scale is not None else 1):
+                    raise AssertionError(f"quantize launches {launched}")
+    return float(worst)
+
+
 def _b3_vs_plain(torch, np, dev, rng, served: dict) -> float:
     """Phase 10: B3 on the card vs its exact plain version on the same
-    inputs, bit for bit; ``served`` maps a label to each B3 packing the
-    served int8 configurations launch, checked at its batch-32 input."""
+    inputs, bit for bit: the CPU tests' kinds, then each int8 plan the served
+    configurations launch (``served``: label -> (plan, x channels)) at its
+    batch-32 input, on the f32 route and on the served bf16+bias route
+    (``models/drn.py``; 0 mismatches against the plain f32 y cast and
+    biased)."""
+    from tpuseg_torch.models import drn as tdrn
+    from tpuseg_torch.models.sparse_exec import CompactSparseQ
     from tpuseg_torch.ops.sparse_conv import (
-        fused_sparse_conv_apply_q, fused_sparse_conv_q_reference, plan_fused_sparse_conv,
-        quantize_activation, quantize_fused_plan)
+        cast_bias_bf16, fused_sparse_conv_apply_q, fused_sparse_conv_q_reference,
+        plan_fused_sparse_conv, quantize_fused_plan)
 
     worst = 0.0
 
-    def check(x, plan, case):
+    def check(x, plan, case, chan=None):
         nonlocal worst
-        got = fused_sparse_conv_apply_q(x, plan)
-        want = fused_sparse_conv_q_reference(x, plan)
+        got = fused_sparse_conv_apply_q(x, plan, chan=chan)
+        want = fused_sparse_conv_q_reference(
+            x if chan is None else x.index_select(3, chan), plan)
         torch.cuda.synchronize()
         assert got.shape == want.shape == tuple(x.shape[:3]) + (plan.cout,)
         assert got.dtype == want.dtype == torch.float32
@@ -368,12 +432,14 @@ def _b3_vs_plain(torch, np, dev, rng, served: dict) -> float:
         worst = max(worst, err)
         _emit(phase="b3_vs_plain", shape=list(x.shape), x_dtype=str(x.dtype), k=plan.kernel,
               dilation=plan.dilation, cout=plan.cout, s=plan.s,
-              scale="static" if plan.x_scale is not None else "per-frame", case=case,
-              mismatches=mism, max_abs_err=err, max_abs_want=float(want.abs().max()))
+              live_steps=int(plan.nsteps.sum()), scale="static" if plan.x_scale is not None
+              else "per-frame", case=case, mismatches=mism, max_abs_err=err,
+              max_abs_want=float(want.abs().max()))
         if mism:
             raise AssertionError(f"B3 differs from its plain version in {mism} values at "
                                  f"{list(x.shape)} k={plan.kernel} d={plan.dilation} "
                                  f"S={plan.s} ({case})")
+        return want
 
     cases = [  # (x shape without C, k, dilation, cin, cout, S, kind): the CPU tests' kinds
         ((1, 17, 33), 3, 1, 384, 256, 3, "odd grid"),
@@ -395,33 +461,34 @@ def _b3_vs_plain(torch, np, dev, rng, served: dict) -> float:
             static = float(x.float().abs().max()) / 127.0 * 0.8  # some values clip
             for x_scale in (None, static):
                 check(x, quantize_fused_plan(fplan, x_scale).to(dev), kind)
-    # the quantize pass on the card vs on the CPU (B3's plain version runs it
-    # on the card too, so the comparison above cannot see it)
-    x = torch.from_numpy(rng.normal(size=(3, 32, 48, 256)).astype(np.float32))
-    x[1] *= 40.0
-    x[2] = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for x_scale in (None, 0.013):
-            xq_d, xs_d = quantize_activation(x.to(dev, dtype), x_scale)
-            xq_c, xs_c = quantize_activation(x.to(dtype), x_scale)
-            same = torch.equal(xq_d.cpu(), xq_c) and torch.equal(xs_d.cpu(), xs_c)
-            _emit(phase="b3_quantize_pass_vs_cpu", x_dtype=str(dtype),
-                  scale="static" if x_scale else "per-frame", bit_equal=same)
-            if not same:
-                raise AssertionError(f"the quantize pass differs between CUDA and CPU ({dtype})")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     n, h, w = SERVING_SPARSE[0][:3]
-    for label, plan in served.items():
+    for label, (plan, cin) in served.items():
         plan = plan.to(dev)
-        x = torch.randn((n, h, w, plan.cin), generator=gen, device=dev, dtype=torch.bfloat16)
-        check(x, plan, f"{label} serving input")
-        del x
+        if isinstance(plan, CompactSparseQ):
+            packing, chan = plan.inner, plan.live_in32
+        else:
+            packing, chan = getattr(plan, "packed", plan), None
+        x = torch.randn((n, h, w, cin), generator=gen, device=dev, dtype=torch.bfloat16)
+        want = check(x, packing, f"{label} serving input", chan)
+        bias = torch.randn((packing.cout,), generator=gen, device=dev).to(torch.bfloat16)
+        got = tdrn._sparse_conv_bias_bf16(tdrn.nhwc_to_nchw(x), plan, bias)
+        got = tdrn.nchw_to_nhwc(got)
+        want = cast_bias_bf16(want, bias)
+        torch.cuda.synchronize()
+        mism = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        _emit(phase="b3_bf16_bias_route", plan=label, kind=type(plan).__name__,
+              shape=[n, h, w, cin], mismatches=mism, max_abs_want=float(want.float().abs().max()))
+        if mism or got.shape != want.shape or got.dtype != torch.bfloat16:
+            raise AssertionError(f"{label}: the int8 bf16+bias route differs from its plain "
+                                 f"version in {mism} values")
+        del x, got, want
         torch.cuda.empty_cache()
-    x = torch.zeros((1, plan.cin, 16, 24), device=dev,
+    x = torch.zeros((1, packing.cin, 16, 24), device=dev,
                     dtype=torch.bfloat16).permute(0, 2, 3, 1)  # NHWC view of NCHW memory
     try:
-        fused_sparse_conv_apply_q(x, plan)
+        fused_sparse_conv_apply_q(x, packing)
     except ValueError:
         pass
     else:
@@ -429,27 +496,29 @@ def _b3_vs_plain(torch, np, dev, rng, served: dict) -> float:
     return worst
 
 
-def _served_b3_packings(dense_plans: dict, pallas_plans: dict, gathered_plans: dict) -> dict:
-    """label -> every B3 packing the served int8 configurations launch: the
-    13 dense convs' full-support packings, the 7 lifted B2 plans of the
-    Pallas lowering (CompactSparseQ's inner plans take the survivors), and
-    the gathered packing of layer.6.1.conv2."""
-    from tpuseg_torch.models.sparse_exec import CompactSparseQ, quantize_sparse_plans
+def _served_b3_plans(dense_plans: dict, pallas_plans: dict, gathered_plans: dict,
+                     folded: dict) -> dict:
+    """label -> (int8 plan, its input's channels) for every B3 plan the
+    served int8 configurations launch: the 13 dense ``QuantConv``s, the 7
+    lifted B2 plans of the Pallas lowering (3 ``FusedSparseConvQ``, 4
+    ``CompactSparseQ`` whose channel map gathers the survivors), and the
+    ``GatheredGroupConvQ`` of layer.6.1.conv2."""
+    from tpuseg_torch.models.sparse_exec import quantize_sparse_plans
     from tpuseg_torch.ops.gathered_conv import GatheredGroupConvQ
-    from tpuseg_torch.ops.sparse_conv import FusedSparseConvQ
 
-    out = {f"{n} QuantConv": p.packed for n, p in dense_plans.items()}
+    def cin(name):
+        return folded[f"{name}.weight"].shape[1]
+
+    out = {f"{n} QuantConv": (p, cin(n)) for n, p in dense_plans.items()}
     for n, p in quantize_sparse_plans(pallas_plans).items():
-        if isinstance(p, FusedSparseConvQ):
-            out[f"{n} FusedSparseConvQ"] = p
-        elif isinstance(p, CompactSparseQ):
-            out[f"{n} CompactSparseQ survivors"] = p.inner
+        if type(p).__name__ in ("FusedSparseConvQ", "CompactSparseQ"):
+            out[f"{n} {type(p).__name__}"] = (p, cin(n))
     g = quantize_sparse_plans({"layer.6.1.conv2": gathered_plans["layer.6.1.conv2"]})
     assert isinstance(g["layer.6.1.conv2"], GatheredGroupConvQ)
-    out["layer.6.1.conv2 GatheredGroupConvQ"] = g["layer.6.1.conv2"].packed
+    out["layer.6.1.conv2 GatheredGroupConvQ"] = (g["layer.6.1.conv2"], cin("layer.6.1.conv2"))
     want = B3_PER_FORWARD["dense"] + B2_PER_FORWARD + 1
     if len(out) != want:
-        raise AssertionError(f"{len(out)} served B3 packings; want {want}")
+        raise AssertionError(f"{len(out)} served B3 plans; want {want}")
     return out
 
 
@@ -912,7 +981,7 @@ def main() -> int:
     from tpuseg_torch.data.shapes import shapes_video
     from tpuseg_torch.models.drnseg import bilinear_upsample_kernel, init_drnseg
     from tpuseg_torch.ops import _build
-    from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_apply
+    from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_apply, quantize_activation
     from tpuseg_torch.ops.upsample import upsample_argmax, upsample_argmax_reference
     from tpuseg_torch.video.pipeline import SyntheticFrames, VideoSegmenter
 
@@ -1139,7 +1208,8 @@ def main() -> int:
     from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_apply_q
 
     dense_int8 = build_quant_plans(fold_bn(params, state, spec), spec)
-    served = _served_b3_packings(dense_int8, plans, gplans)
+    served = _served_b3_plans(dense_int8, plans, gplans, fold_bn(masked, state, spec))
+    quantize_err = _quantize_vs_cpu(torch, np, dev, rng)
     b3_err = _b3_vs_plain(torch, np, dev, rng, served)
     del served
     torch.cuda.empty_cache()
@@ -1157,7 +1227,7 @@ def main() -> int:
         "gathered": (masked, gplans, None, pruned_ids),
     }
     forwards = 1 + -(-len(frames) // 8)
-    b3_launches = 0
+    b3_launches = q_launches = 0
     int8_ids = {}
     for label, (vparams, vplans, calib, float_ids) in int8_variants.items():
         serve = VideoSegmenter(vparams, state, spec, MEAN, STD, device=dev,
@@ -1173,10 +1243,12 @@ def main() -> int:
         fused_sparse_conv_apply_q.launches = 0
         fused_sparse_conv_apply.launches = 0
         upsample_argmax.launches = 0
+        quantize_activation.launches = quantize_activation.absmax_launches = 0
         res = serve.run(frames, need_color=False)
         torch.cuda.synchronize()
         b3, b2, up = (fused_sparse_conv_apply_q.launches, fused_sparse_conv_apply.launches,
                       upsample_argmax.launches)
+        quant, absmax = quantize_activation.launches, quantize_activation.absmax_launches
         out = res["ids"]
         assert out.shape == (32,) + FULL and out.dtype == np.uint8, (out.shape, out.dtype)
         assert int(out.max()) < CLASSES
@@ -1184,7 +1256,12 @@ def main() -> int:
             raise AssertionError(f"int8 {label}: B3 {b3}, B2 {b2}, upsample_argmax {up} "
                                  f"launches; want {B3_PER_FORWARD[label] * forwards}, 0, "
                                  f"{forwards}")
+        # one quantize pass per B3 launch; the absmax pass only without static scales
+        if quant != b3 or absmax != (0 if calib is not None else b3):
+            raise AssertionError(f"int8 {label}: quantize {quant}, absmax {absmax} launches "
+                                 f"for {b3} B3 launches")
         b3_launches += b3
+        q_launches += quant
         int8_ids[label] = out
         ref_label, ref = (("float", float_ids) if float_ids is not None
                           else ("dynamic int8", int8_ids["dense"]))
@@ -1192,6 +1269,7 @@ def main() -> int:
         _emit(phase="int8_full", variant=label, size=list(FULL), dtype="bfloat16", batch=8,
               frames=res["frames"], run_fps=res["fps"], plans=kinds,
               calibrated_frames=0 if calib is None else len(calib), b3_launches=b3,
+              quantize_launches=quant, absmax_launches=absmax,
               b2_launches=b2, upsample_launches=up, ids_agreement=agree,
               agreement_with=ref_label, limit=limit)
         if agree < limit:
@@ -1212,47 +1290,65 @@ def main() -> int:
           device_fps=int8_fps, card=smi)
     from tpuseg_torch.ops.quant import full_support_packing, quantize_weight
     from tpuseg_torch.ops.sparse_conv import (
-        fused_sparse_conv_q_reference, quantize_activation, quantize_fused_plan)
+        fused_sparse_conv_q_bias_bf16, fused_sparse_conv_q_bias_bf16_reference,
+        quantize_activation_reference, quantize_fused_plan)
 
     qplan = quantize_fused_plan(plans["layer.6.1.conv2"]).to(dev)
-    w6 = masked["layer.6.1.conv2.weight"].numpy().transpose(2, 3, 1, 0)
+    # the dense int8 conv as dense int8 serving runs it: the unpruned weight
+    w6 = params["layer.6.1.conv2.weight"].numpy().transpose(2, 3, 1, 0)
     qdense = full_support_packing("layer.6.1.conv2", *quantize_weight(w6), sd, sd).to(dev)
     xq, xs = quantize_activation(x, None)
-    out6 = torch.empty((sn, sh, sw, qplan.cout), device=dev)
+    out6 = {dt: torch.empty((sn, sh, sw, qplan.cout), device=dev, dtype=dt)
+            for dt in (torch.float32, torch.bfloat16)}
     lib = _build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def b3_kernel_only():
+    def b3_kernel_only(bf16_out):
+        o = out6[torch.bfloat16 if bf16_out else torch.float32]
         err = lib.tpuseg_sparse_conv_q(
             xq.data_ptr(), qplan.vals_k.data_ptr(), qplan.rows.data_ptr(),
-            qplan.w_scale.data_ptr(), xs.data_ptr(), out6.data_ptr(),
-            sn, sh, sw, sc, qplan.cout, qplan.s, qplan.kernel, qplan.dilation, stream)
+            qplan.steps.data_ptr(), qplan.nsteps.data_ptr(), qplan.w_scale.data_ptr(),
+            xs.data_ptr(), bias6.data_ptr() if bf16_out else None, o.data_ptr(),
+            sn, sh, sw, sc, qplan.cout, qplan.s, qplan.kernel, qplan.dilation, int(bf16_out),
+            stream)
         assert err == 0, err
 
     x_nchw = x.permute(0, 3, 1, 2)
     turns = _time_turns(torch, {
-        "b3_plain": lambda: fused_sparse_conv_q_reference(x, qplan),
-        "b3": lambda: fused_sparse_conv_apply_q(x, qplan),
-        "b3_kernel_only": b3_kernel_only,
-        "quantize_pass": lambda: quantize_activation(x, None),
+        "b3_plain": lambda: fused_sparse_conv_q_bias_bf16_reference(x, qplan, bias6),
+        "b3_served": lambda: fused_sparse_conv_q_bias_bf16(x, qplan, bias6),
+        "b3_f32": lambda: fused_sparse_conv_apply_q(x, qplan),
+        "b3_kernel_only": lambda: b3_kernel_only(True),
+        "b3_kernel_only_f32": lambda: b3_kernel_only(False),
+        "quantize": lambda: quantize_activation(x, None),
+        "quantize_static": lambda: quantize_activation(x, 0.013),
+        "quantize_plain": lambda: quantize_activation_reference(x, None),
         "b2": lambda: fused_sparse_conv_apply(x, plan),
-        "dense_cudnn": lambda: torch.nn.functional.conv2d(x_nchw, w_dense, None, 1, sd, sd),
-        "b3_dense_s4": lambda: fused_sparse_conv_apply_q(x, qdense),
-    }, {"b3_plain": 2, "b3": 10, "b3_kernel_only": 10, "quantize_pass": 10, "b2": 10,
-        "dense_cudnn": 10, "b3_dense_s4": 5})
-    b3_ms, b3_plain_ms = min(turns["b3"]), min(turns["b3_plain"])
+        "dense_cudnn_bias": lambda: torch.nn.functional.conv2d(x_nchw, w_dense, bias6, 1, sd,
+                                                               sd),
+        "b3_dense_s4_served": lambda: fused_sparse_conv_q_bias_bf16(x, qdense, bias6),
+    }, {"b3_plain": 2, "b3_served": 10, "b3_f32": 10, "b3_kernel_only": 10,
+        "b3_kernel_only_f32": 10, "quantize": 10, "quantize_static": 10, "quantize_plain": 3,
+        "b2": 10, "dense_cudnn_bias": 10, "b3_dense_s4_served": 5})
+    b3_ms, b3_plain_ms = min(turns["b3_served"]), min(turns["b3_plain"])
     k_ms = min(turns["b3_kernel_only"])
-    # the wrapper's function: bf16 x in (all of it: the per-frame scale is
-    # its absmax), the live int8 tiles, f32 y out, int8 operations
+    # the served function: bf16 x in (all of it: the per-frame scale is its
+    # absmax), the live int8 tiles, bf16 y out with its bias, int8 operations
     b3_live = _live_tiles(qplan.vals)
     b3_bound = _bound(x.numel() * 2 + b3_live * 128 * 128 + qplan.w_scale.numel() * 4
-                      + qplan.rows.numel() * 4 + sn * sh * sw * qplan.cout * 4,
+                      + qplan.rows.numel() * 4 + qplan.cout * 2 + sn * sh * sw * qplan.cout * 2,
                       2 * sn * sh * sw * b3_live * 128 * 128, "int8")
+    # the quantize pass's function: x read once, int8 x and the scales
+    # written once; one division an element
+    q_ms, q_plain_ms = min(turns["quantize"]), min(turns["quantize_plain"])
+    q_bound = _bound(x.numel() * 3 + sn * 4, x.numel(), "f32")
     _emit(phase="b3_time", conv="layer.6.1.conv2", shape=[sn, sh, sw, sc], dilation=sd,
-          s=qplan.s, x_dtype="bfloat16", ms=turns, card=smi,
-          kernel_tops=2 * sn * sh * sw * sk * sk * qplan.s * 128 * qplan.cout / k_ms / 1e9,
-          dense_s4_tops=2 * sn * sh * sw * sk * sk * sc * qplan.cout
-          / (min(turns["b3_dense_s4"]) - min(turns["quantize_pass"])) / 1e9)
+          s=qplan.s, live_tiles=b3_live, x_dtype="bfloat16", ms=turns, card=smi,
+          bound_ms=b3_bound[0], bound_by=b3_bound[1], quantize_bound_ms=q_bound[0],
+          kernel_tops=2 * sn * sh * sw * b3_live * 128 * 128 / k_ms / 1e9,
+          dense_s4_live_tiles=_live_tiles(qdense.vals),
+          dense_s4_served_tops=2 * sn * sh * sw * _live_tiles(qdense.vals) * 128 * 128
+          / min(turns["b3_dense_s4_served"]) / 1e9)
 
     del x, x_nchw, xq, out6
     torch.cuda.empty_cache()
@@ -1287,6 +1383,8 @@ def main() -> int:
               b2_plain_ms, b2_bound, b2_cudnn_ms),
         entry("sparse_conv_q", "tpuseg_torch/csrc/sparse_conv_q.cu", f"{sc_src}:1294",
               b3_launches, b3_err, b3_ms, b3_plain_ms, b3_bound, None),
+        entry("quantize", "tpuseg_torch/csrc/quantize.cu", f"{sc_src}:1312-1324", q_launches,
+              quantize_err, q_ms, q_plain_ms, q_bound, None),
         s4("bsr_matmul_xw", b2_src, f"{sc_src}:84", b4_err),
         s4("bsr_matmul", "tpuseg_torch/csrc/bsr_matmul.cu", "tpuseg/ops/bsr.py:105",
            b56_err["bsr_matmul"]),

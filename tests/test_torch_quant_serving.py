@@ -170,6 +170,38 @@ def test_cli_quantize_calibrate(capsys, extra, kinds):
     assert lines[-1]["frames"] == 2 and lines[-1]["device"] == "cpu"
 
 
+def test_cli_calibrates_on_more_frames_than_it_serves(capsys, monkeypatch):
+    """--calibrate 4 with --frames 2 (shapes video): the CLI generates
+    max(frames, calibrate) frames as tpuseg's does, calibrates on the first
+    4, serves 2, and its static scales equal those of a segmenter calibrated
+    on the same 4 frames."""
+    from tpuseg_torch.cli import seg_video
+    from tpuseg_torch.data.shapes import shapes_video
+    from tpuseg_torch.video import pipeline
+
+    made = []
+
+    class Recording(pipeline.VideoSegmenter):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append((self, kw["calib_frames"]))
+
+    monkeypatch.setattr(pipeline, "VideoSegmenter", Recording)
+    seg_video.main(["--device", "cpu", "--video", "shapes", "--size", "64x128",
+                    "--frames", "2", "--batch", "2", "--quantize", "--calibrate", "4"])
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.strip().splitlines()]
+    assert lines[-2]["calibrated_frames"] == 4 and lines[-1]["frames"] == 2
+    (seg, calib), = made
+    frames = shapes_video(4, (64, 128), seed=0)[0]
+    np.testing.assert_array_equal(np.stack(calib), np.stack(list(frames)))
+    tp, ts, tspec = init_drnseg(0, "drn_d_22", 19)
+    ref = TSegmenter(tp, ts, tspec, MEAN, STD, device="cpu", compute_dtype=torch.bfloat16,
+                     batch=2, quantize=True, calib_frames=list(frames))
+    scales = {n: p.x_scale for n, p in seg.exec_plans.items()}
+    assert len(scales) == 13 and None not in scales.values()
+    assert scales == {n: p.x_scale for n, p in ref.exec_plans.items()}
+
+
 def test_cli_calibrate_needs_quantize():
     from tpuseg_torch.cli import seg_video
 

@@ -106,6 +106,26 @@ def test_plan_reports_equal_jax(config):
         assert len(tplans) == 10 and len(b2) == 7, sorted(tplans)
 
 
+@pytest.mark.parametrize("threshold", [0.5, 0.9])
+def test_dense_threshold_matches_jax(threshold):
+    """build_sparse_plans(dense_threshold=...) on block128reg_87.50 (whose
+    union block densities straddle 0.5): the report and the plan kinds equal
+    tpuseg's with the same keyword, for both lowerings, and at 0.5 the
+    keyword keeps convs dense that the default 0.75 lowers."""
+    (tp, ts, tspec, tmasks), (jp, js, jspec, jmasks) = _models(REG)
+    tfold, jfold = fold_bn(tp, ts, tspec), j_fold_bn(jp, js, jspec)
+    for lowering in ("pallas", "gathered"):
+        tplans, treport = build_sparse_plans(tfold, tmasks, tspec, dense_threshold=threshold,
+                                             lowering=lowering)
+        jplans, jreport = j_build(jfold, jmasks, jspec, dense_threshold=threshold,
+                                  lowering=lowering)
+        assert treport == jreport
+        assert {k: type(v).__name__ for k, v in tplans.items()} == {
+            k: type(v).__name__ for k, v in jplans.items()}
+        default, _ = build_sparse_plans(tfold, tmasks, tspec, lowering=lowering)
+        assert (len(tplans) < len(default)) == (threshold == 0.5), (lowering, len(tplans))
+
+
 def test_drn_forward_with_plans_matches_jax():
     """drn_forward with Pallas-lowering f32 plans (block128_75.00: S=2
     supports, a 1x1 B2 plan, an all-dead plan, RBGP plans) on the CPU vs

@@ -143,7 +143,9 @@ def main(argv=None):
                           "gathered_mode": args.gathered_mode}))
     if args.calibrate and not args.quantize:
         raise SystemExit("error: --calibrate needs --quantize")
-    frames = open_frames(args.video, args.frames, h, w)
+    # calibration takes the first --calibrate frames, served or not: generate
+    # enough for both (frame t of either source does not depend on the count)
+    frames = open_frames(args.video, max(args.frames, args.calibrate), h, w)
     calib = None
     if args.quantize and args.calibrate > 0:
         calib = list(itertools.islice(frames, args.calibrate))

@@ -10,252 +10,277 @@
 //   y[n,i,j,o] = float(acc) * (x_scale[n] * w_scale[o])        (f32, rounded in this order)
 //
 // xq is zero outside the image (exact: symmetric quantization maps 0 to 0).
-// The wrapper (tpuseg_torch/ops/sparse_conv.py fused_sparse_conv_apply_q)
-// quantizes x per frame in PyTorch, as tpuseg does outside its Pallas kernel,
-// and passes the N per-frame scales as a device array.  |acc| <= 127^2 *
-// k*k*S*128, below 2^31 for every packing the wrapper admits, so the int32 sum
-// is exact and y is bit-equal to an exact plain version.
+// The wrapper quantizes x first (quantize.cu, a pass of its own: B3 loads
+// each element of x once per tap and out-block, 36 times at a dense 3x3
+// 512->512 conv, so quantizing in the load would repeat the IEEE divisions
+// and the bf16 bytes that often) and passes the N per-frame scales as a
+// device array.  |acc| <= 127^2 * k*k*S*128, below 2^31 for every packing the
+// wrapper admits, so the int32 sum is exact and y is bit-equal to an exact
+// plain version.  For the served bf16 path the kernel can instead write
+// bf16(float(bf16(y)) + float(bias[o])), each step rounded to nearest even:
+// the cast-then-bias order of tpuseg's served convs.
 //
-// Design: sparse_conv.cu's row-segment implicit GEMM on int8 tensor cores.
-// One CUDA block computes 256 output pixels (n, i, j0 .. j0+255) x 128
-// channels of out-block jb.  The reduction runs over (kernel row p, support
-// slot s): for each, the block stages ONE halo slab of xq, the 256 + 2*pad
-// pixels (n, i + p*d - pad, j0 - pad ..) of that 128-channel block, zero-
-// filled outside the image by cp.async's src-size operand, and the k weight
-// tiles of taps (p, 0..k-1); tap q reads the slab shifted by q*d rows.  8 warps
-// in a 4 (pixels) x 2 (channels) grid each own a 64 x 64 int32 tile and issue
-// mma.sync m16n8k32 s8.s8.s32 on fragments loaded with ldmatrix.  Stages flow
-// through a 2-deep cp.async ring.  None of the TPU kernel's Mosaic workarounds
-// (W padded to 32, the tap-concatenated xmat, rows_per_tile) carry over.
+// Zero tiles are skipped, as in sparse_conv.cu: each packing carries, per
+// out-block, its live (tap, slot) steps t*S + s (`steps`, the nonzero int8
+// tiles of `vals`) and their count (`nsteps`); a step whose kernel row falls
+// outside the image is skipped too.  Skipping adds nothing an integer sum
+// would not: the skipped products are exact zeros.  An out-block with no live
+// step reads nothing and writes its epilogue of a zero sum.
 //
-// - int8 MMA takes both operands K-major.  The packing's vals are N-major (row
-//   = input channel), so the kernel reads vals_k, the same values transposed
-//   per (tap, slot) to (128 out, 128 in), built once with the plan.
-// - Staged rows (slab pixels, weight columns) are 144 bytes apart: every row
-//   start is 16-byte aligned for ldmatrix at any tap shift, and the 8 rows of
-//   one 8x8 ldmatrix tile fall on 8 distinct 4-bank groups (no conflicts).
-// - Epilogue: __fmul_rn(__int2float_rn(acc), __fmul_rn(xs[n], ws[o])), staged
-//   through shared memory and written as coalesced float4 rows.
+// Design: sparse_conv.cu's bf16 kernel on int8 wgmma.  One CTA computes one
+// row segment of 256 output pixels (n, i, j0 .. j0+255) for one out-block jb:
+// M = 256 pixels, N = 128 channels, K = the live (tap, slot) steps of 128
+// channels each.  Per step, one TMA load of a 4-D tensor map over xq (C, W,
+// H, N) with a box of (128 channels, 256 pixels, 1, 1) at (rows[jb,s]*128,
+// j0 + q*d - pad, i + p*d - pad, n) brings the tap-shifted A tile (TMA's zero
+// fill outside xq is the "same" padding); one TMA load of a 2-D map over
+// vals_k brings B, the 128 x 128 tile of (t, s) with each output channel's
+// 128 input channels contiguous.  8-bit wgmma takes both operands K-major,
+// and both are: a 128-channel block is exactly one 128-byte swizzle row.
+// Both land 128-byte swizzled in a 4-stage mbarrier ring (48 KB a stage).
+// One producer thread starts the TMA loads; two consumer warpgroups
+// (setmaxnreg moves registers to them) each own 128 pixels x 128 channels,
+// two wgmma m64n128k32 s8 accumulators of 64 int32 registers a thread, four
+// k32 steps per stage, and release a stage as soon as wgmma.wait_group says
+// the MMAs reading it are done.  The epilogue writes f32 (or bf16 + bias)
+// straight from the accumulators; pixels past the row end are not written.
+// The grid is every (row segment, out-block) pair, out-block fastest.
 //
 // What bounds it on the H100.  At the serving shape of layer.6.1.conv2 (x
-// (32,128,256,512), d=4, S=1, nmb=4): 1.24 T int8 MMA operations, 0.63 ms at
-// the 1979 TOP/s int8 peak (wgmma; mma.sync reaches a fraction of it); 2.1 GB
-// of f32 y written once, 0.64 ms at 3.35 TB/s; and what each block pulls
-// through L2: per (p, s) step one 34 KB slab and 48 KB of weights, ~960 bytes
-// per output pixel and out-block, ~4 GB in all.  The three are of one order,
-// so a first version lands at a few of these units.  What the design does:
-// one slab serves k taps (x moves k times less), the weight tiles serve 256
-// pixels, and loads overlap the MMAs of the previous step.  Left for later:
-// wgmma + TMA, larger pixel tiles (weights amortized further), the quantize
-// pass fused into the slab load, and a bf16 + bias epilogue (half the output).
+// (32,128,256,512), d=4, S=1, four live out-blocks, 9 taps): 1.24 T int8 MMA
+// operations, 0.63 ms at the 1979 TOP/s int8 peak; the bf16 y of the served
+// route (1.07 GB) takes 0.32 ms at 3.35 TB/s, the f32 y twice that, and the
+// int8 x 0.16 ms.  Per step a CTA pulls 48 KB through L2 for 8.4 M
+// operations, twice the operations per byte of the bf16 kernel.  The kernel
+// runs it in about 1.5 ms with the bf16 epilogue (~830 TOP/s), and the
+// 36-step dense 512->512 convs at ~1,280 TOP/s (PERF.md): each CTA fills its
+// ring and writes its epilogue with no other tile to overlap them, which
+// costs most where a tile has few steps.
 //
 // C interface (ctypes): tpuseg_sparse_conv_q returns the cudaError_t of the
 // launch (0 on success); it launches on the given stream, does not
 // synchronize and allocates nothing.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kBN = 128;        // output channels per CUDA block (one out-block)
-constexpr int kBlockK = 128;    // channels per support block: bytes per staged row
-constexpr int kThreads = 256;
-constexpr int kRowBM = 256;     // output pixels per CUDA block (one row segment)
-constexpr int kPitch = kBlockK + 16;  // bytes per staged row (see the note above)
-constexpr int kCPitch = kBN + 4;      // f32 per staged output row
-constexpr int kMaxSmem = 232448;      // opt-in shared memory per block on sm_90
+using namespace tpuseg_hopper;
+
+constexpr int kBN = 128;        // output channels per CTA (one out-block)
+constexpr int kBlockK = 128;    // channels per support block: bytes per swizzle row
+constexpr int kTileM = 256;     // output pixels per CTA (one row segment)
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;   // warpgroups, 128 pixels each
+constexpr int kThreads = (kConsumers + 1) * 128;  // + the producer warpgroup
+constexpr int kABytes = kTileM * kBlockK;         // 32 KB
+constexpr int kBBytes = kBN * kBlockK;            // 16 KB
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;  // + barriers, alignment
+// wgmma descriptors, both operands K-major: 128-byte rows, 8-row groups 1024 B
+// apart (stride); the leading offset is unused in a swizzled K-major layout
+constexpr uint32_t kSbo = 1024;
+static_assert(kSmem <= kMaxSmem, "the int8 ring does not fit shared memory");
 
 struct Geom {
   int h, w, cin, cout, s, k, dil, pad;
 };
 
-// Shared memory: two stages of (slab + k weight tiles), at least the staged
-// f32 output tile.  Byte counts.
-struct Smem {
-  int a_stage, stage, bytes;
-};
-__host__ __device__ inline Smem smem_layout(int k, int pad) {
-  Smem m;
-  m.a_stage = (kRowBM + 2 * pad) * kPitch;
-  m.stage = m.a_stage + k * kBN * kPitch;
-  const int ring = 2 * m.stage;
-  const int ctile = kRowBM * kCPitch * 4;
-  m.bytes = ring > ctile ? ring : ctile;
-  return m;
-}
+#define TPUSEG_R8(i)                                                                     \
+  "+r"(d[(i)]), "+r"(d[(i) + 1]), "+r"(d[(i) + 2]), "+r"(d[(i) + 3]), "+r"(d[(i) + 4]), \
+      "+r"(d[(i) + 5]), "+r"(d[(i) + 6]), "+r"(d[(i) + 7])
 
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-// Four 8x8 b16 tiles (8 rows of 16 bytes each); lane l gives the address of
-// row l%8 of tile l/8 and receives, per tile, 4 bytes of row l/4.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* smem) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(saddr));
-}
-
-// d += a (16x32, row) * b (32x8, col), int8 operands, int32 accumulate.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                       unsigned b1) {
+// d (64 x 128, int32) += A (64 x 32, K-major s8) * B (32 x 128, K-major s8),
+// both in shared memory
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : TPUSEG_R8(0), TPUSEG_R8(8), TPUSEG_R8(16), TPUSEG_R8(24), TPUSEG_R8(32),
+        TPUSEG_R8(40), TPUSEG_R8(48), TPUSEG_R8(56)
+      : "l"(da), "l"(db), "r"(1));
 }
+#undef TPUSEG_R8
 
-__global__ void __launch_bounds__(kThreads, 1)
-sparse_conv_q_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ vals_k,
-                     const int* __restrict__ rows, const float* __restrict__ w_scale,
-                     const float* __restrict__ x_scale, float* __restrict__ out, Geom g) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem sm = smem_layout(g.k, g.pad);
-
-  const int nmb = g.cout / kBN;
-  const int segs = (g.w + kRowBM - 1) / kRowBM;  // row segments per image row
-  const long long tile = blockIdx.x / nmb;
-  const int jb = blockIdx.x % nmb;
-  const long long row = tile / segs;             // n * h + i
-  const int j0 = static_cast<int>(tile % segs) * kRowBM;
-  const int i = static_cast<int>(row % g.h);
-  const long long img_row0 = row - i;            // n * h
-  const int img = static_cast<int>(row / g.h);
-  const int tid = threadIdx.x;
-  const int steps = g.k * g.s;
-  const int slab = kRowBM + 2 * g.pad;           // slab pixels
-  // vals_k[jb] is (k*k*S, 128 out, 128 in); tile (t*S + s) of it
-  const long long tiles_jb = static_cast<long long>(jb) * g.k * g.k * g.s;
-
-  // stage `step` = (kernel row p, support slot s) into `slot`
-  auto load_stage = [&](int slot, int step) {
-    const int p = step / g.s;
-    const int s = step - p * g.s;
-    unsigned char* a = smem + slot * sm.stage;
-    unsigned char* b = a + sm.a_stage;
-    const int ii = i + p * g.dil - g.pad;
-    const bool row_ok = ii >= 0 && ii < g.h;
-    const long long xrow = ((img_row0 + ii) * g.w) * g.cin +
-                           static_cast<long long>(__ldg(rows + jb * g.s + s)) * kBlockK;
-    for (int idx = tid; idx < slab * 8; idx += kThreads) {
-      const int r = idx >> 3;
-      const int c = idx & 7;
-      const int j = j0 - g.pad + r;
-      const bool ok = row_ok && j >= 0 && j < g.w;
-      const int8_t* src = ok ? x + xrow + static_cast<long long>(j) * g.cin + c * 16 : x;
-      cp_async_16(a + r * kPitch + c * 16, src, ok ? 16 : 0);
-    }
-    for (int idx = tid; idx < g.k * kBN * 8; idx += kThreads) {
-      const int q = idx / (kBN * 8);
-      const int o = (idx >> 3) % kBN;
-      const int c = idx & 7;
-      const long long t = tiles_jb + static_cast<long long>(p * g.k + q) * g.s + s;
-      cp_async_16(b + (q * kBN + o) * kPitch + c * 16,
-                  vals_k + (t * kBN + o) * kBlockK + c * 16, 16);
-    }
-  };
-
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1;  // pixels wm*64 .. +64
-  const int wn = warp & 1;   // channels wn*64 .. +64
-  // ldmatrix row addresses of this lane.  A tiles: (rows 0-7, k 0-15), (rows
-  // 8-15, k 0-15), (rows 0-7, k 16-31), (rows 8-15, k 16-31) = a0..a3 of
-  // m16n8k32.  B tiles: (n-tile 0, k 0-15), (n-tile 0, k 16-31), (n-tile 1,
-  // k 0-15), (n-tile 1, k 16-31) = b0, b1 of two n8 tiles.
-  const int a_lane = ((lane & 7) + ((lane >> 3) & 1) * 8) * kPitch + (lane >> 4) * 16;
-  const int b_lane = ((lane & 7) + (lane >> 4) * 8) * kPitch + ((lane >> 3) & 1) * 16;
-
-  int acc[4][8][4];
+// Write one m64 accumulator (rows r, r + 8 of the warp's 16) of a tile:
+// float(acc) * sc as f32, or as bf16 with the bias added after the cast (no
+// add without a bias: +0.0 would turn -0.0 into +0.0).  sc[2j + e] and
+// bv[2j + e] belong to column col + 8j + e.
+__device__ __forceinline__ void store_acc(const int (&d)[64], int r, int valid, long long pix0,
+                                          int cout, int col, const float (&sc)[32],
+                                          const float (&bv)[32], void* out, bool bf16_out,
+                                          bool has_bias) {
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int half = 0; half < 2; ++half) {
+    const int rr = r + 8 * half;
+    if (rr >= valid) continue;
+    const long long base = (pix0 + rr) * cout + col;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
-
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait_all();
-    __syncthreads();  // step landed for all threads; the other slot is free
-    if (step + 1 < steps) load_stage((step + 1) & 1, step + 1);
-    cp_async_commit();
-    const unsigned char* a = smem + (step & 1) * sm.stage;
-    const unsigned char* b = a + sm.a_stage;
-    for (int q = 0; q < g.k; ++q) {
-      const unsigned char* aq = a + (wm * 64 + q * g.dil) * kPitch + a_lane;
-      const unsigned char* bq = b + (q * kBN + wn * 64) * kPitch + b_lane;
-#pragma unroll
-      for (int kk = 0; kk < kBlockK; kk += 32) {
-        unsigned fa[4][4];
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) ldmatrix_x4(fa[mt], aq + mt * 16 * kPitch + kk);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          unsigned fb[4];
-          ldmatrix_x4(fb, bq + np * 16 * kPitch + kk);
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt) {
-            mma_s8(acc[mt][2 * np], fa[mt], fb[0], fb[1]);
-            mma_s8(acc[mt][2 * np + 1], fa[mt], fb[2], fb[3]);
-          }
+    for (int j = 0; j < 16; ++j) {
+      const float y0 = __fmul_rn(__int2float_rn(d[j * 4 + 2 * half]), sc[2 * j]);
+      const float y1 = __fmul_rn(__int2float_rn(d[j * 4 + 2 * half + 1]), sc[2 * j + 1]);
+      if (bf16_out) {
+        __nv_bfloat16 b0 = __float2bfloat16_rn(y0);
+        __nv_bfloat16 b1 = __float2bfloat16_rn(y1);
+        if (has_bias) {
+          b0 = __float2bfloat16_rn(__bfloat162float(b0) + bv[2 * j]);
+          b1 = __float2bfloat16_rn(__bfloat162float(b1) + bv[2 * j + 1]);
         }
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + base + j * 8) =
+            __halves2bfloat162(b0, b1);
+      } else {
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + base + j * 8) =
+            make_float2(y0, y1);
       }
     }
   }
-  cp_async_wait_all();
-  __syncthreads();  // every warp is done with the ring before it becomes the C tile
+}
 
-  float* sC = reinterpret_cast<float*>(smem);
-  const float xs = __ldg(x_scale + img);
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int col = wn * 64 + nt * 8 + 2 * tig;
-    const float s0 = __fmul_rn(xs, __ldg(w_scale + jb * kBN + col));
-    const float s1 = __fmul_rn(xs, __ldg(w_scale + jb * kBN + col + 1));
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const int r = wm * 64 + mt * 16 + gid;
-      *reinterpret_cast<float2*>(sC + r * kCPitch + col) =
-          make_float2(__fmul_rn(__int2float_rn(acc[mt][nt][0]), s0),
-                      __fmul_rn(__int2float_rn(acc[mt][nt][1]), s1));
-      *reinterpret_cast<float2*>(sC + (r + 8) * kCPitch + col) =
-          make_float2(__fmul_rn(__int2float_rn(acc[mt][nt][2]), s0),
-                      __fmul_rn(__int2float_rn(acc[mt][nt][3]), s1));
+__global__ void __launch_bounds__(kThreads, 1)
+sparse_conv_q_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap vmap, const int* __restrict__ rows,
+                     const int* __restrict__ steps, const int* __restrict__ nsteps,
+                     const float* __restrict__ w_scale, const float* __restrict__ x_scale,
+                     const __nv_bfloat16* __restrict__ bias, void* __restrict__ out,
+                     int bf16_out, Geom g) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+
+  const int nmb = g.cout / kBN;
+  const int segs = (g.w + kTileM - 1) / kTileM;
+  const int ts_len = g.k * g.k * g.s;
+  const int jb = static_cast<int>(blockIdx.x % nmb);
+  const long long tile = blockIdx.x / nmb;
+  const long long row = tile / segs;  // n * h + i
+  const int j0 = static_cast<int>(tile % segs) * kTileM;
+  const int i = static_cast<int>(row % g.h);
+  const int n = static_cast<int>(row / g.h);
+  const int live = __ldg(nsteps + jb);
+  const int* jsteps = steps + static_cast<long long>(jb) * ts_len;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kConsumers * 4);  // one arrival per consumer warp
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const int valid = min(kRowBM, g.w - j0);
-  float* orow = out + (row * g.w + j0) * g.cout + jb * kBN;
-  for (int idx = tid; idx < valid * (kBN / 4); idx += kThreads) {
-    const int r = idx / (kBN / 4);
-    const int c4 = idx % (kBN / 4);
-    *reinterpret_cast<float4*>(orow + static_cast<long long>(r) * g.cout + c4 * 4) =
-        *reinterpret_cast<const float4*>(sC + r * kCPitch + c4 * 4);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // producer warpgroup: one thread starts every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int e = 0; e < live; ++e) {
+        const int ts = __ldg(jsteps + e);
+        const int t = ts / g.s;
+        const int s = ts - t * g.s;
+        const int p = t / g.k;
+        const int ii = i + p * g.dil - g.pad;
+        if (ii < 0 || ii >= g.h) continue;  // the whole x tile is zero padding
+        const int jj = j0 + (t - p * g.k) * g.dil - g.pad;
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* a = smem + stage * kStageBytes;
+        mbar_expect_tx(&full[stage], kStageBytes);
+        tma_load_4d(a, &xmap, &full[stage], __ldg(rows + jb * g.s + s) * kBlockK, jj, ii, n);
+        tma_load_2d(a + kABytes, &vmap, &full[stage], 0, (jb * ts_len + ts) * kBN);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // consumer warpgroups: pixels wg*128 .. +127 of the tile, all 128 channels
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    int acc0[64], acc1[64];
+#pragma unroll
+    for (int r = 0; r < 64; ++r) acc0[r] = acc1[r] = 0;
+    const int lane = threadIdx.x & 31;
+    int stage = 0, held = -1;
+    uint32_t phase = 0;
+    for (int e = 0; e < live; ++e) {
+      const int t = __ldg(jsteps + e) / g.s;
+      const int ii = i + (t / g.k) * g.dil - g.pad;
+      if (ii < 0 || ii >= g.h) continue;
+      mbar_wait(&full[stage], phase);
+      const uint32_t a = smem_u32(smem + stage * kStageBytes) + wg * 128 * kBlockK;
+      const uint32_t b = smem_u32(smem + stage * kStageBytes + kABytes);
+      fence_acc(acc0);
+      fence_acc(acc1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockK / 32; ++kk) {
+        const uint64_t db = sw128_desc(b + kk * 32, 16, kSbo);
+        wgmma_m64n128k32_s8(acc0, sw128_desc(a + kk * 32, 16, kSbo), db);
+        wgmma_m64n128k32_s8(acc1, sw128_desc(a + 64 * kBlockK + kk * 32, 16, kSbo), db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous step's MMAs are done: release its stage
+      fence_acc(acc0);
+      fence_acc(acc1);
+      if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+      held = stage;
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc0);
+    fence_acc(acc1);
+
+    const int r = wg * 128 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+    const int col = jb * kBN + (lane & 3) * 2;
+    const float xs = __ldg(x_scale + n);
+    float sc[32], bv[32];  // this thread's 32 columns: x_scale * w_scale, and the bias
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int o = col + (j >> 1) * 8 + (j & 1);
+      sc[j] = __fmul_rn(xs, __ldg(w_scale + o));
+      bv[j] = bias != nullptr ? __bfloat162float(bias[o]) : 0.0f;
+    }
+    const int valid = min(kTileM, g.w - j0);
+    const long long pix0 = row * g.w + j0;
+    const bool bf16 = bf16_out != 0, has_bias = bias != nullptr;
+    store_acc(acc0, r, valid, pix0, g.cout, col, sc, bv, out, bf16, has_bias);
+    store_acc(acc1, r + 64, valid, pix0, g.cout, col, sc, bv, out, bf16, has_bias);
   }
 }
 
 }  // namespace
 
-extern "C" int tpuseg_sparse_conv_q(const void* x, const void* vals_k, const void* rows,
-                                    const void* w_scale, const void* x_scale, void* out,
-                                    int n, int h, int w, int cin, int cout, int s, int k,
-                                    int dil, void* stream) {
+// xq (n, h, w, cin) int8 NHWC; vals_k (nmb, k*k*s, 128 out, 128 in) int8;
+// rows (nmb, s), steps (nmb, k*k*s), nsteps (nmb,) int32; w_scale (cout,)
+// and x_scale (n,) f32; out (n, h, w, cout) f32, or bf16 with out_bf16 = 1,
+// then bias (cout,) bf16 or null.
+extern "C" int tpuseg_sparse_conv_q(const void* xq, const void* vals_k, const void* rows,
+                                    const void* steps, const void* nsteps, const void* w_scale,
+                                    const void* x_scale, const void* bias, void* out, int n,
+                                    int h, int w, int cin, int cout, int s, int k, int dil,
+                                    int out_bf16, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || s <= 0 || k <= 0 || (k & 1) == 0 || dil <= 0 ||
       cin <= 0 || cin % kBlockK != 0 || cout <= 0 || cout % kBN != 0 ||
-      ((uintptr_t)x & 15u) != 0 || ((uintptr_t)vals_k & 15u) != 0 ||
+      ((uintptr_t)xq & 15u) != 0 || ((uintptr_t)vals_k & 15u) != 0 ||
       ((uintptr_t)out & 15u) != 0 || ((uintptr_t)rows & 3u) != 0 ||
-      ((uintptr_t)w_scale & 3u) != 0 || ((uintptr_t)x_scale & 3u) != 0) {
+      ((uintptr_t)steps & 3u) != 0 || ((uintptr_t)nsteps & 3u) != 0 ||
+      ((uintptr_t)w_scale & 3u) != 0 || ((uintptr_t)x_scale & 3u) != 0 ||
+      ((uintptr_t)bias & 3u) != 0 || steps == nullptr || nsteps == nullptr ||
+      (out_bf16 != 0 && out_bf16 != 1) || (bias != nullptr && out_bf16 == 0)) {
     return (int)cudaErrorInvalidValue;
   }
   Geom g;
@@ -267,17 +292,32 @@ extern "C" int tpuseg_sparse_conv_q(const void* x, const void* vals_k, const voi
   g.k = k;
   g.dil = dil;
   g.pad = dil * (k - 1) / 2;
-  const long long ctas = static_cast<long long>(n) * h * ((w + kRowBM - 1) / kRowBM) *
-                         (cout / kBN);
-  const Smem sm = smem_layout(k, g.pad);
-  if (ctas > 0x7fffffffLL || sm.bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      sparse_conv_q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm.bytes);
+  const long long nmb = cout / kBN;
+  const long long ctas = static_cast<long long>(n) * h * ((w + kTileM - 1) / kTileM) * nmb;
+  const long long vrows = nmb * k * k * s * kBN;
+  if (ctas > 0x7fffffffLL || vrows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap xmap, vmap;
+  const cuuint64_t xdims[4] = {(cuuint64_t)cin, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)n};
+  const cuuint64_t xstrides[3] = {(cuuint64_t)cin, (cuuint64_t)w * cin,
+                                  (cuuint64_t)h * w * cin};
+  const cuuint32_t xbox[4] = {kBlockK, kTileM, 1, 1};
+  const cuuint64_t vdims[2] = {kBlockK, (cuuint64_t)vrows};
+  const cuuint64_t vstrides[1] = {kBlockK};
+  const cuuint32_t vbox[2] = {kBlockK, kBN};
+  if (!tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, xq, xdims, xstrides, xbox,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&vmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, vals_k, vdims, vstrides, vbox,
+                  CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t e =
+      cudaFuncSetAttribute(sparse_conv_q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return (int)e;
-  sparse_conv_q_kernel<<<dim3(static_cast<unsigned>(ctas)), dim3(kThreads), sm.bytes,
+  sparse_conv_q_kernel<<<dim3(static_cast<unsigned>(ctas)), dim3(kThreads), kSmem,
                          reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(vals_k),
-      static_cast<const int*>(rows), static_cast<const float*>(w_scale),
-      static_cast<const float*>(x_scale), static_cast<float*>(out), g);
+      xmap, vmap, static_cast<const int*>(rows), static_cast<const int*>(steps),
+      static_cast<const int*>(nsteps), static_cast<const float*>(w_scale),
+      static_cast<const float*>(x_scale), static_cast<const __nv_bfloat16*>(bias), out,
+      out_bf16, g);
   return (int)cudaGetLastError();
 }

@@ -490,19 +490,33 @@ def _sparse_conv(x, plan, cdef: ConvDef):
 
 
 def _sparse_conv_bias_bf16(x, plan, bias):
-    """bf16 serving of a bf16 ``FusedSparseConv`` or ``CompactSparse`` plan:
-    one launch of the fused block-sparse kernel writes the conv's bf16
-    output with its bias added, the bits of the cast-then-bias passes
-    (``tpuseg_torch.ops.sparse_conv.fused_sparse_conv_bias_bf16``).  None
-    for every other plan (RBGP, gathered, int8, f32 plans, calibration
+    """bf16 serving of a plan whose kernel has a bf16+bias epilogue: one
+    launch writes the conv's bf16 output with its bias added, the bits of
+    the cast-then-bias passes.  bf16 ``FusedSparseConv`` and
+    ``CompactSparse`` plans take B2's route
+    (``tpuseg_torch.ops.sparse_conv.fused_sparse_conv_bias_bf16``); the four
+    int8 plans (``QuantConv``, ``FusedSparseConvQ``, ``CompactSparseQ``,
+    ``GatheredGroupConvQ``) B3's (``fused_sparse_conv_q_bias_bf16``).  None
+    for every other plan (RBGP, float gathered, f32 plans, calibration
     probes), which keeps the two passes.  NCHW in and out."""
-    from tpuseg_torch.models.sparse_exec import CompactSparse
-    from tpuseg_torch.ops.sparse_conv import FusedSparseConv, fused_sparse_conv_bias_bf16
+    from tpuseg_torch.models.sparse_exec import CompactSparse, CompactSparseQ
+    from tpuseg_torch.ops.gathered_conv import GatheredGroupConvQ
+    from tpuseg_torch.ops.quant import QuantConv
+    from tpuseg_torch.ops.sparse_conv import (
+        FusedSparseConv,
+        FusedSparseConvQ,
+        fused_sparse_conv_bias_bf16,
+        fused_sparse_conv_q_bias_bf16,
+    )
 
-    if isinstance(plan, CompactSparse) and plan.inner.vals.dtype == torch.bfloat16:
-        y = plan.apply_bias_bf16(nchw_to_nhwc(x).contiguous(), bias)
+    xh = nchw_to_nhwc(x).contiguous()
+    if isinstance(plan, (QuantConv, CompactSparseQ, GatheredGroupConvQ)) or (
+            isinstance(plan, CompactSparse) and plan.inner.vals.dtype == torch.bfloat16):
+        y = plan.apply_bias_bf16(xh, bias)
+    elif isinstance(plan, FusedSparseConvQ):
+        y = fused_sparse_conv_q_bias_bf16(xh, plan, bias)
     elif isinstance(plan, FusedSparseConv) and plan.vals.dtype == torch.bfloat16:
-        y = fused_sparse_conv_bias_bf16(nchw_to_nhwc(x).contiguous(), plan, bias)
+        y = fused_sparse_conv_bias_bf16(xh, plan, bias)
     else:
         return None
     return nhwc_to_nchw(y)
@@ -517,9 +531,10 @@ def _conv_maybe_bn(x, params, state, cdef: ConvDef, bdef: BNDef | None, compute_
     after the conv in the compute dtype, so in bf16 the two round at
     different points.  A conv with a sparse plan follows ``tpuseg``'s order
     exactly: the plan's output is cast to the compute dtype, then the bias
-    is added in that dtype (drn.py:556-560).  In bf16 a ``FusedSparseConv``
-    or ``CompactSparse`` plan does both in its kernel's epilogue, bit for
-    bit (``_sparse_conv_bias_bf16``)."""
+    is added in that dtype (drn.py:556-560).  In bf16 a bf16
+    ``FusedSparseConv`` or ``CompactSparse`` plan and every int8 plan do
+    both in their kernel's epilogue, bit for bit
+    (``_sparse_conv_bias_bf16``)."""
     plan = sparse_plans.get(cdef.name) if sparse_plans else None
     bias = params.get(f"{cdef.name}.bias")
     if plan is not None:

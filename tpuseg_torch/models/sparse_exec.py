@@ -11,8 +11,8 @@ in ``tpuseg``'s order and with its rules and report strings:
 2. stride != 1 and channels not /128 stay dense;
 3. the ``gathered`` lowering (``tpuseg_torch.ops.gathered_conv``) with its
    1x1 rule (``GATHER_1X1_MAX_DENSITY``), or the ``pallas`` lowering
-   (``tpuseg_torch.ops.sparse_conv``, kernel B2), each below
-   ``DENSE_THRESHOLD`` block density.
+   (``tpuseg_torch.ops.sparse_conv``, kernel B2), each below the
+   ``dense_threshold`` block density (``tpuseg``'s default 0.75).
 
 The plan dtype is fixed here (bf16 by default, as ``tpuseg`` builds its
 plans) and is independent of the serving dtype: the fused kernel casts x to
@@ -46,6 +46,7 @@ from tpuseg_torch.ops.sparse_conv import (
     fused_sparse_conv_apply,
     fused_sparse_conv_apply_q,
     fused_sparse_conv_bias_bf16,
+    fused_sparse_conv_q_bias_bf16,
     plan_fused_sparse_conv,
     quantize_fused_plan,
 )
@@ -54,8 +55,6 @@ from tpuseg_torch.ops.sparse_conv import (
 # lowering's activation gather (tpuseg's rule, tuned on its TPU; the port
 # keeps it so both packages lower the same layers).
 GATHER_1X1_MAX_DENSITY = 0.13
-# A conv whose block density reaches this stays dense (tpuseg's value).
-DENSE_THRESHOLD = 0.75
 
 
 @dataclasses.dataclass
@@ -80,18 +79,32 @@ class CompactSparse:
 
 @dataclasses.dataclass
 class CompactSparseQ:
-    """``CompactSparse`` with an int8 inner plan: the live channels are
-    gathered first, then quantized (the per-frame scale is taken over the
-    gathered x, as in ``tpuseg``) inside kernel B3's wrapper."""
+    """``CompactSparse`` with an int8 inner plan: the live channels of x are
+    quantized (the per-frame scale taken over them, as ``tpuseg`` does after
+    its gather) and run through kernel B3.  On the card the quantize kernels
+    read the live channels through ``live_in32`` and write the compacted
+    int8 x, so no gathered float copy of x is made; on the CPU the plain
+    version gathers with ``index_select``."""
 
     live_in: torch.Tensor  # (n_live,) int64 input-channel gather
     inner: FusedSparseConvQ
+    live_in32: torch.Tensor | None = None  # the same gather, int32: the kernels' map
+
+    def __post_init__(self):
+        if self.live_in32 is None:
+            self.live_in32 = self.live_in.to(torch.int32)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        return fused_sparse_conv_apply_q(x.index_select(3, self.live_in), self.inner)
+        return fused_sparse_conv_apply_q(x, self.inner, chan=self.live_in32)
+
+    def apply_bias_bf16(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+        """The served bf16 route (``fused_sparse_conv_q_bias_bf16``) of the
+        compacted conv."""
+        return fused_sparse_conv_q_bias_bf16(x, self.inner, bias, chan=self.live_in32)
 
     def to(self, device) -> "CompactSparseQ":
-        return CompactSparseQ(self.live_in.to(device), self.inner.to(device))
+        return CompactSparseQ(self.live_in.to(device), self.inner.to(device),
+                              self.live_in32.to(device))
 
 
 def quantize_sparse_plans(plans: Mapping, x_scales: Mapping | None = None) -> dict:
@@ -145,6 +158,7 @@ def build_sparse_plans(
     params: Mapping,
     masks: Mapping,
     spec: DrnSpec,
+    dense_threshold: float = 0.75,
     dtype: torch.dtype = torch.bfloat16,
     lowering: str = "pallas",
     gathered_mode: str = "exact",
@@ -152,7 +166,10 @@ def build_sparse_plans(
     """``(plans, report)`` for every masked conv of ``spec``: ``plans``
     maps conv name -> plan for the lowered convs, ``report`` every masked
     conv -> the decision taken (``tpuseg``'s strings).  ``params`` and
-    ``masks`` hold OIHW weights (tensors or numpy)."""
+    ``masks`` hold OIHW weights (tensors or numpy).  A conv whose block
+    density reaches ``dense_threshold`` stays dense (``tpuseg``'s keyword
+    and default; its ``rows_per_tile`` is a TPU tiling knob and has no
+    counterpart)."""
     assert lowering in ("pallas", "gathered"), lowering
     convs = _conv_defs(spec)
     plans: dict = {}
@@ -173,7 +190,7 @@ def build_sparse_plans(
             if live.size % 128 == 0 and cdef.cout % 128 == 0 and live.size >= 128:
                 fplan = plan_fused_sparse_conv(w[:, live], mk[:, live],
                                                dilation=cdef.dilation, dtype=dtype)
-                if fplan.block_density < DENSE_THRESHOLD:
+                if fplan.block_density < dense_threshold:
                     plans[cname] = CompactSparse(rplan.live_in, fplan)
                     report[cname] = (
                         f"compact+sparse: {cdef.cin - live.size}/{cdef.cin} "
@@ -206,7 +223,7 @@ def build_sparse_plans(
         if lowering == "gathered":
             gplan = plan_gathered_conv(w, mk, dilation=cdef.dilation, dtype=dtype,
                                        mode=gathered_mode)
-            if gplan.block_density >= DENSE_THRESHOLD:
+            if gplan.block_density >= dense_threshold:
                 report[cname] = f"dense: block density {gplan.block_density:.2f}"
                 continue
             if w.shape[2] == 1 and w.shape[3] == 1:
@@ -228,7 +245,7 @@ def build_sparse_plans(
             )
             continue
         plan = plan_fused_sparse_conv(w, mk, dilation=cdef.dilation, dtype=dtype)
-        if plan.block_density >= DENSE_THRESHOLD:
+        if plan.block_density >= dense_threshold:
             report[cname] = (
                 f"dense: union block density {plan.block_density:.2f}"
                 + (f"; {rplan.note}" if "periodic" in rplan.note else "")

@@ -4,7 +4,8 @@
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds): one ``nvcc -c`` per source, all started together,
 then one link.  The library lives in ``tpuseg_torch/_build/`` under a
-name keyed by a hash of the sources and flags; it is built to a temporary
+name keyed by a hash of the sources, the headers they share
+(``csrc/*.cuh``) and the flags; it is built to a temporary
 name and moved into place with ``os.replace``, so concurrent builds (test
 workers, several processes on one host) never load a half-written file.
 
@@ -59,7 +60,7 @@ def _sources(src_dir: str) -> list[str]:
 def library_path(src_dir: str = SRC_DIR, build_dir: str = BUILD_DIR) -> str:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources(src_dir):
+    for src in _sources(src_dir) + sorted(glob.glob(os.path.join(src_dir, "*.cuh"))):
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as fh:
             h.update(fh.read())
@@ -140,15 +141,42 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,                  # xq (N, H, W, Cin) int8, NHWC
         ctypes.c_void_p,                  # vals_k (nmb, T*S, 128, 128) int8, K-major
         ctypes.c_void_p,                  # rows (nmb, S) int32
+        ctypes.c_void_p,                  # steps (nmb, T*S) int32: live step ids
+        ctypes.c_void_p,                  # nsteps (nmb,) int32
         ctypes.c_void_p,                  # w_scale (nmb, 1, 128) f32
         ctypes.c_void_p,                  # x_scale (N,) f32, per frame
-        ctypes.c_void_p,                  # out (N, H, W, Cout) f32
+        ctypes.c_void_p,                  # bias (Cout,) bf16 or null (bf16 out only)
+        ctypes.c_void_p,                  # out (N, H, W, Cout) f32, or bf16
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n h w
         ctypes.c_int, ctypes.c_int,       # cin cout
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # s kernel dilation
+        ctypes.c_int,                     # out_bf16: 1 writes bf16(bf16(y) + bias)
         ctypes.c_void_p,                  # cudaStream_t
     ]
     lib.tpuseg_sparse_conv_q.restype = ctypes.c_int
+    quantize_shape = [
+        ctypes.c_int, ctypes.c_longlong,  # n, pixels per frame
+        ctypes.c_int, ctypes.c_int,       # cx (x's channels), cq (quantized channels)
+        ctypes.c_int,                     # dtype: 0 f32, 1 bf16
+        ctypes.c_void_p,                  # cudaStream_t
+    ]
+    lib.tpuseg_absmax.argtypes = [
+        ctypes.c_void_p,                  # x (N, P, Cx) f32|bf16
+        ctypes.c_void_p,                  # chan (Cq,) int32 or null
+        ctypes.c_void_p,                  # absmax (N,) uint32, zeroed
+        *quantize_shape,
+    ]
+    lib.tpuseg_absmax.restype = ctypes.c_int
+    lib.tpuseg_quantize.argtypes = [
+        ctypes.c_void_p,                  # x (N, P, Cx) f32|bf16
+        ctypes.c_void_p,                  # chan (Cq,) int32 or null
+        ctypes.c_void_p,                  # absmax (N,) uint32, or null: static scale
+        ctypes.c_float,                   # the static scale
+        ctypes.c_void_p,                  # xq (N, P, Cq) int8
+        ctypes.c_void_p,                  # xs (N,) f32
+        *quantize_shape,
+    ]
+    lib.tpuseg_quantize.restype = ctypes.c_int
     lib.tpuseg_bsr_matmul.argtypes = [
         ctypes.c_void_p,                  # vals (nnzb, 128, 128) f32|bf16
         ctypes.c_void_p,                  # rowptr (M/128 + 1,) int32
@@ -156,6 +184,7 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,                  # x (K, N), vals' dtype
         ctypes.c_void_p,                  # y (M, N) f32
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # m k n
+        ctypes.c_int,                     # nnzb
         ctypes.c_int,                     # dtype: 0 f32, 1 bf16
         ctypes.c_void_p,                  # cudaStream_t
     ]

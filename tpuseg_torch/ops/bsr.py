@@ -15,9 +15,11 @@ The port holds int32 device copies of ``rowptr``/``colidx`` beside them.
   walks a row's blocks (a sequential grid step per block, or one gathered
   dot); a CUDA block's K loop makes that moot, so on a CUDA tensor both
   launch the hand-written kernel ``tpuseg_torch/csrc/bsr_matmul.cu`` on the
-  CSR, each counted in its own ``launches``; on a CPU tensor both run the
-  plain version.  The kernel takes 128x128 blocks (``pack_bsr``'s default
-  and every caller's); the plain version any block size.
+  CSR (bf16 with N % 8 == 0: its TMA + ``wgmma`` path; other N and f32: its
+  other paths, chosen by shape), each counted in its own ``launches``; on a
+  CPU tensor both run the plain version.  The kernel takes 128x128 blocks
+  (``pack_bsr``'s default and every caller's); the plain version any block
+  size.
 - ``masked_dense_matmul``: the reference's simulated sparsity (dense W x
   0/1 mask), for comparisons.
 
@@ -144,17 +146,9 @@ def _check(bsr: BsrWeights, x: torch.Tensor) -> None:
         raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's int sizes")
 
 
-def _run(bsr: BsrWeights, x: torch.Tensor, entry) -> torch.Tensor:
-    """The plain version on a CPU tensor; on a CUDA tensor one launch of
-    ``csrc/bsr_matmul.cu``, counted in ``entry.launches``."""
-    _check(bsr, x)
-    if x.device.type == "cpu":
-        return bsr_matmul_reference(bsr, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if (bsr.bm, bsr.bk) != (KERNEL_BLOCK, KERNEL_BLOCK):
-        raise ValueError(f"the kernel takes {KERNEL_BLOCK}x{KERNEL_BLOCK} blocks, the packing "
-                         f"{bsr.bm}x{bsr.bk}")
+def _launch(bsr: BsrWeights, x: torch.Tensor) -> torch.Tensor:
+    """One launch of ``csrc/bsr_matmul.cu`` on CUDA ``x`` (checked by the
+    caller), cast to the vals dtype; raises if the launch fails."""
     from tpuseg_torch.ops._build import load_library
 
     x = x.to(bsr.vals.dtype)
@@ -166,10 +160,26 @@ def _run(bsr: BsrWeights, x: torch.Tensor, entry) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.tpuseg_bsr_matmul(
             bsr.vals.data_ptr(), bsr.rowptr_t.data_ptr(), bsr.colidx_t.data_ptr(),
-            x.data_ptr(), y.data_ptr(), M, K, n, _DTYPE_CODE[bsr.vals.dtype], stream)
+            x.data_ptr(), y.data_ptr(), M, K, n, len(bsr.colidx), _DTYPE_CODE[bsr.vals.dtype],
+            stream)
     if err != 0:
         msg = lib.tpuseg_cuda_error_string(err).decode()
         raise RuntimeError(f"bsr_matmul kernel launch failed: {msg} ({err})")
+    return y
+
+
+def _run(bsr: BsrWeights, x: torch.Tensor, entry) -> torch.Tensor:
+    """The plain version on a CPU tensor; on a CUDA tensor one launch of
+    ``csrc/bsr_matmul.cu``, counted in ``entry.launches``."""
+    _check(bsr, x)
+    if x.device.type == "cpu":
+        return bsr_matmul_reference(bsr, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if (bsr.bm, bsr.bk) != (KERNEL_BLOCK, KERNEL_BLOCK):
+        raise ValueError(f"the kernel takes {KERNEL_BLOCK}x{KERNEL_BLOCK} blocks, the packing "
+                         f"{bsr.bm}x{bsr.bk}")
+    y = _launch(bsr, x)
     entry.launches += 1
     return y
 

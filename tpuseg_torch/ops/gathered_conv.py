@@ -40,10 +40,12 @@ from tpuseg_torch.models.weights import hwio_to_oihw_tensor, oihw_to_hwio_np
 from tpuseg_torch.ops.sparse_conv import (
     QMAX,
     FusedSparseConvQ,
+    cast_bias_bf16,
     dequantize,
     fused_sparse_conv_apply_q,
+    fused_sparse_conv_q_bias_bf16,
     int_conv_exact,
-    quantize_activation,
+    quantize_activation_reference,
 )
 
 
@@ -191,6 +193,14 @@ class GatheredGroupConvQ:
             return gathered_conv_q_reference(x, self)
         return fused_sparse_conv_apply_q(x, self.packed)
 
+    def apply_bias_bf16(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+        """The served bf16 route: ``bf16(float(bf16(y)) + float(bias))``, the
+        cast and bias passes on a CPU tensor, one B3 launch writing it on a
+        CUDA tensor (``fused_sparse_conv_q_bias_bf16``)."""
+        if x.device.type == "cpu":
+            return cast_bias_bf16(gathered_conv_q_reference(x, self), bias)
+        return fused_sparse_conv_q_bias_bf16(x, self.packed, bias)
+
     def to(self, device) -> "GatheredGroupConvQ":
         def mv(v):
             if isinstance(v, list):
@@ -206,7 +216,7 @@ def gathered_conv_q_reference(x: torch.Tensor, plan: GatheredGroupConvQ) -> torc
     """Plain version, ``tpuseg``'s ``GatheredGroupConvQ.apply``: quantize the
     whole x, then per out-block gather its support channels, the exact
     integer conv and the epilogue; a dead block gives zeros."""
-    xq, xs = quantize_activation(x, plan.x_scale)
+    xq, xs = quantize_activation_reference(x, plan.x_scale)
     outs = []
     for j in range(plan.cout // plan.bm):
         if plan.w_q[j] is None:
@@ -247,7 +257,8 @@ def quantize_gathered_plan(plan: GatheredGroupConv,
         wq_l, ws_l = list(wq), list(scale.astype(np.float32))
     # the equivalent fused packing: slot s of block j holds in-block idx[j][s];
     # padded slots and dead blocks keep zero weights (and a dead block the
-    # scale of an all-zero channel), so they add exact zeros
+    # scale of an all-zero channel), so they add exact zeros and are no live
+    # step of the packing
     S = max(plan.s, 1)
     vals = np.zeros((nmb, T, S, bk, bm), np.int8)
     rows = np.zeros((nmb, S), np.int32)

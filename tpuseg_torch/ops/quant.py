@@ -33,10 +33,12 @@ from tpuseg_torch.ops.sparse_conv import (
     BM,
     QMAX,
     FusedSparseConvQ,
+    cast_bias_bf16,
     dequantize,
     fused_sparse_conv_apply_q,
+    fused_sparse_conv_q_bias_bf16,
     int_conv_exact,
-    quantize_activation,
+    quantize_activation_reference,
 )
 
 
@@ -59,6 +61,14 @@ class QuantConv:
             return quant_conv_reference(x, self)
         return fused_sparse_conv_apply_q(x, self.packed)
 
+    def apply_bias_bf16(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+        """The served bf16 route: ``bf16(float(bf16(y)) + float(bias))``, the
+        cast and bias passes on a CPU tensor, one B3 launch writing it on a
+        CUDA tensor (``fused_sparse_conv_q_bias_bf16``)."""
+        if x.device.type == "cpu":
+            return cast_bias_bf16(quant_conv_reference(x, self), bias)
+        return fused_sparse_conv_q_bias_bf16(x, self.packed, bias)
+
     def to(self, device) -> "QuantConv":
         return dataclasses.replace(self, w_q=self.w_q.to(device),
                                    w_scale=self.w_scale.to(device),
@@ -68,7 +78,7 @@ class QuantConv:
 def quant_conv_reference(x: torch.Tensor, plan: QuantConv) -> torch.Tensor:
     """Plain version of ``QuantConv.apply``: quantize x, the exact integer
     conv with ``w_q``, the epilogue (``tpuseg``'s ``QuantConv.apply``)."""
-    xq, xs = quantize_activation(x, plan.x_scale)
+    xq, xs = quantize_activation_reference(x, plan.x_scale)
     return dequantize(int_conv_exact(xq, plan.w_q, plan.dilation), xs, plan.w_scale)
 
 

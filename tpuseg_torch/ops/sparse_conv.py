@@ -52,15 +52,24 @@ The int8 half (``tpuseg``'s ``FusedSparseConvQ``, ``quantize_fused_plan``,
 ``fused_sparse_conv_apply_q``): per-output-channel symmetric int8 weights,
 x quantized per frame (dynamic absmax) or with a static scale, an exact
 integer conv and the epilogue ``float(acc) * (x_scale[n] * w_scale[o])``.
+``FusedSparseConvQ`` carries the live steps of its nonzero int8 tiles, as
+``FusedSparseConv`` does.
 
-- ``quantize_activation``: ``tpuseg``'s x quantization, op for op.
+- ``quantize_activation``: ``tpuseg``'s x quantization (the step it runs in
+  XLA before its Pallas kernel): on a CUDA tensor the hand-written kernels
+  of ``tpuseg_torch/csrc/quantize.cu``, optionally through a channel map;
+  ``quantize_activation_reference`` is its plain version.
 - ``int_conv_exact``: the integer conv in float64, exact below 2**53.
 - ``fused_sparse_conv_q_reference``: the plain version (quantize, exact
   integer conv on the dense weight rebuilt from the packing, epilogue).
-- ``fused_sparse_conv_apply_q``: the serving entry point.  On a CUDA
-  tensor it quantizes x and launches ``tpuseg_torch/csrc/sparse_conv_q.cu``
-  (kernel B3, the port of ``fused_sparse_conv_apply_q``); on a CPU tensor
-  it runs the plain version.
+- ``fused_sparse_conv_apply_q``: the entry point.  On a CUDA tensor it
+  quantizes x and launches ``tpuseg_torch/csrc/sparse_conv_q.cu`` (kernel
+  B3, the port of ``fused_sparse_conv_apply_q``); on a CPU tensor it runs
+  the plain version.
+- ``fused_sparse_conv_q_bias_bf16``: the route bf16 serving takes for every
+  int8 plan: the same launches write ``bf16(float(bf16(y)) +
+  float(bias))``; ``fused_sparse_conv_q_bias_bf16_reference`` is the cast
+  and bias passes it replaces (``cast_bias_bf16``).
 """
 
 from __future__ import annotations
@@ -75,6 +84,13 @@ from tpuseg_torch.models.weights import oihw_to_hwio_np
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 BK = BM = 128  # channel block sizes (in, out), the kernel's
+
+
+def _raise_on(lib, kernel: str, err: int) -> None:
+    """Raise if a launch through the kernel library returned an error."""
+    if err != 0:
+        msg = lib.tpuseg_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({err})")
 
 
 @dataclasses.dataclass
@@ -249,9 +265,7 @@ def _launch_b2(x: torch.Tensor, p, kernel: int, dilation: int, cout: int,
             n, h, w, cin, cout, p.s, kernel, dilation, _DTYPE_CODE[p.vals.dtype],
             int(bf16_out), stream,
         )
-    if err != 0:
-        msg = lib.tpuseg_cuda_error_string(err).decode()
-        raise RuntimeError(f"sparse_conv kernel launch failed: {msg} ({err})")
+    _raise_on(lib, "sparse_conv", err)
     return out
 
 
@@ -287,8 +301,7 @@ def fused_sparse_conv_bias_bf16_reference(x: torch.Tensor, plan: FusedSparseConv
     """Plain version of the served bf16 route: the two passes it replaces
     (``models/drn.py``, ``tpuseg``'s cast-then-bias order), B2's f32 output
     cast to bf16, then the bf16 bias added in bf16."""
-    y = fused_sparse_conv_reference(x, plan).to(torch.bfloat16)
-    return y if bias is None else y + bias.to(torch.bfloat16)
+    return cast_bias_bf16(fused_sparse_conv_reference(x, plan), bias)
 
 
 def fused_sparse_conv_bias_bf16(x: torch.Tensor, plan: FusedSparseConv,
@@ -627,9 +640,11 @@ QMAX = 127  # symmetric int8 range [-127, 127]
 @dataclasses.dataclass
 class FusedSparseConvQ:
     """Int8 packing of a ``FusedSparseConv``: ``vals``/``w_scale``/``rows``
-    are ``tpuseg``'s arrays value for value; ``vals_k`` is the kernel's
-    K-major copy of ``vals`` (int8 tensor-core MMA takes both operands
-    K-major), derived from ``vals`` when the plan is made."""
+    are ``tpuseg``'s arrays value for value.  Derived from ``vals`` when the
+    plan is made: ``vals_k``, the kernel's K-major copy (int8 tensor-core
+    MMA takes both operands K-major), and ``steps``/``nsteps``, the live
+    steps of the nonzero int8 tiles (``FusedSparseConv``'s layout; a tile
+    whose weights all quantize to 0 is not live)."""
 
     vals: torch.Tensor     # (nmb, T*S*bk, bm) int8
     w_scale: torch.Tensor  # (nmb, 1, bm) f32 per-output-channel
@@ -645,18 +660,24 @@ class FusedSparseConvQ:
     block_density: float
     x_scale: float | None = None  # static activation scale; None = per frame
     vals_k: torch.Tensor | None = None  # (nmb, T*S, bm, bk) int8: vals per tile, transposed
+    steps: torch.Tensor | None = None   # (nmb, T*S) int32
+    nsteps: torch.Tensor | None = None  # (nmb,) int32
 
     def __post_init__(self):
+        nmb, tsk, bm = self.vals.shape
+        tiles = self.vals.reshape(nmb, tsk // self.bk, self.bk, bm)
         if self.vals_k is None:
-            nmb, tsk, bm = self.vals.shape
-            self.vals_k = (self.vals.reshape(nmb, tsk // self.bk, self.bk, bm)
-                           .transpose(2, 3).contiguous())
+            self.vals_k = tiles.transpose(2, 3).contiguous()
+        if self.steps is None:
+            live = (tiles != 0).any(3).any(2).cpu().numpy()
+            self.steps, self.nsteps = _step_list(live)
 
     def to(self, device) -> "FusedSparseConvQ":
         """The plan with its tensors on ``device`` (dtypes unchanged)."""
         return dataclasses.replace(
             self, vals=self.vals.to(device), w_scale=self.w_scale.to(device),
-            rows=self.rows.to(device), vals_k=self.vals_k.to(device))
+            rows=self.rows.to(device), vals_k=self.vals_k.to(device),
+            steps=self.steps.to(device), nsteps=self.nsteps.to(device))
 
 
 def quantize_fused_plan(plan: FusedSparseConv, x_scale: float | None = None) -> FusedSparseConvQ:
@@ -684,19 +705,17 @@ def quantize_fused_plan(plan: FusedSparseConv, x_scale: float | None = None) -> 
     )
 
 
-def quantize_activation(x: torch.Tensor, x_scale: float | None) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(xq, xs)``: int8 ``xq`` of x's shape and the (N,) f32 per-frame
-    scales, ``tpuseg``'s ops in its order.  Dynamic (``x_scale`` None):
-    ``xs = max(max|x| over (H, W, C), 1e-8) / 127``; static: ``x_scale``
-    rounded to f32 for every frame.  Then ``xq = clip(round(x / xs), -127,
-    127)`` with round half to even.  Both divisions are true divisions by
-    a tensor: PyTorch multiplies by the reciprocal when the divisor is a
-    Python scalar, which can differ in the last bit.
-
-    Passes over x are few on purpose (this runs before every int8 conv):
-    the absmax is one fused reduction (the inf-norm; a max of magnitudes is
-    exact in any float dtype) and the division promotes a bf16 x to f32 as
-    it reads it (exact), so no f32 copy of x is made first."""
+def quantize_activation_reference(x: torch.Tensor,
+                                  x_scale: float | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``quantize_activation``: ``tpuseg``'s ops in its
+    order.  Dynamic (``x_scale`` None): ``xs = max(max|x| over all but the
+    batch axis, 1e-8) / 127``; static: ``x_scale`` rounded to f32 for every
+    frame.  Then ``xq = clip(round(x / xs), -127, 127)`` with round half to
+    even.  Both divisions are true divisions by a tensor: PyTorch multiplies
+    by the reciprocal when the divisor is a Python scalar, which can differ
+    in the last bit.  The absmax is the inf-norm (exact in any float dtype;
+    a NaN gives a NaN scale) and the division promotes a bf16 x to f32 as it
+    reads it (exact)."""
     n = x.shape[0]
     if x_scale is None:
         absmax = torch.linalg.vector_norm(x.reshape(n, -1), ord=float("inf"), dim=1).float()
@@ -705,6 +724,65 @@ def quantize_activation(x: torch.Tensor, x_scale: float | None) -> tuple[torch.T
         xs = torch.full((n,), x_scale, dtype=torch.float32, device=x.device)
     q = torch.div(x, xs.view((n,) + (1,) * (x.dim() - 1)))  # f32: xs is f32
     return q.round_().clamp_(-QMAX, QMAX).to(torch.int8), xs
+
+
+def quantize_activation(x: torch.Tensor, x_scale: float | None,
+                        chan: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(xq, xs)``: int8 ``xq`` of x's shape and the (N,) f32 per-frame
+    scales, ``tpuseg``'s x quantization (``quantize_activation_reference``).
+    With ``chan`` (an int32 index of x's last axis) it quantizes
+    ``x.index_select(-1, chan)``, the scale taken over those channels, as
+    ``tpuseg``'s ``CompactSparseQ`` does after its gather.
+
+    On a CPU tensor this runs the plain version.  On a CUDA tensor (bf16 or
+    f32, contiguous, channels last) it launches the hand-written kernels of
+    ``tpuseg_torch/csrc/quantize.cu`` on the current stream: per-frame
+    absmax (dynamic scale only, counted in ``quantize_activation.
+    absmax_launches``), then one pass that reads x (through ``chan``: the
+    gathered copy is never made) and writes xq and xs (counted in
+    ``quantize_activation.launches``); it raises if a launch fails."""
+    if x.device.type == "cpu":
+        return quantize_activation_reference(
+            x if chan is None else x.index_select(x.dim() - 1, chan), x_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() < 2 or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous (N, ..., C), got {tuple(x.shape)}")
+    n, cx = x.shape[0], x.shape[-1]
+    cq = cx if chan is None else chan.numel()
+    if chan is not None and (chan.dtype != torch.int32 or chan.dim() != 1
+                             or not chan.is_contiguous() or chan.device != x.device):
+        raise ValueError("chan must be a contiguous 1-D int32 tensor on x's device")
+    if cq % 8 or (chan is None and cx % 8):
+        raise ValueError(f"the quantize kernels take channel counts divisible by 8, got {cq}")
+    from tpuseg_torch.ops._build import load_library
+
+    pixels = x[0, ..., 0].numel()
+    xq = torch.empty(x.shape[:-1] + (cq,), dtype=torch.int8, device=x.device)
+    xs = torch.empty((n,), dtype=torch.float32, device=x.device)
+    absmax = None if x_scale is not None else torch.zeros((n,), dtype=torch.int32,
+                                                          device=x.device)
+    lib = load_library()
+    cptr = None if chan is None else chan.data_ptr()
+    shape = (n, pixels, cx, cq, _DTYPE_CODE[x.dtype])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if absmax is not None:
+            _raise_on(lib, "absmax", lib.tpuseg_absmax(x.data_ptr(), cptr, absmax.data_ptr(),
+                                                      *shape, stream))
+            quantize_activation.absmax_launches += 1
+        _raise_on(lib, "quantize", lib.tpuseg_quantize(
+            x.data_ptr(), cptr, None if absmax is None else absmax.data_ptr(),
+            0.0 if x_scale is None else float(x_scale), xq.data_ptr(), xs.data_ptr(), *shape,
+            stream))
+    quantize_activation.launches += 1
+    return xq, xs
+
+
+quantize_activation.launches = 0
+quantize_activation.absmax_launches = 0
 
 
 def int_conv_exact(xq: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
@@ -734,10 +812,11 @@ def dequantize(acc: torch.Tensor, xs: torch.Tensor, w_scale: torch.Tensor) -> to
 
 
 def fused_sparse_conv_q_reference(x: torch.Tensor, plan: FusedSparseConvQ) -> torch.Tensor:
-    """Plain version of B3: quantize x, rebuild the dense HWIO int8 weight
-    from ``vals``/``rows`` (padded slots add zeros), compute the integer conv
-    exactly (``int_conv_exact``), apply the epilogue.  NHWC in, f32 out."""
-    xq, xs = quantize_activation(x, plan.x_scale)
+    """Plain version of B3: quantize x (``quantize_activation_reference``),
+    rebuild the dense HWIO int8 weight from ``vals``/``rows`` (padded slots
+    add zeros), compute the integer conv exactly (``int_conv_exact``), apply
+    the epilogue.  NHWC in, f32 out."""
+    xq, xs = quantize_activation_reference(x, plan.x_scale)
     k, S, bk, bm = plan.kernel, plan.s, plan.bk, plan.bm
     nmb = plan.cout // bm
     vals = plan.vals.to(torch.float64).reshape(nmb, k, k, S, bk, bm)
@@ -748,30 +827,41 @@ def fused_sparse_conv_q_reference(x: torch.Tensor, plan: FusedSparseConvQ) -> to
     return dequantize(int_conv_exact(xq, w, plan.dilation), xs, plan.w_scale)
 
 
-def _check_q(x: torch.Tensor, plan: FusedSparseConvQ) -> None:
+def cast_bias_bf16(y: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    """``tpuseg``'s served order after a sparse or int8 conv: its f32 output
+    cast to bf16, then the bias added in bf16 (no add without a bias).  The
+    plain version of every bf16+bias route."""
+    y = y.to(torch.bfloat16)
+    return y if bias is None else y + bias.to(device=y.device, dtype=torch.bfloat16)
+
+
+def _check_q(x: torch.Tensor, plan: FusedSparseConvQ, chan: torch.Tensor | None) -> None:
     if x.dim() != 4:
         raise ValueError(f"x must be (N, H, W, Cin), got shape {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be NHWC-contiguous")
-    if x.shape[3] != plan.cin:
-        raise ValueError(f"x has {x.shape[3]} channels, the plan {plan.cin}")
-    tensors = (plan.vals, plan.vals_k, plan.rows, plan.w_scale)
+    cin = x.shape[3] if chan is None else chan.numel()
+    if cin != plan.cin:
+        raise ValueError(f"x has {cin} channels, the plan {plan.cin}")
+    tensors = (plan.vals, plan.vals_k, plan.rows, plan.w_scale, plan.steps, plan.nsteps)
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"plan on {plan.vals.device}, x on {x.device}")
     nmb, T, S = plan.cout // plan.bm, plan.kernel * plan.kernel, plan.s
     if (plan.vals.dtype != torch.int8 or plan.vals_k.dtype != torch.int8
             or plan.rows.dtype != torch.int32 or plan.w_scale.dtype != torch.float32
+            or plan.steps.dtype != torch.int32 or plan.nsteps.dtype != torch.int32
             or tuple(plan.vals.shape) != (nmb, T * S * plan.bk, plan.bm)
             or tuple(plan.vals_k.shape) != (nmb, T * S, plan.bm, plan.bk)
             or tuple(plan.rows.shape) != (nmb, S)
             or tuple(plan.w_scale.shape) != (nmb, 1, plan.bm)
+            or tuple(plan.steps.shape) != (nmb, T * S) or tuple(plan.nsteps.shape) != (nmb,)
             or not all(t.is_contiguous() for t in tensors)):
         raise ValueError("int8 plan does not match its geometry (contiguous int8 vals "
                          f"{(nmb, T * S * plan.bk, plan.bm)}, vals_k "
-                         f"{(nmb, T * S, plan.bm, plan.bk)}, int32 rows {(nmb, S)}, "
-                         f"f32 w_scale {(nmb, 1, plan.bm)})")
+                         f"{(nmb, T * S, plan.bm, plan.bk)}, int32 rows {(nmb, S)}, steps "
+                         f"{(nmb, T * S)} and nsteps {(nmb,)}, f32 w_scale {(nmb, 1, plan.bm)})")
     if plan.kernel % 2 == 0:
         raise ValueError(f"'same' padding needs an odd kernel, got {plan.kernel}")
     if QMAX * QMAX * T * S * plan.bk >= 2**31:
@@ -780,38 +870,91 @@ def _check_q(x: torch.Tensor, plan: FusedSparseConvQ) -> None:
         raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's int sizes")
 
 
-def fused_sparse_conv_apply_q(x: torch.Tensor, plan: FusedSparseConvQ) -> torch.Tensor:
-    """Int8 stride-1 'same' block-sparse conv of NHWC-contiguous float ``x``
-    -> f32 (N, H, W, Cout).
-
-    On a CUDA tensor this quantizes x (``quantize_activation``), launches
-    the CUDA kernel on the current stream, counts the launch in
-    ``fused_sparse_conv_apply_q.launches`` and raises if the launch fails;
-    on a CPU tensor it runs ``fused_sparse_conv_q_reference``.  Nothing
-    falls back: A/B checks call the plain version by name."""
-    _check_q(x, plan)
-    if x.device.type == "cpu":
-        return fused_sparse_conv_q_reference(x, plan)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+def _launch_b3(xq: torch.Tensor, xs: torch.Tensor, plan: FusedSparseConvQ,
+               bias: torch.Tensor | None, bf16_out: bool) -> torch.Tensor:
+    """One launch of kernel B3 (``csrc/sparse_conv_q.cu``) on int8 NHWC
+    ``xq`` and its (N,) scales ``xs``, checked by the caller: the f32 y, or
+    with ``bf16_out`` the bf16 ``bf16(float(bf16(y)) + float(bias))``."""
     from tpuseg_torch.ops._build import load_library
 
-    xq, xs = quantize_activation(x, plan.x_scale)
-    n, h, w, cin = x.shape
-    out = torch.empty((n, h, w, plan.cout), dtype=torch.float32, device=x.device)
+    n, h, w, cin = xq.shape
+    out = torch.empty((n, h, w, plan.cout), dtype=torch.bfloat16 if bf16_out else torch.float32,
+                      device=xq.device)
     lib = load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
         err = lib.tpuseg_sparse_conv_q(
-            xq.data_ptr(), plan.vals_k.data_ptr(), plan.rows.data_ptr(),
-            plan.w_scale.data_ptr(), xs.data_ptr(), out.data_ptr(),
-            n, h, w, cin, plan.cout, plan.s, plan.kernel, plan.dilation, stream,
+            xq.data_ptr(), plan.vals_k.data_ptr(), plan.rows.data_ptr(), plan.steps.data_ptr(),
+            plan.nsteps.data_ptr(), plan.w_scale.data_ptr(), xs.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            n, h, w, cin, plan.cout, plan.s, plan.kernel, plan.dilation, int(bf16_out), stream,
         )
-    if err != 0:
-        msg = lib.tpuseg_cuda_error_string(err).decode()
-        raise RuntimeError(f"sparse_conv_q kernel launch failed: {msg} ({err})")
+    _raise_on(lib, "sparse_conv_q", err)
+    return out
+
+
+def _b3_cuda(x: torch.Tensor, plan: FusedSparseConvQ, chan: torch.Tensor | None,
+             bias: torch.Tensor | None, bf16_out: bool) -> torch.Tensor:
+    """The CUDA half of every B3 entry point: quantize x through ``chan``
+    (``quantize_activation``'s kernels), then one B3 launch."""
+    xq, xs = quantize_activation(x, plan.x_scale, chan)
+    return _launch_b3(xq, xs, plan, bias, bf16_out)
+
+
+def fused_sparse_conv_apply_q(x: torch.Tensor, plan: FusedSparseConvQ,
+                              chan: torch.Tensor | None = None) -> torch.Tensor:
+    """Int8 stride-1 'same' block-sparse conv of NHWC-contiguous float ``x``
+    -> f32 (N, H, W, Cout); with ``chan`` (int32) the conv of
+    ``x.index_select(3, chan)``, quantized over those channels.
+
+    On a CUDA tensor this quantizes x (``quantize_activation``'s kernels),
+    launches B3 on the current stream, counts the launch in
+    ``fused_sparse_conv_apply_q.launches`` and raises if a launch fails; on
+    a CPU tensor it runs ``fused_sparse_conv_q_reference``.  Nothing falls
+    back: A/B checks call the plain version by name."""
+    _check_q(x, plan, chan)
+    if x.device.type == "cpu":
+        return fused_sparse_conv_q_reference(x if chan is None else x.index_select(3, chan),
+                                             plan)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    out = _b3_cuda(x, plan, chan, None, False)
     fused_sparse_conv_apply_q.launches += 1
     return out
 
 
 fused_sparse_conv_apply_q.launches = 0
+
+
+def fused_sparse_conv_q_bias_bf16_reference(x: torch.Tensor, plan: FusedSparseConvQ,
+                                            bias: torch.Tensor | None) -> torch.Tensor:
+    """Plain version of the served int8 bf16 route: B3's f32 output cast to
+    bf16, then the bf16 bias added (``cast_bias_bf16``)."""
+    return cast_bias_bf16(fused_sparse_conv_q_reference(x, plan), bias)
+
+
+def fused_sparse_conv_q_bias_bf16(x: torch.Tensor, plan: FusedSparseConvQ,
+                                  bias: torch.Tensor | None,
+                                  chan: torch.Tensor | None = None) -> torch.Tensor:
+    """The served bf16 route of an int8 plan: ``bf16(float(bf16(y)) +
+    float(bias_bf16))`` (N, H, W, Cout) bf16, y = B3's f32 function of
+    ``x`` (through ``chan``, as ``fused_sparse_conv_apply_q``), each step
+    rounded to nearest even; no add without a bias.
+
+    On a CUDA tensor the quantize kernels and one B3 launch write it (half
+    the bytes of the f32 y, and no cast-and-bias pass), counted in
+    ``fused_sparse_conv_apply_q.launches``; on a CPU tensor it runs
+    ``fused_sparse_conv_q_bias_bf16_reference``.  ``models/drn.py`` takes
+    this route for every int8 plan in bf16 serving."""
+    _check_q(x, plan, chan)
+    if bias is not None and (bias.dim() != 1 or bias.shape[0] != plan.cout):
+        raise ValueError(f"bias must be ({plan.cout},), got {tuple(bias.shape)}")
+    if x.device.type == "cpu":
+        return fused_sparse_conv_q_bias_bf16_reference(
+            x if chan is None else x.index_select(3, chan), plan, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    b = None if bias is None else bias.to(device=x.device, dtype=torch.bfloat16).contiguous()
+    out = _b3_cuda(x, plan, chan, b, True)
+    fused_sparse_conv_apply_q.launches += 1
+    return out
