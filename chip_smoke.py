@@ -9,13 +9,20 @@ kernels against their plain versions.
 
 Phases (any failed check raises and the exit code is non-zero):
   1. card, versions, kernel build time;
-  2. kernel vs plain ids on the card, bit-equal, at several shapes/dtypes;
+  2. B1 (upsample_argmax) vs plain ids on the card, bit-equal, f32 and bf16
+     logits: the serving width; C = 1, 19 (the compile-time instance) and
+     255 (staged class groups); h = w = 1; ragged column chunks; odd w; rows
+     not 16-byte aligned; exact ties (all classes, and two classes equal and
+     maximal, ids checked to be the lower class); a tall 8h > 65,535 input;
   3. slice parity in f32 (TF32 off): CUDA with the kernel vs CPU with the
      plain versions, ids agreement >= 0.999;
   4. the slice at full width and size in bf16: run() over 32 shapes frames
      at batch 8 (ids checked, kernel launch count > 0, agreement with the
      same frames in f32 >= 0.9), then the device rate at batch 32;
-  5. kernel vs plain time at the serving shape (32, 128, 256, 19) bf16;
+  5. B1 vs plain time at the serving shape (32, 128, 256, 19) bf16, with
+     B1's bound in f32 instructions at the card's lane rate (SMs x 128 x
+     the max SM clock; the compare/select pipe at half of it) for this
+     run's weights (``_b1_bound``), beside the earlier FLOP-count bound;
   6. the block-sparse conv kernel (B2) vs its plain version (f32 convs, TF32
      off) at the CPU tests' shapes, a 1x1, an S=2 and an all-zero plan, f32
      and bf16 plans, then each of the 7 B2 plans of block128reg_87.50 at its
@@ -187,6 +194,47 @@ def _time_turns(torch, fns: dict, iters: dict) -> dict:
     for name in order:
         out[name].append(_time_ms(torch, fns[name], iters[name]))
     return out
+
+
+def _lane_rate(torch) -> tuple[float, float]:
+    """(f32 lane instructions per second, max SM clock in MHz) of card 0:
+    its SMs x 128 f32 lanes x the max SM clock ``nvidia-smi`` reports."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits", "-i", "0"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * 128 * mhz * 1e6, mhz
+
+
+def _b1_instructions(a, b) -> tuple[float, float]:
+    """B1's f32 instructions per output pixel and class with phase weights
+    (a, b): (issued, of which on the half-rate compare/select pipe).
+
+    B1 rounds every multiply and add on its own (its ids are bit-equal to the
+    plain version), so its work is instructions, not FLOPs at the FMA rate.
+    Each pass (rows, then columns) makes one value per output pixel from two
+    products and an add.  An input value meets the 16 weights a[0..7],
+    b[0..7] across the 3 bands or columns it feeds; when a[q] == b[7-q] (the
+    bilinear kernel) those are 8 distinct products, so the pass needs 1
+    multiply and 1 add per value, else 2 and 1.  The row pass's values are
+    shared by the 8 output columns of an input column.  The argmax is a
+    compare and two selects, which issue at half the f32 rate."""
+    products = 1 if (a == b[::-1]).all() else 2
+    return (products + 1) * (1 + 1 / 8) + 3, 3
+
+
+def _b1_bound(shape, itemsize: int, a, b, lane_rate: float) -> tuple[float, str, dict]:
+    """(ms, what bounds it, each floor in ms) of B1 on (N, h, w, C) logits:
+    the largest of the bytes (logits read once, ids written once) over the
+    memory rate, the issued instructions over ``lane_rate`` (one a lane and
+    clock) and the compare/select pipe's instructions over half of it."""
+    n, h, w, c = shape
+    pixel_classes = 64 * n * h * w * c
+    issued, half_rate = _b1_instructions(a, b)
+    parts = {"bytes_ms": (n * h * w * c * itemsize + 64 * n * h * w) / PEAK_BYTES_S * 1e3,
+             "issue_ms": pixel_classes * issued / lane_rate * 1e3,
+             "compare_select_ms": pixel_classes * half_rate * 2 / lane_rate * 1e3}
+    ms = max(parts.values())
+    return ms, "bytes" if ms == parts["bytes_ms"] else "operations", parts
 
 
 def _bound(nbytes: float, ops: float, peak: str) -> tuple[float, str]:
@@ -969,6 +1017,74 @@ def _slice4_times(torch, np, dev, smi) -> dict:
     return out
 
 
+def _b1_cases(np, rng, sym):
+    """B1's phase-2 cases: (label, logits as f32 numpy, up kernel name,
+    kernel, the id every pixel must take or None)."""
+    f1 = rng.random(16).astype(np.float32) + 0.1
+    asym = np.outer(f1, f1).astype(np.float32)
+
+    def normal(shape):
+        return rng.normal(size=shape).astype(np.float32)
+
+    def all_equal(shape):  # every class the same value at each pixel
+        return np.repeat(normal(shape[:3] + (1,)), shape[3], axis=3)
+
+    def two_max(shape, i, j):  # classes i and j equal and above the rest
+        x = -rng.random(shape).astype(np.float32)
+        x[..., i] = x[..., j] = 5 + rng.random(shape[:3]).astype(np.float32)
+        return x
+
+    return [
+        ("serving width, C=19", normal((4, 128, 256, 19)), "bilinear", sym, None),
+        ("w=33: a ragged chunk, odd w (8-byte stores), rows of 1,254 bytes (bf16) "
+         "not 16-byte aligned", normal((2, 17, 33, 19)), "asymmetric", asym, None),
+        ("C=1", normal((1, 5, 7, 1)), "bilinear", sym, None),
+        ("C=255, 14 class groups", normal((1, 9, 11, 255)), "bilinear", sym, None),
+        ("h=1, w=1", normal((2, 1, 1, 19)), "bilinear", sym, None),
+        ("h=1, w=1, C=255", normal((1, 1, 1, 255)), "asymmetric", asym, None),
+        ("w=130: a 2-column second chunk, even w", normal((1, 3, 130, 19)), "asymmetric",
+         asym, None),
+        ("w=130, C=255", normal((1, 3, 130, 255)), "bilinear", sym, None),
+        ("w=6: a lane with 2 of its 4 columns", normal((1, 4, 6, 19)), "bilinear", sym, None),
+        ("tie: all classes equal, C=19", all_equal((2, 9, 130, 19)), "bilinear", sym, 0),
+        ("tie: all classes equal, C=255", all_equal((1, 3, 5, 255)), "asymmetric", asym, 0),
+        ("tie: classes 3 and 11 equal and maximal", two_max((2, 9, 130, 19), 3, 11),
+         "asymmetric", asym, 3),
+        ("tie: classes 30 and 200 equal and maximal (other groups)",
+         two_max((1, 5, 7, 255), 30, 200), "bilinear", sym, 30),
+        ("tall: 8h = 65,600 > 65,535", normal((1, 8200, 2, 19)), "bilinear", sym, None),
+    ]
+
+
+def _b1_vs_plain(torch, np, dev, rng, sym) -> int:
+    """B1 (``upsample_argmax``) vs ``upsample_argmax_reference`` on the card,
+    bit-equal ids, on each case of ``_b1_cases`` in f32 and bf16 logits.
+    Returns the max abs id error (0)."""
+    from tpuseg_torch.ops.upsample import upsample_argmax, upsample_argmax_reference
+
+    max_abs_err = 0
+    for label, x_np, kname, k, want_id in _b1_cases(np, rng, sym):
+        shape = x_np.shape
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.from_numpy(x_np).to(dev, dtype)
+            got = upsample_argmax(x, k)
+            want = upsample_argmax_reference(x, k)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape == (shape[0], 8 * shape[1], 8 * shape[2])
+            assert got.dtype == want.dtype == torch.uint8
+            err = int((got.int() - want.int()).abs().max().item())
+            mism = int((got != want).sum().item())
+            max_abs_err = max(max_abs_err, err)
+            tie_ok = want_id is None or bool((want == want_id).all())
+            _emit(phase="kernel_vs_plain", case=label, shape=list(shape), dtype=str(dtype),
+                  up_kernel=kname, mismatches=mism, max_abs_err=err,
+                  **({} if want_id is None else {"tie_id": want_id, "tie_held": tie_ok}))
+            if mism or not tie_ok:
+                raise AssertionError(f"B1 ids differ from the plain version or the tie rule "
+                                     f"at {label} {shape} {dtype}")
+    return max_abs_err
+
+
 def main() -> int:
     import torch
 
@@ -1009,33 +1125,7 @@ def main() -> int:
     # 2. kernel vs plain on the card: bit-equal ids
     rng = np.random.default_rng(0)
     sym = bilinear_upsample_kernel()
-    f1 = rng.random(16).astype(np.float32) + 0.1
-    asym = np.outer(f1, f1).astype(np.float32)
-    checks = [
-        ((4, 128, 256, 19), torch.bfloat16, "bilinear", sym),
-        ((4, 128, 256, 19), torch.float32, "bilinear", sym),
-        ((2, 17, 33, 19), torch.bfloat16, "asymmetric", asym),
-        ((2, 17, 33, 19), torch.float32, "asymmetric", asym),
-        ((1, 5, 7, 1), torch.float32, "bilinear", sym),
-        ((1, 5, 7, 1), torch.bfloat16, "bilinear", sym),
-        ((1, 9, 11, 255), torch.float32, "bilinear", sym),
-        ((1, 9, 11, 255), torch.bfloat16, "bilinear", sym),
-    ]
-    max_abs_err = 0
-    for shape, dtype, kname, k in checks:
-        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
-        got = upsample_argmax(x, k)
-        want = upsample_argmax_reference(x, k)
-        torch.cuda.synchronize()
-        assert got.shape == want.shape == (shape[0], 8 * shape[1], 8 * shape[2])
-        assert got.dtype == want.dtype == torch.uint8
-        err = int((got.int() - want.int()).abs().max().item())
-        mism = int((got != want).sum().item())
-        max_abs_err = max(max_abs_err, err)
-        _emit(phase="kernel_vs_plain", shape=list(shape), dtype=str(dtype),
-              up_kernel=kname, mismatches=mism, max_abs_err=err)
-        if mism:
-            raise AssertionError(f"kernel ids differ from the plain version at {shape} {dtype}")
+    max_abs_err = _b1_vs_plain(torch, np, dev, rng, sym)
 
     # 3. slice parity in f32: CUDA (kernel) vs CPU (plain versions)
     torch.backends.cudnn.allow_tf32 = False
@@ -1094,13 +1184,20 @@ def main() -> int:
     kern = [_time_ms(torch, lambda: upsample_argmax(x, sym), 20) for _ in range(2)]
     plain.append(_time_ms(torch, lambda: upsample_argmax_reference(x, sym), 3))
     kernel_ms, plain_ms = min(kern), min(plain)
-    # B1's bound: logits read once, ids written once; per output pixel and
-    # class, 2 multiplies and an add of the column pass, the running max, and
-    # the row pass's 3 operations shared by 8 output columns: 4.375 f32 ops
+    # B1's bound from this run's weights, at the card's lane rate
+    from tpuseg_torch.ops.upsample import _kernel_1d, _phase_weights
+
+    a, b = _phase_weights(_kernel_1d(sym))
     n_out = SERVING_LOGITS[0] * 64 * SERVING_LOGITS[1] * SERVING_LOGITS[2]
-    b1_bound = _bound(x.numel() * 2 + n_out, n_out * SERVING_LOGITS[3] * 4.375, "f32")
+    b1_old_bound = _bound(x.numel() * 2 + n_out, n_out * SERVING_LOGITS[3] * 4.375, "f32")
+    lane_rate, sm_clock_mhz = _lane_rate(torch)
+    *b1_bound, b1_parts = _b1_bound(SERVING_LOGITS, 2, a, b, lane_rate)
     _emit(phase="kernel_time", shape=list(SERVING_LOGITS), dtype="bfloat16",
-          kernel_ms=kern, plain_ms=plain, bound_ms=b1_bound[0], bound_by=b1_bound[1], card=smi)
+          kernel_ms=kern, plain_ms=plain, bound_ms=b1_bound[0], bound_by=b1_bound[1],
+          bound_parts=b1_parts, instructions=_b1_instructions(a, b),
+          old_bound_ms=b1_old_bound[0], old_bound="4.375 f32 ops at 67e12 (FMA counted 2)",
+          lane_instructions_per_s=lane_rate, sm_clock_max_mhz=sm_clock_mhz,
+          bound_share=b1_bound[0] / kernel_ms, card=smi)
     del x
 
     # 6. B2 vs plain on the card (f32 plain convs with TF32 off, set above)

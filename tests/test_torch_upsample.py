@@ -139,3 +139,113 @@ def test_library_path_keys_on_sources(tmp_path):
     (src / "a.cu").write_text("// two\n")
     p2 = _build.library_path(str(src), str(tmp_path))
     assert p1 != p2 and p1.startswith(str(tmp_path))
+
+
+def _interpret_pallas(monkeypatch):
+    from jax.experimental import pallas as pl
+
+    orig = pl.pallas_call
+    monkeypatch.setattr("jax.experimental.pallas.pallas_call",
+                        lambda *a, **kw: orig(*a, **{**kw, "interpret": True}))
+
+
+def _edge_logits(case, rng):
+    """(logits f32, the id every pixel must take or None) for an edge case
+    of the CUDA kernel's tiling and staging, and the tie rule."""
+    shapes = {"h1_w1": (2, 1, 1, 19), "odd_w33": (2, 3, 33, 19),
+              "ragged_w130": (1, 2, 130, 19), "part_lane_w6": (1, 4, 6, 19),
+              "c1": (1, 5, 7, 1), "c127": (1, 3, 5, 127), "c255": (1, 3, 5, 255),
+              "tie_all_equal": (2, 3, 130, 19), "tie_two_max": (2, 3, 130, 19),
+              "tie_two_max_c255": (1, 5, 7, 255), "one_chunk_w128": (1, 2, 128, 19),
+              "chunk_and_one_w129": (1, 2, 129, 19), "three_chunks_w257": (1, 2, 257, 19)}
+    shape = shapes[case]
+    if case == "tie_all_equal":
+        x = np.repeat(rng.normal(size=shape[:3] + (1,)), shape[3], axis=3)
+        return x.astype(np.float32), 0
+    if case.startswith("tie_two_max"):
+        i, j = (30, 200) if case.endswith("c255") else (3, 11)
+        x = -rng.random(shape).astype(np.float32)
+        x[..., i] = x[..., j] = 5 + rng.random(shape[:3]).astype(np.float32)
+        return x, i
+    return rng.normal(size=shape).astype(np.float32), None
+
+
+EDGE_CASES = ["h1_w1", "odd_w33", "ragged_w130", "part_lane_w6", "c1", "c127", "c255",
+              "tie_all_equal", "tie_two_max", "tie_two_max_c255"]
+# widths about the CUDA kernel's 128-column chunks (plain version vs XLA only)
+CHUNK_CASES = ["one_chunk_w128", "chunk_and_one_w129", "three_chunks_w257"]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES + CHUNK_CASES)
+def test_upsample_argmax_edge_cases_match_jax(case):
+    """Odd shapes and exact ties: the port's entry point (the plain version
+    on the CPU) gives tpuseg's XLA ids, and ties go to the lowest class."""
+    x, want_id = _edge_logits(case, np.random.default_rng(5))
+    k = _asym_kernel(np.random.default_rng(6)) if "w" in case else bilinear_upsample_kernel()
+    ref = np.asarray(jup.upsample_argmax(jnp.asarray(x), jnp.asarray(k)))
+    ids = tup.upsample_argmax(torch.from_numpy(x), k).numpy()
+    np.testing.assert_array_equal(ids, ref)
+    if want_id is not None:
+        assert (ids == want_id).all()
+
+
+@pytest.mark.parametrize("case", [c for c in EDGE_CASES if "255" not in c])
+def test_upsample_argmax_edge_cases_match_pallas_interpret(case, monkeypatch):
+    """The same cases against tpuseg's Pallas kernel (C <= 127) in interpret
+    mode, from bf16 logits (the served dtype; both interpolate in f32)."""
+    _interpret_pallas(monkeypatch)
+    x, want_id = _edge_logits(case, np.random.default_rng(7))
+    k = bilinear_upsample_kernel()
+    ref = np.asarray(jup.upsample_argmax_pallas(jnp.asarray(x).astype(jnp.bfloat16),
+                                                jnp.asarray(k)))
+    ids = tup.upsample_argmax(torch.from_numpy(x).to(torch.bfloat16), k).numpy()
+    np.testing.assert_array_equal(ids, ref)
+    if want_id is not None:
+        assert (ids == want_id).all()
+
+
+def test_tall_input_matches_jax():
+    """8h = 65,600 (the CUDA kernel puts the rows on the grid's x axis, so
+    only the card's run in chip_smoke.py phase 2 shows that the kernel
+    takes it): the plain version's ids are tpuseg's."""
+    x = np.random.default_rng(8).normal(size=(1, 8200, 1, 3)).astype(np.float32)
+    k = bilinear_upsample_kernel()
+    ids = tup.upsample_argmax(torch.from_numpy(x), k)
+    assert ids.shape == (1, 65600, 8)
+    np.testing.assert_array_equal(
+        ids.numpy(), np.asarray(jup.upsample_argmax(jnp.asarray(x), jnp.asarray(k))))
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(_build.SRC_DIR), os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("kind, issued", [("bilinear", 5.25), ("asymmetric", 6.375)])
+def test_b1_instruction_count(kind, issued):
+    """B1's f32 instructions per output pixel and class: each pass needs one
+    distinct product per output value when a[q] == b[7-q] (the bilinear
+    kernel), two otherwise, plus its add; the argmax's compare and two
+    selects run on the half-rate pipe."""
+    k = bilinear_upsample_kernel() if kind == "bilinear" else _asym_kernel(np.random.default_rng(9))
+    a, b = tup._phase_weights(tup._kernel_1d(k))
+    assert _chip_smoke()._b1_instructions(a, b) == (issued, 3)
+
+
+def test_b1_bound_at_the_serving_shape():
+    """At (32,128,256,19) bf16 on 132 SMs at 1980 MHz, the compare/select
+    pipe bounds B1 (0.2287 ms), above its issue count (0.2001 ms) and its
+    bytes (0.0319 ms)."""
+    cs = _chip_smoke()
+    a, b = tup._phase_weights(tup._kernel_1d(bilinear_upsample_kernel()))
+    ms, by, parts = cs._b1_bound((32, 128, 256, 19), 2, a, b, 132 * 128 * 1980e6)
+    assert by == "operations"
+    assert ms == parts["compare_select_ms"] == pytest.approx(0.228684, abs=1e-6)
+    assert parts["issue_ms"] == pytest.approx(0.200098, abs=1e-6)
+    assert parts["bytes_ms"] == pytest.approx(0.031927, abs=1e-6)

@@ -3,7 +3,8 @@ one card in one process, so that the two are timed under the same clocks
 and neighbours.
 
     python -m tpuseg_torch.ab_sparse_conv [--old OLD_sparse_conv.cu]
-        [--old-q OLD_sparse_conv_q.cu] [--old-bsr OLD_bsr_matmul.cu] [--skip-fps]
+        [--old-q OLD_sparse_conv_q.cu] [--old-bsr OLD_bsr_matmul.cu]
+        [--old-up OLD_upsample_argmax.cu] [--skip-fps]
 
 Each option is a copy of that source from another commit, e.g.
 ``git show <commit>:tpuseg_torch/csrc/sparse_conv_q.cu > _scratch/old_q.cu``
@@ -34,6 +35,10 @@ batch-32 shapes of ``chip_smoke.py``:
 - ``--old-bsr`` (kernels B5/B6, ``bsr_matmul.cu``): ``bsr_matmul`` and
   ``bsr_matmul_gathered`` at x (512, 2**20) with the 512x512 87.5 % W,
   beside ``torch.mm(..., out_dtype=torch.float32)``.
+- ``--old-up`` (kernel B1, ``upsample_argmax.cu``): B1 at the serving
+  logits (32, 128, 256, 19) in bf16 and f32, the dense device fps at batch
+  32 (1024x2048, bf16) with each build, and ``torch.profiler``'s device time
+  per kernel name over one dense batch with each.
 
 An old copy whose entry point predates a change of its C interface (B2
 without ``steps``/``nsteps``/``bias``, B3 without the step lists and the
@@ -60,6 +65,7 @@ import torch
 from tpuseg_torch.ops import _build
 from tpuseg_torch.ops import bsr
 from tpuseg_torch.ops import sparse_conv as sc
+from tpuseg_torch.ops import upsample as up
 
 CONFIG = "optimal_configs/drn_d_22/drn_d_22_block128reg_87.50.json"
 MEAN = [0.290, 0.328, 0.287]
@@ -70,7 +76,9 @@ P32 = 32 * 128 * 256
 # per kernel: (source, C entry point, a parameter only the newer interface has)
 SOURCES = {"b2": ("sparse_conv.cu", "tpuseg_sparse_conv", "const void* nsteps"),
            "b3": ("sparse_conv_q.cu", "tpuseg_sparse_conv_q", "const void* nsteps"),
-           "bsr": ("bsr_matmul.cu", "tpuseg_bsr_matmul", "int nnzb")}
+           "bsr": ("bsr_matmul.cu", "tpuseg_bsr_matmul", "int nnzb"),
+           "up": ("upsample_argmax.cu", "tpuseg_upsample_argmax", "void* stream")}
+SERVING_LOGITS = (32, 128, 256, 19)
 
 
 def _emit(**kw) -> None:
@@ -181,6 +189,19 @@ def old_bsr(fn, newer: bool):
     return launch
 
 
+def old_up(fn, _newer: bool):
+    """A launcher with ``up._launch``'s signature on the old B1 copy (its C
+    interface is the new one's)."""
+    fn.argtypes = _build.load_library().tpuseg_upsample_argmax.argtypes
+
+    def launch(seg, ab, out):
+        n, h, w, c = seg.shape
+        return fn(seg.data_ptr(), out.data_ptr(), ab, n, h, w, c, up._DTYPE_CODE[seg.dtype],
+                  _stream(seg))
+
+    return launch
+
+
 def _quantize_plain(x, x_scale, chan=None):
     """The PyTorch quantize pass, with the channel map the kernels take."""
     return sc.quantize_activation_reference(
@@ -197,7 +218,8 @@ class Kernels:
 
         self.drn = drn
         self.new = {"b2": sc._launch_b2, "b3": sc._launch_b3, "bsr": bsr._launch,
-                    "quantize": sc.quantize_activation, "route": drn._sparse_conv_bias_bf16}
+                    "up": up._launch, "quantize": sc.quantize_activation,
+                    "route": drn._sparse_conv_bias_bf16}
         self.old = {}
         if "b2" in olds:
             self.old["b2"] = old_b2(*olds["b2"])
@@ -207,6 +229,8 @@ class Kernels:
                 self.old["quantize"] = _quantize_plain
         if "bsr" in olds:
             self.old["bsr"] = old_bsr(*olds["bsr"])
+        if "up" in olds:
+            self.old["up"] = old_up(*olds["up"])
         # plan kinds whose old kernel has no bf16+bias route
         self.no_route = tuple(
             kinds for kernel, kinds in (("b2", ("FusedSparseConv", "CompactSparse")),
@@ -217,6 +241,7 @@ class Kernels:
     def use(self, which: str) -> None:
         funcs = {**self.new, **(self.old if which == "old" else {})}
         sc._launch_b2, sc._launch_b3, bsr._launch = funcs["b2"], funcs["b3"], funcs["bsr"]
+        up._launch = funcs["up"]
         sc.quantize_activation = funcs["quantize"]
         skip = {k for kinds in self.no_route for k in kinds} if which == "old" else set()
         route = self.new["route"]
@@ -266,7 +291,7 @@ def _served():
 
 def _profile(seg, frames) -> dict:
     """Device ms per kernel name over one ``ids_for`` batch (after a warm
-    one), the 12 largest, and the total."""
+    one): the 12 largest, B1's, and the total."""
     seg.ids_for(frames)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -278,7 +303,8 @@ def _profile(seg, frames) -> dict:
     times = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
              if e.self_device_time_total > 0 and not e.key.startswith("aten::")}
     top = sorted(times.items(), key=lambda kv: -kv[1])[:12]
-    return {"total_ms": sum(times.values()), "top": [[k[:90], v] for k, v in top]}
+    return {"total_ms": sum(times.values()), "top": [[k[:90], v] for k, v in top],
+            "upsample_argmax": [[k[:90], v] for k, v in times.items() if "upsample_argmax" in k]}
 
 
 def _fps_turns(kernels: Kernels, segs: dict, fixed: dict | None = None) -> dict:
@@ -303,11 +329,13 @@ def main(argv=None) -> int:
     ap.add_argument("--old", help="the other commit's sparse_conv.cu (kernel B2)")
     ap.add_argument("--old-q", help="the other commit's sparse_conv_q.cu (kernel B3)")
     ap.add_argument("--old-bsr", help="the other commit's bsr_matmul.cu (kernels B5/B6)")
+    ap.add_argument("--old-up", help="the other commit's upsample_argmax.cu (kernel B1)")
     ap.add_argument("--skip-fps", action="store_true", help="kernel times only")
     args = ap.parse_args(argv)
-    copies = {k: v for k, v in (("b2", args.old), ("b3", args.old_q), ("bsr", args.old_bsr)) if v}
+    copies = {k: v for k, v in (("b2", args.old), ("b3", args.old_q), ("bsr", args.old_bsr),
+                                ("up", args.old_up)) if v}
     if not copies:
-        ap.error("give at least one of --old, --old-q, --old-bsr")
+        ap.error("give at least one of --old, --old-q, --old-bsr, --old-up")
     if not torch.cuda.is_available():
         print("ab_sparse_conv: no CUDA card", file=sys.stderr)
         return 1
@@ -326,8 +354,13 @@ def main(argv=None) -> int:
     kernels = Kernels(olds)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    params, masked, state, spec, folded, plans = _served()
-    bias = folded["layer.6.1.conv2.bias"].to(dev, torch.bfloat16)
+    if {"b2", "b3"} & set(olds):
+        params, masked, state, spec, folded, plans = _served()
+        bias = folded["layer.6.1.conv2.bias"].to(dev, torch.bfloat16)
+    else:
+        from tpuseg_torch.models.drnseg import init_drnseg
+
+        params, state, spec = init_drnseg(0, "drn_d_22", 19)
     x = torch.randn(BATCH32, generator=gen, device=dev, dtype=torch.bfloat16)
 
     def served_step(plan):
@@ -427,6 +460,18 @@ def main(argv=None) -> int:
         _emit(phase="b56", x=list(x.shape), w="512x512 BlockPruner 87.5 %",
               rowptr=bp.rowptr.tolist(), turns=turns, card=smi)
         del x
+    if "up" in olds:
+        # B1 at the serving logits, bf16 and f32
+        from tpuseg_torch.models.drnseg import bilinear_upsample_kernel
+
+        k = bilinear_upsample_kernel()
+        xb = torch.randn(SERVING_LOGITS, generator=gen, device=dev, dtype=torch.bfloat16)
+        xf = xb.float()
+        _emit(phase="b1", shape=list(SERVING_LOGITS),
+              turns=ab(kernels, {"b1_bf16": lambda: up.upsample_argmax(xb, k),
+                                 "b1_f32": lambda: up.upsample_argmax(xf, k)}, iters=20),
+              card=smi)
+        del xb, xf
     torch.cuda.empty_cache()
     if args.skip_fps:
         return 0
@@ -473,6 +518,22 @@ def main(argv=None) -> int:
             prof[which] = _profile(segs["dense"], frames)
         kernels.use("new")
         _emit(phase="int8_dense_profile", device_ms_by_kernel=prof, card=smi)
+        del segs
+        torch.cuda.empty_cache()
+    if "up" in olds:
+        # dense bf16 device fps at batch 32 with each B1 build, and one
+        # profiled dense batch with each
+        seg = VideoSegmenter(params, state, spec, MEAN, STD, device=dev,
+                             compute_dtype=torch.bfloat16, batch=32)
+        fps = _fps_turns(kernels, {"dense": seg})
+        _emit(phase="dense_device_fps", size=list(FULL), batch=32, device_fps=fps,
+              ids_for_ms={k: [32e3 / v for v in vs] for k, vs in fps.items()}, card=smi)
+        prof = {}
+        for which in ("old", "new"):
+            kernels.use(which)
+            prof[which] = _profile(seg, frames)
+        kernels.use("new")
+        _emit(phase="dense_profile", device_ms_by_kernel=prof, card=smi)
     return 0
 
 

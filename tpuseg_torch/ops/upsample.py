@@ -113,11 +113,20 @@ def _check_seg(seg: torch.Tensor) -> None:
         raise TypeError(f"seg must be float32 or bfloat16, got {seg.dtype}")
     if not seg.is_contiguous():
         raise ValueError("seg must be NHWC-contiguous")
-    n, h, w, c = seg.shape
+    c = seg.shape[3]
     if not 1 <= c <= MAX_CLASSES:
         raise ValueError(f"1..{MAX_CLASSES} classes supported, got {c}")
-    if seg.device.type == "cuda" and (8 * h > 65535 or n > 65535):
-        raise ValueError(f"grid limits: need 8*h <= 65535 and n <= 65535, got {seg.shape}")
+
+
+def _launch(seg: torch.Tensor, ab, out: torch.Tensor) -> int:
+    """Launch the kernel on the current stream; returns its cudaError_t."""
+    from tpuseg_torch.ops._build import load_library
+
+    n, h, w, c = seg.shape
+    with torch.cuda.device(seg.device):
+        stream = torch.cuda.current_stream(seg.device).cuda_stream
+        return load_library().tpuseg_upsample_argmax(
+            seg.data_ptr(), out.data_ptr(), ab, n, h, w, c, _DTYPE_CODE[seg.dtype], stream)
 
 
 def upsample_argmax(seg: torch.Tensor, up_kernel) -> torch.Tensor:
@@ -137,19 +146,13 @@ def upsample_argmax(seg: torch.Tensor, up_kernel) -> torch.Tensor:
         raise ValueError(f"unsupported device {seg.device}")
     from tpuseg_torch.ops._build import load_library
 
-    n, h, w, c = seg.shape
+    n, h, w, _ = seg.shape
     a, b = _phase_weights(_kernel_1d(_host_kernel(up_kernel)))
     ab = (ctypes.c_float * 16)(*np.concatenate([a, b]).astype(np.float32).tolist())
     out = torch.empty((n, STRIDE * h, STRIDE * w), dtype=torch.uint8, device=seg.device)
-    lib = load_library()
-    with torch.cuda.device(seg.device):
-        stream = torch.cuda.current_stream(seg.device).cuda_stream
-        err = lib.tpuseg_upsample_argmax(
-            seg.data_ptr(), out.data_ptr(), ab, n, h, w, c,
-            _DTYPE_CODE[seg.dtype], stream,
-        )
+    err = _launch(seg, ab, out)
     if err != 0:
-        msg = lib.tpuseg_cuda_error_string(err).decode()
+        msg = load_library().tpuseg_cuda_error_string(err).decode()
         raise RuntimeError(f"upsample_argmax kernel launch failed: {msg} ({err})")
     upsample_argmax.launches += 1
     return out
