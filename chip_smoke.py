@@ -2,8 +2,9 @@
 """On-card check of the PyTorch/CUDA port (``tpuseg_torch``): builds the CUDA
 kernels from ``tpuseg_torch/csrc/``, holds each against its plain PyTorch
 version, drives the served slices (DRN-D-22 DRNSeg, 19 classes, 1024x2048,
-dense and pruned, float and int8) through ``VideoSegmenter``, and times the
-kernels against their plain versions.
+dense and pruned, float and int8, with the int8 stem, with batched temporal
+reuse) through ``VideoSegmenter``, and times the kernels against their plain
+versions.
 
     python3 chip_smoke.py        # from the repo root, one CUDA card
 
@@ -93,13 +94,40 @@ Phases (any failed check raises and the exit code is non-zero):
      ``torch.mm(..., out_dtype=torch.float32)`` of the masked dense bf16 W,
      which writes the f32 y they write, beside the bf16-out
      ``torch.matmul``; for B7 the masked dense cuDNN conv), a yardstick the
-     port never calls.
+     port never calls;
+ 19. the int8 stem: B3's stem route (``fused_sparse_conv_q_bias_relu``,
+     epilogue relu(y + bias)) bit-equal to its plain version on the three
+     folded stem convs at the inputs a bf16 batch-32 run of the calibrated
+     int8-stem frontend gives them, f32 and bf16 out, per-frame and static
+     scales, and on -0.0 and NaN; the padded quantize pass (conv0's 48
+     channels to 128 through a channel map with -1) bit-equal; each conv's
+     route, plain version and bound beside cuDNN's bf16 conv + bias + ReLU;
+ 20. int8-stem f32 parity at 256x512 (per-frame scales): each stem conv's
+     CUDA output bit-equal to the CPU plain version on its activation, ids
+     >= INT8_PARITY_MIN, exact counts (B3 16, quantize 16, absmax 15 a
+     forward);
+ 21. bench.py's int8_stem mode (dense, calibrated): run() at batch 8 with
+     exact counts (B3 16 a forward, 3 of them the stem route, quantize 16,
+     absmax 0), ids against the int8 run without the stem >= INT8_STEM_MIN,
+     the device rate at batch 32, the frontend bf16 vs int8 stem in turns
+     and one profiled call of each;
+ 22. K3 (``frame_deltas``) bit-equal to its plain version on the 32 shapes
+     frames and 32 random full-size frames, timed against it and tpuseg's
+     expression in eager PyTorch; K4 (``budget_select``) equal to its plain
+     version under budget pressure, from n_keyed = 0, on ties;
+ 23. bench.py's sparse_int8_budget8 (block128reg_87.50, gathered, int8
+     calibrated, batch 32, K = 8, 64 shapes frames of seed 1, threshold
+     ``drift_threshold``): run() with exact counts (a batch: B3 13, B1 1,
+     K3 1, K4 1, B2 0), the promoted count equal to the CPU plain selection,
+     ``benchmark_adaptive_device_fps``;
+ 24. dense bf16 with temporal_interval=4: B1 once a batch, each frame's ids
+     its keyframe's, the device rate at batch 32.
 The line before the last is the kernels' JSON record (each kernel's time,
 its plain version's, its bound at the card's published peaks and the
 PyTorch call's, at its main shape; B3's time is its served route, the
-``quantize`` entry the quantize kernels' per-frame pass); the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
-prints no result.
+``quantize`` entry the quantize kernels' per-frame pass, the stem route's
+entry conv1 of the stem); the last line is ``{"ok": true, "device":
+{...}}``.  Without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -144,6 +172,14 @@ INT8_PARITY_MIN = 0.97
 # run at 1024x2048 reads about 0.89, so its floor is 0.85; a broken int8
 # conv reads far lower.
 INT8_FULL_MIN = {"dense": 0.9, "dense_calibrated": 0.9, "pallas": 0.85, "gathered": 0.85}
+# Phase 21's floor of int8-stem ids against the calibrated int8 run without
+# the stem.  tpuseg on the CPU on the same weights, bf16, calibrated on 8
+# shapes frames of seed 0 and served on them (scripts/int8_stem_agreement.py),
+# agreed on 0.9681 / 0.9399 / 0.9210 of the ids at 128x256 / 256x512 /
+# 512x1024 (f32: 0.9697 / 0.9395 at the first two); the agreement falls with
+# the frame size, so the floor leaves room for one more halving; a broken
+# stem conv reads far lower.
+INT8_STEM_MIN = 0.85
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense rates, at
 # the full 700 W): each kernel's bound is the larger of its bytes (each
 # input the function needs read once: the nonzero 128x128 weight tiles and
@@ -1085,6 +1121,503 @@ def _b1_vs_plain(torch, np, dev, rng, sym) -> int:
     return max_abs_err
 
 
+B3_STEM_PER_FORWARD = 3  # the three folded stem convs under --quantize-stem
+# bench.py:153-166's sparse_int8_budget8: batch 32, K = batch / 4, 64 shapes
+# frames of seed 1
+BUDGET_BATCH, BUDGET_K = 32, 8
+
+
+def _same_bits(torch, got, want) -> int:
+    """Mismatches of two f32 or bf16 tensors bit for bit, a NaN matching any
+    NaN (a NaN's payload is not part of the function)."""
+    iv = torch.int16 if want.dtype == torch.bfloat16 else torch.int32
+    nan = want.isnan()
+    return (int(((got.view(iv) != want.view(iv)) & ~nan).sum())
+            + int((got.isnan() != nan).sum()))
+
+
+def _record_stem(torch, log: list):
+    """Patch the frontend's stem route to record each call's arguments and
+    output; returns the function that undoes the patch."""
+    from tpuseg_torch.ops import polyphase as tpoly
+
+    orig = tpoly.fused_sparse_conv_q_bias_relu
+
+    def recording(x, plan, bias, out_dtype, chan=None):
+        y = orig(x, plan, bias, out_dtype, chan)
+        log.append((x.clone(), plan, bias, out_dtype, chan, y.clone()))
+        return y
+
+    tpoly.fused_sparse_conv_q_bias_relu = recording
+    return lambda: setattr(tpoly, "fused_sparse_conv_q_bias_relu", orig)
+
+
+def _profile_kernels(torch, fn) -> dict:
+    """Device ms per kernel name over one call of ``fn`` (after a warm one),
+    from ``torch.profiler``: the 10 largest and the total."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+             if e.self_device_time_total > 0 and not e.key.startswith("aten::")}
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
+    return {"total_ms": sum(times.values()), "top": [[k[:80], v] for k, v in top]}
+
+
+def _int8_stem_kernels(torch, np, dev, seg, frames_dev, smi) -> dict:
+    """Phase 19: B3's stem route (``fused_sparse_conv_q_bias_relu``) on the
+    three int8 stem convs at the inputs a bf16 batch-32 run of the
+    calibrated int8-stem frontend gives them (recorded), bit-equal to its
+    plain version (run on the card 8 frames at a time: the function is per
+    frame), f32 and bf16 out, per-frame and static scales; the relu on -0.0
+    and NaN; the padded quantize pass (conv0's 48 channels to 128 through the
+    channel map) bit-equal; then each conv's route, its plain version, its
+    bound and the cuDNN bf16 conv + bias + ReLU the bf16 frontend runs.
+    -> {"err", "convs": [...], "padded_quantize": {...}}."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from tpuseg_torch.ops import polyphase as tpoly
+    from tpuseg_torch.ops.quant import quantize_weight, stem_packing
+    from tpuseg_torch.ops.sparse_conv import (
+        fused_sparse_conv_q_bias_relu, fused_sparse_conv_q_bias_relu_reference,
+        quantize_activation, quantize_activation_reference, select_channels)
+
+    fe = seg.stem_fn
+    log = []
+    undo = _record_stem(torch, log)
+    try:
+        with torch.inference_mode():
+            fe(frames_dev)
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    assert len(log) == 3, len(log)
+
+    def plain(x, p, bias, dt, chan):
+        return torch.cat([fused_sparse_conv_q_bias_relu_reference(x[i:i + 8], p, bias, dt, chan)
+                          for i in range(0, x.shape[0], 8)])
+
+    convs = []
+    for i, (x, plan, bias, _, chan, _) in enumerate(log):
+        static = fe._stem_x_scale(i)
+        for dt in (torch.float32, torch.bfloat16):
+            for scale in (None, static):
+                p = dataclasses.replace(plan, x_scale=scale)
+                got = fused_sparse_conv_q_bias_relu(x, p, bias, dt, chan)
+                mism = _same_bits(torch, got, plain(x, p, bias, dt, chan))
+                _emit(phase="int8_stem_vs_plain", conv=i, shape=list(x.shape),
+                      out_dtype=str(dt), scale="per-frame" if scale is None else "static",
+                      live_steps=int(plan.nsteps.sum()), mismatches=mism)
+                if mism:
+                    raise AssertionError(f"stem conv {i}: the stem route differs from its plain "
+                                         f"version in {mism} values ({dt}, scale {scale})")
+                del got
+        torch.cuda.empty_cache()
+    # relu on -0.0 and NaN: a negative w_scale makes float(0) * sc = -0.0,
+    # a -0.0 bias keeps it, relu turns it into +0.0; a NaN bias stays NaN
+    rng = np.random.default_rng(19)
+    wq, ws = quantize_weight((rng.normal(size=(3, 3, 128, 128)) * 0.05).astype(np.float32))
+    zplan, _ = stem_packing("relu cases", wq, ws, 1, 1)
+    zplan = dataclasses.replace(zplan, x_scale=0.05, w_scale=-zplan.w_scale).to(dev)
+    x = torch.zeros((2, 6, 300, 128), device=dev)
+    x[0, 2, 7, 5] = 1.0
+    zb = torch.full((128,), -0.0, device=dev)
+    zb[3], zb[4] = float("nan"), 1.0
+    for dt in (torch.float32, torch.bfloat16):
+        got = fused_sparse_conv_q_bias_relu(x.to(dt), zplan, zb, dt)
+        want = fused_sparse_conv_q_bias_relu_reference(x.to(dt), zplan, zb, dt)
+        mism = _same_bits(torch, got, want)
+        neg0 = int((torch.signbit(got) & (got == 0)).sum())
+        _emit(phase="int8_stem_relu_cases", out_dtype=str(dt), mismatches=mism,
+              nan=int(got.isnan().sum()), negative_zeros=neg0, zeros=int((got == 0).sum()))
+        if mism or neg0 or not got.isnan().any():
+            raise AssertionError(f"the stem route's relu differs on -0.0/NaN ({dt}): {mism} "
+                                 f"mismatches, {neg0} negative zeros")
+    # the padded quantize pass on conv0's input
+    x0, chan0 = log[0][0], log[0][4]
+    for scale in (None, fe._stem_x_scale(0)):
+        xq, xs = quantize_activation(x0, scale, chan0)
+        xq_p, xs_p = quantize_activation_reference(select_channels(x0, chan0), scale)
+        same = torch.equal(xq, xq_p) and torch.equal(xs, xs_p)
+        _emit(phase="padded_quantize_vs_plain", shape=list(x0.shape), channels=chan0.numel(),
+              scale="per-frame" if scale is None else "static", bit_equal=same)
+        if not same:
+            raise AssertionError("the padded quantize pass differs from its plain version")
+        del xq, xq_p
+    s0 = fe._stem_x_scale(0)
+    pq_turns = _time_turns(torch, {
+        "kernel": lambda: quantize_activation(x0, s0, chan0),
+        "plain": lambda: quantize_activation_reference(select_channels(x0, chan0), s0),
+        "library": lambda: F.pad(x0, (0, chan0.numel() - x0.shape[3])),
+    }, {"kernel": 10, "plain": 3, "library": 10})
+    n0 = x0.shape[0]
+    pq_bound = _bound(x0.numel() * 2 + x0[..., 0].numel() * chan0.numel() + n0 * 4, x0.numel(),
+                      "f32")
+    padded = {"ms": min(pq_turns["kernel"]), "plain_ms": min(pq_turns["plain"]),
+              "pad_copy_ms": min(pq_turns["library"]), "bound_ms": pq_bound[0],
+              "bound_by": pq_bound[1]}
+    _emit(phase="padded_quantize_time", shape=list(x0.shape), scale="static", turns=pq_turns,
+          **padded, card=smi)
+    # each conv's served route (static scale) against cuDNN's bf16 conv + bias
+    # + ReLU, as the bf16 frontend runs it
+    for i, (x, plan, bias, _, chan, _) in enumerate(log):
+        p = dataclasses.replace(plan, x_scale=fe._stem_x_scale(i))
+        pd = dataclasses.replace(plan, x_scale=None)
+        wp, bias_bf16, plo, phi = fe.convs[i]
+        xn = tpoly.nhwc_to_nchw(x)
+        turns = _time_turns(torch, {
+            "route": lambda: fused_sparse_conv_q_bias_relu(x, p, bias, torch.bfloat16, chan),
+            "route_per_frame": lambda: fused_sparse_conv_q_bias_relu(x, pd, bias, torch.bfloat16,
+                                                                     chan),
+            "cudnn": lambda: F.relu_(tpoly._conv(xn, wp, bias_bf16, plo, phi)),
+        }, {"route": 10, "route_per_frame": 10, "cudnn": 10})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain(x, p, bias, torch.bfloat16, chan)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        n, h, w, cin = x.shape
+        kh, kw, _, cout = fe.q_convs[i][0].shape
+        # bytes: the bf16 x (its real channels) read once, the live int8
+        # tiles and the f32 bias, the bf16 y written once; operations: the
+        # folded conv's products (its real channels and taps)
+        bound = _bound(x.numel() * 2 + _live_tiles(plan.vals) * 128 * 128 + cout * 4
+                       + n * h * w * cout * 2, 2 * n * h * w * kh * kw * cin * cout, "int8")
+        row = {"conv": i, "shape": [n, h, w, cin], "kernel": [kh, kw], "cout": cout,
+               "ms": min(turns["route"]), "per_frame_ms": min(turns["route_per_frame"]),
+               "plain_ms": plain_ms, "library_ms": min(turns["cudnn"]),
+               "bound_ms": bound[0], "bound_by": bound[1]}
+        convs.append(row)
+        _emit(phase="int8_stem_time", turns=turns, **row, card=smi)
+    del log, x0
+    torch.cuda.empty_cache()
+    return {"err": 0.0, "convs": convs, "padded_quantize": padded}
+
+
+def _int8_stem_parity_f32(torch, np, params, state, spec, small) -> None:
+    """Phase 20: int8 serving with the int8 stem (per-frame stem scales) in
+    f32 on the card (TF32 off) and on the CPU at 256x512: each stem conv's
+    CUDA output bit-equal to the CPU plain version on the activation the
+    CUDA run gave it; ids agreement >= INT8_PARITY_MIN; the CUDA run's
+    counts (zeroed just before, read just after): B3 16 and quantize 16 a
+    forward, absmax 15 (conv0's scale is analytic)."""
+    from tpuseg_torch.ops.sparse_conv import (
+        fused_sparse_conv_apply_q, fused_sparse_conv_q_bias_relu, quantize_activation)
+    from tpuseg_torch.video.pipeline import VideoSegmenter
+
+    ids, log = {}, []
+    for name in ("cuda", "cpu"):
+        seg = VideoSegmenter(params, state, spec, MEAN, STD, device=name,
+                             compute_dtype=torch.float32, batch=2, quantize=True,
+                             quantize_stem=True)
+        undo = _record_stem(torch, log) if name == "cuda" else (lambda: None)
+        torch.cuda.synchronize()
+        fused_sparse_conv_apply_q.launches = 0
+        quantize_activation.launches = quantize_activation.absmax_launches = 0
+        try:
+            ids[name] = seg.run(small, need_color=False)["ids"]
+        finally:
+            undo()
+        if name == "cuda":
+            torch.cuda.synchronize()
+            counts = {"b3": fused_sparse_conv_apply_q.launches,
+                      "quantize": quantize_activation.launches,
+                      "absmax": quantize_activation.absmax_launches}
+    checked = 0
+    for x, plan, bias, dt, chan, y in log:
+        want = fused_sparse_conv_q_bias_relu(x.cpu(), plan.to("cpu"), bias.cpu(), dt,
+                                             None if chan is None else chan.cpu())
+        if _same_bits(torch, y.cpu(), want):
+            raise AssertionError("int8 stem conv: CUDA output differs from the CPU plain "
+                                 "version on the same activation")
+        checked += 1
+    agree = _agreement(ids["cuda"], ids["cpu"])
+    per_forward = B3_PER_FORWARD["dense"] + B3_STEM_PER_FORWARD
+    want = {"b3": 2 * per_forward, "quantize": 2 * per_forward,  # run()'s untimed call + 1
+            "absmax": 2 * (per_forward - 1)}
+    _emit(phase="int8_stem_parity_f32", tf32=False, size=list(small[0].shape[:2]),
+          frames=len(small), stem_conv_calls_bit_equal=checked, ids_agreement=agree,
+          limit=INT8_PARITY_MIN, launches=counts, want=want)
+    if checked != 2 * B3_STEM_PER_FORWARD or counts != want:
+        raise AssertionError(f"{checked} stem conv calls recorded; launches {counts}, "
+                             f"want {want}")
+    if agree < INT8_PARITY_MIN:
+        raise AssertionError(f"int8 stem f32 CUDA vs CPU ids agreement {agree} < "
+                             f"{INT8_PARITY_MIN}")
+
+
+def _int8_stem_full(torch, np, dev, params, state, spec, frames, no_stem_ids, bench_seg,
+                    frames_dev, smi) -> dict:
+    """Phase 21: bench.py's int8_stem mode (dense, quantize + quantize_stem,
+    calibrated on the first 8 frames): run() at batch 8 with every count
+    zeroed just before and read just after; ids agreement with the int8 run
+    without the stem; the device rate at batch 32; the frontend's time, bf16
+    against the int8 stem, in turns, and one profiled call of each.
+    -> launches and numbers."""
+    from tpuseg_torch.ops.sparse_conv import (
+        fused_sparse_conv_apply, fused_sparse_conv_apply_q, fused_sparse_conv_q_bias_relu,
+        quantize_activation)
+    from tpuseg_torch.ops.upsample import upsample_argmax
+    from tpuseg_torch.video.pipeline import VideoSegmenter
+
+    serve = VideoSegmenter(params, state, spec, MEAN, STD, device=dev,
+                           compute_dtype=torch.bfloat16, batch=8, quantize=True,
+                           quantize_stem=True, calib_frames=frames[:8])
+    if serve.stem_fn.stem_x_scales is None or len(serve.exec_plans) != 13:
+        raise AssertionError("int8 stem segmenter not calibrated")
+    forwards = 1 + -(-len(frames) // 8)
+    torch.cuda.synchronize()
+    for f in (fused_sparse_conv_apply_q, fused_sparse_conv_q_bias_relu, fused_sparse_conv_apply,
+              upsample_argmax):
+        f.launches = 0
+    quantize_activation.launches = quantize_activation.absmax_launches = 0
+    res = serve.run(frames, need_color=False)
+    torch.cuda.synchronize()
+    got = {"b3": fused_sparse_conv_apply_q.launches,
+           "b3_stem": fused_sparse_conv_q_bias_relu.launches,
+           "quantize": quantize_activation.launches,
+           "absmax": quantize_activation.absmax_launches,
+           "b2": fused_sparse_conv_apply.launches, "upsample_argmax": upsample_argmax.launches}
+    want = {"b3": (B3_PER_FORWARD["dense"] + B3_STEM_PER_FORWARD) * forwards,
+            "b3_stem": B3_STEM_PER_FORWARD * forwards,
+            "quantize": (B3_PER_FORWARD["dense"] + B3_STEM_PER_FORWARD) * forwards,
+            "absmax": 0, "b2": 0, "upsample_argmax": forwards}
+    out = res["ids"]
+    assert out.shape == (len(frames),) + FULL and out.dtype == np.uint8, (out.shape, out.dtype)
+    assert int(out.max()) < CLASSES
+    agree = _agreement(out, no_stem_ids)
+    del serve
+    torch.cuda.empty_cache()
+    fps = bench_seg.benchmark_device_fps(FULL, inner=16, reps=2)
+    bf16_fe = VideoSegmenter(params, state, spec, MEAN, STD, device=dev,
+                             compute_dtype=torch.bfloat16, batch=32).stem_fn
+    with torch.inference_mode():
+        turns = _time_turns(torch, {"bf16": lambda: bf16_fe(frames_dev),
+                                    "int8_stem": lambda: bench_seg.stem_fn(frames_dev)},
+                            {"bf16": 5, "int8_stem": 5})
+        prof = {"bf16": _profile_kernels(torch, lambda: bf16_fe(frames_dev)),
+                "int8_stem": _profile_kernels(torch, lambda: bench_seg.stem_fn(frames_dev))}
+    row = {"launches": got, "want": want, "run_fps": res["fps"], "ids_agreement": agree,
+           "device_fps": fps, "frontend_bf16_ms": min(turns["bf16"]),
+           "frontend_int8_stem_ms": min(turns["int8_stem"])}
+    _emit(phase="int8_stem_full", size=list(FULL), dtype="bfloat16", batch=8,
+          frames=res["frames"], agreement_with="int8 without the stem (calibrated)",
+          limit=INT8_STEM_MIN, frontend_turns=turns, frontend_profile=prof, device_fps_batch=32,
+          **row, card=smi)
+    if got != want:
+        raise AssertionError(f"int8 stem run launches {got}; want {want}")
+    if agree < INT8_STEM_MIN:
+        raise AssertionError(f"int8 stem vs int8 ids agreement {agree} < {INT8_STEM_MIN}")
+    return row
+
+
+def _temporal_kernels(torch, np, dev, frames, smi) -> dict:
+    """Phase 22: K3 (``frame_deltas``) bit-equal to its plain version on the
+    32 shapes frames and on 32 random 1024x2048 frames, then timed against
+    it and against tpuseg's expression in eager PyTorch; K4
+    (``budget_select``) equal to its plain version on random deltas under
+    budget pressure, from n_keyed = 0, and on ties with the threshold."""
+    from tpuseg_torch.ops.temporal import (
+        budget_select, budget_select_reference, frame_deltas, frame_deltas_reference)
+
+    h, w = FULL
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    batches = {
+        "shapes": torch.from_numpy(np.stack(frames).reshape(len(frames), h, -1)).to(dev),
+        "random": torch.randint(0, 256, (32, h, w * 3), generator=gen, device=dev,
+                                dtype=torch.uint8),
+    }
+    prev = torch.randint(0, 256, (h, w * 3), generator=gen, device=dev, dtype=torch.uint8)
+    for label, fb in batches.items():
+        got, want = frame_deltas(fb, prev), frame_deltas_reference(fb, prev)
+        same = torch.equal(got, want)
+        _emit(phase="k3_vs_plain", frames=label, shape=list(fb.shape), bit_equal=same,
+              d_first=got[:3].tolist())
+        if not same:
+            raise AssertionError(f"K3 differs from its plain version on {label} frames")
+    fb = batches["random"]
+
+    def eager():  # tpuseg's expression (pipeline.py:670-678) in eager PyTorch
+        prevs = torch.cat([prev[None], fb[:-1]])
+        return torch.mean(torch.abs(fb.to(torch.int16) - prevs.to(torch.int16)).float(),
+                          dim=(1, 2))
+
+    turns = _time_turns(torch, {"kernel": lambda: frame_deltas(fb, prev),
+                                "plain": lambda: frame_deltas_reference(fb, prev),
+                                "library": eager},
+                        {"kernel": 20, "plain": 5, "library": 5})
+    # bytes: every frame and the carried one read once, d written; one
+    # |difference| an element at the CUDA cores' rate
+    k3_bound = _bound((fb.shape[0] + 1) * prev.numel() + fb.shape[0] * 4, fb.numel(), "f32")
+    k3 = {"ms": min(turns["kernel"]), "plain_ms": min(turns["plain"]),
+          "library_ms": min(turns["library"]), "bound_ms": k3_bound[0], "bound_by": k3_bound[1]}
+    _emit(phase="k3_time", shape=list(fb.shape), turns=turns, **k3, card=smi)
+    rng = np.random.default_rng(22)
+    cases = [  # (label, d, acc0, n_keyed, thresh, K)
+        ("budget pressure", rng.random(32) * 6, 0.7, 3, 2.5, 8),
+        ("n_keyed = 0", rng.random(32) * 0.5, 0.0, 0, 2.5, 8),
+        ("ties with thresh", np.tile([0.5, 1.0, 0.5], 11)[:32], 0.0, 1, 2.0, 8),
+        ("budget 1", rng.random(32) * 6, 0.0, 0, 1.0, 1),
+        ("budget = batch", rng.random(32) * 6, 0.0, 0, 1.0, 32),
+    ]
+    for label, d_np, acc, n, thresh, k in cases:
+        d = torch.from_numpy(d_np.astype(np.float32)).to(dev)
+        a = torch.tensor([acc], dtype=torch.float32, device=dev)
+        nk = torch.tensor([n], dtype=torch.int32, device=dev)
+        got, want = budget_select(d, a, nk, thresh, k), budget_select_reference(d, a, nk, thresh, k)
+        same = all(torch.equal(g, r) for g, r in zip(got, want))
+        _emit(phase="k4_vs_plain", case=label, budget=k, promoted=int(want[0].sum()),
+              equal=same)
+        if not same:
+            raise AssertionError(f"K4 differs from its plain version ({label})")
+    d = torch.from_numpy((rng.random(32) * 6).astype(np.float32)).to(dev)
+    a = torch.zeros((1,), device=dev)
+    nk = torch.zeros((1,), dtype=torch.int32, device=dev)
+    turns = _time_turns(torch, {"kernel": lambda: budget_select(d, a, nk, 2.5, 8),
+                                "plain": lambda: budget_select_reference(d, a, nk, 2.5, 8)},
+                        {"kernel": 50, "plain": 10})
+    # bytes: d, the carry and the outputs (flags, fwd_idx, keyslot, carry)
+    k4_bound = _bound(32 * 4 + 8 + 32 + 8 * 4 + 32 * 4 + 8, 32 * 4, "f32")
+    k4 = {"ms": min(turns["kernel"]), "plain_ms": min(turns["plain"]), "library_ms": None,
+          "bound_ms": k4_bound[0], "bound_by": k4_bound[1]}
+    _emit(phase="k4_time", batch=32, budget=8, turns=turns, **k4, card=smi)
+    del batches, fb
+    torch.cuda.empty_cache()
+    return {"frame_deltas": k3, "budget_select": k4}
+
+
+def _budget_inputs() -> dict:
+    """Phase 23's host-side inputs, made in a worker process while the card
+    runs phases 19 and 20 (they take about 40 s of CPU; phase 19 times only
+    kernels of milliseconds, which a busy host core does not hold back, as
+    it does the launch-bound gathered lowering and run()): the 64 shapes
+    frames of seed 1 at full size, ``drift_threshold`` of them, and the CPU
+    plain selection over them (K3 and K4's plain versions, batch 32, from a
+    fresh carry): the promoted count run() must match."""
+    import numpy as np
+    import torch
+
+    from tpuseg_torch.data.shapes import shapes_video
+    from tpuseg_torch.ops.temporal import budget_select_reference, frame_deltas_reference
+    from tpuseg_torch.video.autotune import drift_threshold
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    frames = shapes_video(2 * BUDGET_BATCH, FULL, seed=1)[0]
+    gen_s = time.perf_counter() - t0
+    thresh, mean_delta = drift_threshold(list(frames))
+    prev = torch.zeros(FULL[0], FULL[1] * 3, dtype=torch.uint8)
+    acc, nk, promoted = torch.zeros(1), torch.zeros(1, dtype=torch.int32), 0
+    for i in range(0, len(frames), BUDGET_BATCH):
+        fb = torch.from_numpy(np.ascontiguousarray(frames[i:i + BUDGET_BATCH])).reshape(
+            BUDGET_BATCH, FULL[0], -1)
+        flags, _, _, acc, nk = budget_select_reference(frame_deltas_reference(fb, prev), acc,
+                                                       nk, thresh, BUDGET_K)
+        promoted += int(flags.sum())
+        prev = fb[-1]
+    return {"frames": frames, "thresh": thresh, "mean_delta": mean_delta,
+            "promoted_cpu": promoted, "frame_gen_seconds": gen_s,
+            "worker_seconds": time.perf_counter() - t0}
+
+
+def _budget_full(torch, np, dev, masked, state, spec, gplans, calib, inputs, smi) -> dict:
+    """Phase 23: bench.py:153-166's sparse_int8_budget8 (block128reg_87.50
+    under the gathered lowering, int8 calibrated on 8 frames, batch 32,
+    K = 8, threshold ``drift_threshold`` of 64 shapes frames of seed 1;
+    ``inputs`` from ``_budget_inputs``): run() with every count zeroed just
+    before and read just after (per batch B3 13, B1 1, K3 1, K4 1, B2 0), its
+    promoted count equal to the CPU plain selection on the same frames, then
+    ``benchmark_adaptive_device_fps`` on them."""
+    from tpuseg_torch.ops.sparse_conv import (
+        fused_sparse_conv_apply, fused_sparse_conv_apply_q, quantize_activation)
+    from tpuseg_torch.ops.temporal import budget_select, frame_deltas
+    from tpuseg_torch.ops.upsample import upsample_argmax
+    from tpuseg_torch.video.pipeline import VideoSegmenter
+
+    frames, thresh = list(inputs["frames"]), inputs["thresh"]
+    promoted_cpu = inputs["promoted_cpu"]
+    seg = VideoSegmenter(masked, state, spec, MEAN, STD, device=dev, compute_dtype=torch.bfloat16,
+                         batch=BUDGET_BATCH, exec_plans=gplans, quantize=True, calib_frames=calib,
+                         temporal_thresh=thresh, temporal_budget=BUDGET_K)
+    counters = (fused_sparse_conv_apply_q, fused_sparse_conv_apply, upsample_argmax,
+                frame_deltas, budget_select)
+    torch.cuda.synchronize()
+    for f in counters:
+        f.launches = 0
+    quantize_activation.launches = quantize_activation.absmax_launches = 0
+    res = seg.run(frames, need_color=False)
+    torch.cuda.synchronize()
+    got = {f.__name__: f.launches for f in counters}
+    got["quantize_activation"] = quantize_activation.launches
+    got["absmax"] = quantize_activation.absmax_launches
+    forwards = 1 + len(frames) // BUDGET_BATCH  # run()'s untimed call + the batches
+    want = {"fused_sparse_conv_apply_q": B3_PER_FORWARD["gathered"] * forwards,
+            "fused_sparse_conv_apply": 0, "upsample_argmax": forwards,
+            "frame_deltas": forwards, "budget_select": forwards,
+            "quantize_activation": B3_PER_FORWARD["gathered"] * forwards, "absmax": 0}
+    out = res["ids"]
+    assert out.shape == (len(frames),) + FULL and out.dtype == np.uint8, (out.shape, out.dtype)
+    assert int(out.max()) < CLASSES
+    dev_res = seg.benchmark_adaptive_device_fps(frames)
+    row = {"launches": got, "want": want, "promoted": res["promoted"],
+           "promoted_cpu": promoted_cpu, "promotion_rate": res["promotion_rate"],
+           "run_fps": res["fps"], "device_fps": dev_res["device_fps"],
+           "device_promotion_rate": dev_res["promotion_rate"]}
+    _emit(phase="budget_full", config=SERVED_CONFIG, lowering="gathered", size=list(FULL),
+          dtype="bfloat16", batch=BUDGET_BATCH, budget=BUDGET_K, frames=len(frames),
+          thresh=thresh, mean_delta=inputs["mean_delta"],
+          frame_gen_seconds=round(inputs["frame_gen_seconds"], 3),
+          worker_seconds=round(inputs["worker_seconds"], 3), **row, card=smi)
+    if got != want:
+        raise AssertionError(f"budget run launches {got}; want {want}")
+    if res["promoted"] != promoted_cpu or dev_res["promotion_rate"] != promoted_cpu / len(frames):
+        raise AssertionError(f"promoted {res['promoted']} (device rate "
+                             f"{dev_res['promotion_rate']}); the CPU selection {promoted_cpu}")
+    del seg
+    torch.cuda.empty_cache()
+    return row
+
+
+def _interval_full(torch, np, dev, params, state, spec, frames, smi) -> dict:
+    """Phase 24: dense bf16 with temporal_interval=4 at full size: run() at
+    batch 8 launches B1 once a batch (counts zeroed just before, read just
+    after) and each frame's ids are its keyframe's; the device rate at batch
+    32."""
+    from tpuseg_torch.ops.upsample import upsample_argmax
+    from tpuseg_torch.video.pipeline import VideoSegmenter
+
+    seg = VideoSegmenter(params, state, spec, MEAN, STD, device=dev, compute_dtype=torch.bfloat16,
+                         batch=8, temporal_interval=4)
+    torch.cuda.synchronize()
+    upsample_argmax.launches = 0
+    res = seg.run(frames, need_color=False)
+    torch.cuda.synchronize()
+    launches, forwards = upsample_argmax.launches, 1 + -(-len(frames) // 8)
+    ids = res["ids"]
+    keyed = all(np.array_equal(ids[i], ids[i - i % 4]) for i in range(len(ids)))
+    distinct = len({ids[i].tobytes() for i in range(0, len(ids), 4)})
+    del seg
+    bench = VideoSegmenter(params, state, spec, MEAN, STD, device=dev,
+                           compute_dtype=torch.bfloat16, batch=32, temporal_interval=4)
+    fps = bench.benchmark_device_fps(FULL, inner=16, reps=2)
+    del bench
+    torch.cuda.empty_cache()
+    row = {"upsample_launches": launches, "want": forwards, "ids_keyed": keyed,
+           "distinct_keyframe_ids": distinct, "run_fps": res["fps"], "device_fps": fps}
+    _emit(phase="interval_full", size=list(FULL), dtype="bfloat16", batch=8, interval=4,
+          frames=res["frames"], device_fps_batch=32, **row, card=smi)
+    if launches != forwards or not keyed or ids.shape != (len(frames),) + FULL:
+        raise AssertionError(f"interval run: B1 {launches} launches (want {forwards}), "
+                             f"ids keyed {keyed}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -1094,12 +1627,7 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from tpuseg_torch.data.shapes import shapes_video
-    from tpuseg_torch.models.drnseg import bilinear_upsample_kernel, init_drnseg
     from tpuseg_torch.ops import _build
-    from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_apply, quantize_activation
-    from tpuseg_torch.ops.upsample import upsample_argmax, upsample_argmax_reference
-    from tpuseg_torch.video.pipeline import SyntheticFrames, VideoSegmenter
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -1121,6 +1649,26 @@ def main() -> int:
     _emit(phase="build", seconds=round(build_s, 3), library=lib_path.split("/")[-1],
           ptxas=[ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "Compiling entry" in ln])
+    # the worker process that makes phase 23's inputs during phases 19-20
+    import multiprocessing
+
+    worker = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        return _phases(torch, np, dev, t_start, smi, kind, worker)
+    finally:
+        worker.terminate()
+        worker.join()
+
+
+def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
+    """Phases 2-24 and the closing lines (``main`` builds, then runs these
+    with the worker process that makes phase 23's inputs)."""
+    from tpuseg_torch.data.shapes import shapes_video
+    from tpuseg_torch.models.drnseg import bilinear_upsample_kernel, init_drnseg
+    from tpuseg_torch.ops import _build
+    from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_apply, quantize_activation
+    from tpuseg_torch.ops.upsample import upsample_argmax, upsample_argmax_reference
+    from tpuseg_torch.video.pipeline import SyntheticFrames, VideoSegmenter
 
     # 2. kernel vs plain on the card: bit-equal ids
     rng = np.random.default_rng(0)
@@ -1459,6 +2007,29 @@ def main() -> int:
     # 18. times at the batch-32 shapes
     s4_times = _slice4_times(torch, np, dev, smi)
 
+    # 19-21. the int8 stem: B3's stem route and the padded quantize pass on
+    # recorded inputs, f32 parity, bench.py's int8_stem mode; during 19 and
+    # 20 the worker makes phase 23's frames and CPU selection
+    budget_inputs = worker.apply_async(_budget_inputs)
+    frames_dev = torch.from_numpy(np.stack(frames).reshape(len(frames), FULL[0], -1)).to(dev)
+    stem_seg = VideoSegmenter(params, state, spec, MEAN, STD, device=dev,
+                              compute_dtype=torch.bfloat16, batch=32, quantize=True,
+                              quantize_stem=True, calib_frames=frames[:8])
+    stem_k = _int8_stem_kernels(torch, np, dev, stem_seg, frames_dev, smi)
+    _int8_stem_parity_f32(torch, np, params, state, spec, small)
+    inputs = budget_inputs.get(timeout=900)
+    worker.close()
+    stem_full = _int8_stem_full(torch, np, dev, params, state, spec, frames,
+                                int8_ids["dense_calibrated"], stem_seg, frames_dev, smi)
+    del stem_seg, frames_dev
+    torch.cuda.empty_cache()
+    # 22-24. batched temporal serving: K3 and K4, bench.py's
+    # sparse_int8_budget8, interval mode
+    temporal_k = _temporal_kernels(torch, np, dev, frames, smi)
+    budget = _budget_full(torch, np, dev, masked, state, spec, gplans, frames[:8], inputs, smi)
+    del inputs
+    _interval_full(torch, np, dev, params, state, spec, frames, smi)
+
     _emit(phase="total", seconds=round(time.perf_counter() - t_start, 1))
     sc_src, b2_src = "tpuseg/ops/sparse_conv.py", "tpuseg_torch/csrc/sparse_conv.cu"
 
@@ -1471,6 +2042,16 @@ def main() -> int:
         t = s4_times[name]
         return entry(name, source, replaces, s4_launches[name], err, t["ms"], t["plain_ms"],
                      (t["bound_ms"], t["bound_by"]), t["library_ms"])
+
+    def timed(name, source, replaces, launched, t):
+        return entry(name, source, replaces, launched, 0.0, t["ms"], t["plain_ms"],
+                     (t["bound_ms"], t["bound_by"]), t["library_ms"])
+
+    # B3 and the quantize kernels: the four int8 runs, the int8-stem run and
+    # the budgeted run
+    b3_launches += stem_full["launches"]["b3"] + budget["launches"]["fused_sparse_conv_apply_q"]
+    q_launches += stem_full["launches"]["quantize"] + budget["launches"]["quantize_activation"]
+    stem_conv1 = stem_k["convs"][1]  # the stem route's main shape: the 256->256 conv
 
     kernels = [
         entry("upsample_argmax", "tpuseg_torch/csrc/upsample_argmax.cu",
@@ -1488,7 +2069,15 @@ def main() -> int:
         s4("bsr_matmul_gathered", "tpuseg_torch/csrc/bsr_matmul.cu", "tpuseg/ops/bsr.py:187",
            b56_err["bsr_matmul_gathered"]),
     ] + [s4(name, b2_src, f"{sc_src}:{line}", b7_err[name])
-         for name, (_, _, line) in B7_ENTRIES.items()]
+         for name, (_, _, line) in B7_ENTRIES.items()] + [
+        timed("sparse_conv_q_stem", "tpuseg_torch/csrc/sparse_conv_q.cu",
+              "tpuseg/ops/polyphase.py:349-359", stem_full["launches"]["b3_stem"], stem_conv1),
+        timed("frame_deltas", "tpuseg_torch/csrc/temporal.cu", "tpuseg/video/pipeline.py:670-678",
+              budget["launches"]["frame_deltas"], temporal_k["frame_deltas"]),
+        timed("budget_select", "tpuseg_torch/csrc/temporal.cu",
+              "tpuseg/video/pipeline.py:680-704", budget["launches"]["budget_select"],
+              temporal_k["budget_select"]),
+    ]
     bad = [k["name"] for k in kernels if not k["launches"] > 0]
     if bad:
         raise AssertionError(f"kernels never launched on their path: {bad}")

@@ -10,7 +10,11 @@
 //
 // x is (N, P, Cx) bf16 or f32, channels innermost; chan (Cq,) int32 picks the
 // channels to quantize (CompactSparseQ's live channels), or is null for all
-// of them (Cq = Cx); xq is (N, P, Cq) int8.  Both divisions are IEEE
+// of them (Cq = Cx); a negative entry of chan reads as 0, so chan = [0..47] +
+// [-1] x 80 writes the int8 stem's conv0 operand, its 48 channels padded to
+// the 128 that B3 takes, in this one pass (the padded bf16 copy is never
+// made; a zero changes neither the absmax nor any other element's xq); xq is
+// (N, P, Cq) int8.  Both divisions are IEEE
 // (__fdiv_rn), as PyTorch's division by a tensor is: a reciprocal multiply
 // differs in the last bit.
 //
@@ -83,7 +87,10 @@ __device__ __forceinline__ void load8<__nv_bfloat16, true>(const __nv_bfloat16* 
   const int c = (v - p * cq8) * kVec;
   const __nv_bfloat16* px = frame + static_cast<long long>(p) * cx;
 #pragma unroll
-  for (int i = 0; i < kVec; ++i) f[i] = to_f32(px[__ldg(chan + c + i)]);
+  for (int i = 0; i < kVec; ++i) {
+    const int ch = __ldg(chan + c + i);
+    f[i] = ch < 0 ? 0.0f : to_f32(px[ch]);
+  }
 }
 
 template <>
@@ -94,7 +101,10 @@ __device__ __forceinline__ void load8<float, true>(const float* __restrict__ fra
   const int c = (v - p * cq8) * kVec;
   const float* px = frame + static_cast<long long>(p) * cx;
 #pragma unroll
-  for (int i = 0; i < kVec; ++i) f[i] = __ldg(px + __ldg(chan + c + i));
+  for (int i = 0; i < kVec; ++i) {
+    const int ch = __ldg(chan + c + i);
+    f[i] = ch < 0 ? 0.0f : __ldg(px + ch);
+  }
 }
 
 struct Shape {
@@ -197,7 +207,7 @@ bool aligned(const void* p, uintptr_t a) { return (reinterpret_cast<uintptr_t>(p
 
 }  // namespace
 
-// x (n, pixels, cx) f32 (dtype 0) or bf16 (1); chan (cq,) int32 or null;
+// x (n, pixels, cx) f32 (dtype 0) or bf16 (1); chan (cq,) int32 (negative: 0) or null;
 // absmax (n,) uint32, zeroed by the caller: absmax[f] = max over the frame's
 // (mapped) elements of the bits of |x|.
 extern "C" int tpuseg_absmax(const void* x, const void* chan, void* absmax, int n,

@@ -16,9 +16,13 @@
 // and the bf16 bytes that often) and passes the N per-frame scales as a
 // device array.  |acc| <= 127^2 * k*k*S*128, below 2^31 for every packing the
 // wrapper admits, so the int32 sum is exact and y is bit-equal to an exact
-// plain version.  For the served bf16 path the kernel can instead write
-// bf16(float(bf16(y)) + float(bias[o])), each step rounded to nearest even:
-// the cast-then-bias order of tpuseg's served convs.
+// plain version.  The epilogue has four modes: 0 writes the f32 y; 1, for the
+// served bf16 path, bf16(float(bf16(y)) + float(bias[o])) with a bf16 bias,
+// each step rounded to nearest even (the cast-then-bias order of tpuseg's
+// served convs); 2 and 3, for the int8 stem (tpuseg/ops/polyphase.py:357-359),
+// relu(y + bias[o]) with an f32 bias, the add rounded on its own and relu as
+// tpuseg's jnp.maximum(v, 0) (-0.0 becomes +0.0, a NaN stays), written as f32
+// (2) or rounded once to bf16 (3).
 //
 // Zero tiles are skipped, as in sparse_conv.cu: each packing carries, per
 // out-block, its live (tap, slot) steps t*S + s (`steps`, the nonzero int8
@@ -111,14 +115,26 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, u
 }
 #undef TPUSEG_R8
 
-// Write one m64 accumulator (rows r, r + 8 of the warp's 16) of a tile:
-// float(acc) * sc as f32, or as bf16 with the bias added after the cast (no
-// add without a bias: +0.0 would turn -0.0 into +0.0).  sc[2j + e] and
-// bv[2j + e] belong to column col + 8j + e.
+// epilogue modes (the C entry's `mode`)
+constexpr int kF32 = 0;        // float(acc) * sc
+constexpr int kBf16Bias = 1;   // bf16(float(bf16(y)) + bias), bias bf16 or none
+constexpr int kReluF32 = 2;    // relu(y + bias), bias f32
+constexpr int kReluBf16 = 3;   // bf16(relu(y + bias)), bias f32
+
+// tpuseg's relu(v) = jnp.maximum(v, 0) on v = y + b: -0.0 gives +0.0, a NaN
+// stays a NaN (fmaxf would return 0 for it)
+__device__ __forceinline__ float relu_add(float y, float b) {
+  const float v = __fadd_rn(y, b);
+  return v <= 0.0f ? 0.0f : v;
+}
+
+// Write one m64 accumulator (rows r, r + 8 of the warp's 16) of a tile in
+// epilogue mode kMode (no add without a bias in mode 1: +0.0 would turn -0.0
+// into +0.0).  sc[2j + e] and bv[2j + e] belong to column col + 8j + e.
+template <int kMode>
 __device__ __forceinline__ void store_acc(const int (&d)[64], int r, int valid, long long pix0,
                                           int cout, int col, const float (&sc)[32],
-                                          const float (&bv)[32], void* out, bool bf16_out,
-                                          bool has_bias) {
+                                          const float (&bv)[32], void* out, bool has_bias) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int rr = r + 8 * half;
@@ -126,9 +142,13 @@ __device__ __forceinline__ void store_acc(const int (&d)[64], int r, int valid, 
     const long long base = (pix0 + rr) * cout + col;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      const float y0 = __fmul_rn(__int2float_rn(d[j * 4 + 2 * half]), sc[2 * j]);
-      const float y1 = __fmul_rn(__int2float_rn(d[j * 4 + 2 * half + 1]), sc[2 * j + 1]);
-      if (bf16_out) {
+      float y0 = __fmul_rn(__int2float_rn(d[j * 4 + 2 * half]), sc[2 * j]);
+      float y1 = __fmul_rn(__int2float_rn(d[j * 4 + 2 * half + 1]), sc[2 * j + 1]);
+      if (kMode == kReluF32 || kMode == kReluBf16) {
+        y0 = relu_add(y0, bv[2 * j]);
+        y1 = relu_add(y1, bv[2 * j + 1]);
+      }
+      if (kMode == kBf16Bias) {
         __nv_bfloat16 b0 = __float2bfloat16_rn(y0);
         __nv_bfloat16 b1 = __float2bfloat16_rn(y1);
         if (has_bias) {
@@ -137,6 +157,9 @@ __device__ __forceinline__ void store_acc(const int (&d)[64], int r, int valid, 
         }
         *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + base + j * 8) =
             __halves2bfloat162(b0, b1);
+      } else if (kMode == kReluBf16) {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + base + j * 8) =
+            __halves2bfloat162(__float2bfloat16_rn(y0), __float2bfloat16_rn(y1));
       } else {
         *reinterpret_cast<float2*>(static_cast<float*>(out) + base + j * 8) =
             make_float2(y0, y1);
@@ -145,13 +168,24 @@ __device__ __forceinline__ void store_acc(const int (&d)[64], int r, int valid, 
   }
 }
 
+// Both m64 accumulators of a consumer warpgroup's 128 pixels
+template <int kMode>
+__device__ __forceinline__ void store_tile(const int (&acc0)[64], const int (&acc1)[64], int r,
+                                           int valid, long long pix0, int cout, int col,
+                                           const float (&sc)[32], const float (&bv)[32],
+                                           void* out, bool has_bias) {
+  store_acc<kMode>(acc0, r, valid, pix0, cout, col, sc, bv, out, has_bias);
+  store_acc<kMode>(acc1, r + 64, valid, pix0, cout, col, sc, bv, out, has_bias);
+}
+
+// one instance per epilogue mode, so each carries only its own epilogue code
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
 sparse_conv_q_kernel(const __grid_constant__ CUtensorMap xmap,
                      const __grid_constant__ CUtensorMap vmap, const int* __restrict__ rows,
                      const int* __restrict__ steps, const int* __restrict__ nsteps,
                      const float* __restrict__ w_scale, const float* __restrict__ x_scale,
-                     const __nv_bfloat16* __restrict__ bias, void* __restrict__ out,
-                     int bf16_out, Geom g) {
+                     const void* __restrict__ bias, void* __restrict__ out, Geom g) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
@@ -252,13 +286,14 @@ sparse_conv_q_kernel(const __grid_constant__ CUtensorMap xmap,
     for (int j = 0; j < 32; ++j) {
       const int o = col + (j >> 1) * 8 + (j & 1);
       sc[j] = __fmul_rn(xs, __ldg(w_scale + o));
-      bv[j] = bias != nullptr ? __bfloat162float(bias[o]) : 0.0f;
+      bv[j] = bias == nullptr ? 0.0f
+              : kMode == kBf16Bias ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[o])
+                                  : static_cast<const float*>(bias)[o];
     }
     const int valid = min(kTileM, g.w - j0);
     const long long pix0 = row * g.w + j0;
-    const bool bf16 = bf16_out != 0, has_bias = bias != nullptr;
-    store_acc(acc0, r, valid, pix0, g.cout, col, sc, bv, out, bf16, has_bias);
-    store_acc(acc1, r + 64, valid, pix0, g.cout, col, sc, bv, out, bf16, has_bias);
+    const bool has_bias = bias != nullptr;
+    store_tile<kMode>(acc0, acc1, r, valid, pix0, g.cout, col, sc, bv, out, has_bias);
   }
 }
 
@@ -266,21 +301,23 @@ sparse_conv_q_kernel(const __grid_constant__ CUtensorMap xmap,
 
 // xq (n, h, w, cin) int8 NHWC; vals_k (nmb, k*k*s, 128 out, 128 in) int8;
 // rows (nmb, s), steps (nmb, k*k*s), nsteps (nmb,) int32; w_scale (cout,)
-// and x_scale (n,) f32; out (n, h, w, cout) f32, or bf16 with out_bf16 = 1,
-// then bias (cout,) bf16 or null.
+// and x_scale (n,) f32; out (n, h, w, cout) and bias by the epilogue mode:
+// 0 f32 out, no bias; 1 bf16 out, bias (cout,) bf16 or null; 2 f32 out and
+// 3 bf16 out, bias (cout,) f32.
 extern "C" int tpuseg_sparse_conv_q(const void* xq, const void* vals_k, const void* rows,
                                     const void* steps, const void* nsteps, const void* w_scale,
                                     const void* x_scale, const void* bias, void* out, int n,
                                     int h, int w, int cin, int cout, int s, int k, int dil,
-                                    int out_bf16, void* stream) {
+                                    int mode, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || s <= 0 || k <= 0 || (k & 1) == 0 || dil <= 0 ||
       cin <= 0 || cin % kBlockK != 0 || cout <= 0 || cout % kBN != 0 ||
       ((uintptr_t)xq & 15u) != 0 || ((uintptr_t)vals_k & 15u) != 0 ||
       ((uintptr_t)out & 15u) != 0 || ((uintptr_t)rows & 3u) != 0 ||
       ((uintptr_t)steps & 3u) != 0 || ((uintptr_t)nsteps & 3u) != 0 ||
       ((uintptr_t)w_scale & 3u) != 0 || ((uintptr_t)x_scale & 3u) != 0 ||
-      ((uintptr_t)bias & 3u) != 0 || steps == nullptr || nsteps == nullptr ||
-      (out_bf16 != 0 && out_bf16 != 1) || (bias != nullptr && out_bf16 == 0)) {
+      ((uintptr_t)bias & 3u) != 0 || steps == nullptr || nsteps == nullptr || mode < kF32 ||
+      mode > kReluBf16 || (mode == kF32 && bias != nullptr) ||
+      (mode >= kReluF32 && bias == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   Geom g;
@@ -310,14 +347,18 @@ extern "C" int tpuseg_sparse_conv_q(const void* xq, const void* vals_k, const vo
                   CU_TENSOR_MAP_SWIZZLE_128B)) {
     return (int)cudaErrorInvalidValue;
   }
+  decltype(&sparse_conv_q_kernel<kF32>) kernel =
+      mode == kF32         ? sparse_conv_q_kernel<kF32>
+      : mode == kBf16Bias  ? sparse_conv_q_kernel<kBf16Bias>
+      : mode == kReluF32   ? sparse_conv_q_kernel<kReluF32>
+                           : sparse_conv_q_kernel<kReluBf16>;
   const cudaError_t e =
-      cudaFuncSetAttribute(sparse_conv_q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return (int)e;
-  sparse_conv_q_kernel<<<dim3(static_cast<unsigned>(ctas)), dim3(kThreads), kSmem,
-                         reinterpret_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(static_cast<unsigned>(ctas)), dim3(kThreads), kSmem,
+           reinterpret_cast<cudaStream_t>(stream)>>>(
       xmap, vmap, static_cast<const int*>(rows), static_cast<const int*>(steps),
       static_cast<const int*>(nsteps), static_cast<const float*>(w_scale),
-      static_cast<const float*>(x_scale), static_cast<const __nv_bfloat16*>(bias), out,
-      out_bf16, g);
+      static_cast<const float*>(x_scale), bias, out, g);
   return (int)cudaGetLastError();
 }

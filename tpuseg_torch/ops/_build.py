@@ -145,12 +145,12 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,                  # nsteps (nmb,) int32
         ctypes.c_void_p,                  # w_scale (nmb, 1, 128) f32
         ctypes.c_void_p,                  # x_scale (N,) f32, per frame
-        ctypes.c_void_p,                  # bias (Cout,) bf16 or null (bf16 out only)
-        ctypes.c_void_p,                  # out (N, H, W, Cout) f32, or bf16
+        ctypes.c_void_p,                  # bias (Cout,): none (mode 0), bf16|none (1), f32 (2, 3)
+        ctypes.c_void_p,                  # out (N, H, W, Cout) f32 (modes 0, 2), or bf16 (1, 3)
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n h w
         ctypes.c_int, ctypes.c_int,       # cin cout
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # s kernel dilation
-        ctypes.c_int,                     # out_bf16: 1 writes bf16(bf16(y) + bias)
+        ctypes.c_int,                     # mode: 0 y, 1 bf16(bf16(y) + bias), 2/3 relu(y + bias)
         ctypes.c_void_p,                  # cudaStream_t
     ]
     lib.tpuseg_sparse_conv_q.restype = ctypes.c_int
@@ -189,6 +189,28 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,                  # cudaStream_t
     ]
     lib.tpuseg_bsr_matmul.restype = ctypes.c_int
+    lib.tpuseg_frame_deltas.argtypes = [
+        ctypes.c_void_p,                  # frames (B, H, W*3) uint8
+        ctypes.c_void_p,                  # prev (H, W*3) uint8
+        ctypes.c_void_p,                  # sums (B + 1,) uint64, zeroed: per-frame sums, a counter
+        ctypes.c_void_p,                  # d (B,) f32
+        ctypes.c_int, ctypes.c_longlong,  # B, bytes per frame
+        ctypes.c_void_p,                  # cudaStream_t
+    ]
+    lib.tpuseg_frame_deltas.restype = ctypes.c_int
+    lib.tpuseg_budget_select.argtypes = [
+        ctypes.c_void_p,                  # d (B,) f32
+        ctypes.c_void_p,                  # acc_in (1,) f32
+        ctypes.c_void_p,                  # n_in (1,) int32
+        ctypes.c_float, ctypes.c_int, ctypes.c_int,  # thresh, K, B
+        ctypes.c_void_p,                  # flags (B,) bool
+        ctypes.c_void_p,                  # fwd_idx (K,) int32
+        ctypes.c_void_p,                  # keyslot (B,) int32
+        ctypes.c_void_p,                  # acc_out (1,) f32
+        ctypes.c_void_p,                  # n_out (1,) int32
+        ctypes.c_void_p,                  # cudaStream_t
+    ]
+    lib.tpuseg_budget_select.restype = ctypes.c_int
     lib.tpuseg_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tpuseg_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -12,15 +12,28 @@ Weights are folded in numpy on ``tpuseg``'s HWIO layout, exactly as there,
 then transposed to OIHW.  Activations inside are NCHW-shaped in
 ``torch.channels_last`` memory; ``__call__`` takes raw frames and returns an
 NHWC feature map.  BN must already be folded (``tpuseg_torch.ops.fold_bn``).
+
+``int8_stem=True`` runs the three folded stem convs in int8 as ``tpuseg``
+does (``tpuseg/ops/polyphase.py:297-360``): weights quantized per output
+channel from the folded weights as cast to the compute dtype, x per conv
+with conv0's analytic scale, static scales from ``calibrate_stem_scales`` or
+per-frame ones, and the epilogue ``relu(float(acc) * (xs * ws) + bias)``
+cast to the compute dtype.  Each conv is kernel B3 on its stem packing
+(``tpuseg_torch.ops.quant.stem_packing``) through
+``fused_sparse_conv_q_bias_relu``.  Stage 3 stays float, as in ``tpuseg``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from tpuseg_torch.models.drn import nchw_to_nhwc, nhwc_to_nchw
+from tpuseg_torch.ops.quant import quantize_weight, stem_packing
+from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_q_bias_relu
 
 STEM_CONVS = ("layer.0.0", "layer.1.0", "layer.2.0")  # DRNSeg naming
 STAGE3 = "layer.3"
@@ -132,12 +145,19 @@ class PolyphaseFrontend:
     space-to-depth (elementwise math commutes with the permutation), so the
     caller feeds raw uint8 frames — the same order of f32 operations as
     ``tpuseg`` (polyphase.py:276-281, 364-367).
+
+    ``int8_stem=True`` adds ``q_convs`` (``tpuseg``'s (w_q, w_scale) per
+    conv, HWIO int8 and (O,) f32, on the host), ``q_plans`` (per conv B3's
+    packing, its quantize channel map and the f32 bias, on ``device``),
+    ``conv0_x_scale`` (analytic with ``normalize``, else None: per frame)
+    and ``stem_x_scales`` (None until ``calibrate_stem_scales``).
     """
 
     def __init__(self, params, *, device, f: int = 4, dtype=torch.bfloat16,
-                 normalize: tuple | None = None):
+                 normalize: tuple | None = None, int8_stem: bool = False):
         self.f = f
         self.dtype = dtype
+        self.device = torch.device(device)
         self.normalize = None
         if normalize is not None:
             mean, std = (np.asarray(v, np.float32) for v in normalize)
@@ -151,15 +171,34 @@ class PolyphaseFrontend:
             (2, 1, f, f // 2),
         ]
         self.convs = []
+        self.int8_stem = bool(int8_stem)
+        self.q_convs, self.q_plans = [], []
+        self.conv0_x_scale = None
+        self.stem_x_scales: list | None = None
         for name, (stride, pad, fi, fo) in zip(STEM_CONVS, specs):
             wp, plo, phi = fold_conv_poly(_hwio(params[f"{name}.weight"]), stride, pad, fi, fo)
             bias = np.tile(params[f"{name}.bias"].float().cpu().numpy(), fo * fo)
-            self.convs.append((
-                _device_weight(wp, dtype, device),
-                torch.from_numpy(bias).to(device=device, dtype=dtype),
-                plo, phi,
-            ))
+            conv = (_device_weight(wp, dtype, device),
+                    torch.from_numpy(bias).to(device=device, dtype=dtype), plo, phi)
+            self.convs.append(conv)
+            if int8_stem:
+                # tpuseg quantizes the folded weight after its cast to the
+                # compute dtype (polyphase.py:294, 308-314)
+                wq, ws = quantize_weight(torch.from_numpy(wp).to(dtype).float().numpy())
+                self.q_convs.append((torch.from_numpy(wq), torch.from_numpy(ws)))
+                plan, chan = stem_packing(name, wq, ws, plo, phi)
+                self.q_plans.append((plan.to(self.device),
+                                     None if chan is None else chan.to(self.device),
+                                     conv[1].float()))
         self.out_f = specs[-1][3]
+        if int8_stem and normalize is not None:
+            # conv0's input is the normalized uint8 frame: its exact range
+            # follows from (mean, std) (tpuseg polyphase.py:315-320)
+            mean, std = (np.asarray(v, np.float32) for v in normalize)
+            bound = np.maximum(
+                np.abs((0.0 - mean) / std), np.abs((1.0 - mean) / std)
+            ).max()
+            self.conv0_x_scale = float(bound / 127.0)
 
     def _input(self, x: torch.Tensor) -> torch.Tensor:
         """Raw frames -> normalized space-to-depth NCHW (channels_last)."""
@@ -169,10 +208,29 @@ class PolyphaseFrontend:
             x = (x.float() / 255.0 - mean48) * inv_std48
         return nhwc_to_nchw(x.to(self.dtype))
 
+    def _stem_x_scale(self, i: int) -> float | None:
+        """Conv i's activation scale: analytic for conv0, else calibrated,
+        else None (per frame), ``tpuseg``'s order (polyphase.py:337-348)."""
+        if i == 0 and self.conv0_x_scale is not None:
+            return self.conv0_x_scale
+        if self.stem_x_scales is not None:
+            return self.stem_x_scales[i]
+        return None
+
     def _stem_convs(self, x: torch.Tensor) -> torch.Tensor:
-        for wp, bias, plo, phi in self.convs:
-            x = F.relu_(_conv(x, wp, bias, plo, phi))
-        return x
+        """The three folded stem convs on NCHW (channels_last) x; int8
+        (B3 through ``fused_sparse_conv_q_bias_relu``) with ``int8_stem``."""
+        if not self.int8_stem:
+            for wp, bias, plo, phi in self.convs:
+                x = F.relu_(_conv(x, wp, bias, plo, phi))
+            return x
+        x = nchw_to_nhwc(x)
+        for i, (plan, chan, bias) in enumerate(self.q_plans):
+            xs = self._stem_x_scale(i)
+            if plan.x_scale != xs:
+                plan = dataclasses.replace(plan, x_scale=xs)
+            x = fused_sparse_conv_q_bias_relu(x, plan, bias, self.dtype, chan)
+        return nhwc_to_nchw(x)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         x = nchw_to_nhwc(self._stem_convs(self._input(x)))
@@ -197,13 +255,14 @@ class FusedStage3Frontend(PolyphaseFrontend):
     """
 
     def __init__(self, params, *, device, f: int = 4, dtype=torch.bfloat16,
-                 normalize: tuple | None = None):
+                 normalize: tuple | None = None, int8_stem: bool = False):
         stage3 = STAGE3
         if f"{stage3}.2.conv1.weight" in params or f"{stage3}.1.conv3.weight" in params:
             raise ValueError(
                 "FusedStage3Frontend folds a stage 3 of two basic blocks "
                 "(drn_d_22/24)")
-        super().__init__(params, device=device, f=f, dtype=dtype, normalize=normalize)
+        super().__init__(params, device=device, f=f, dtype=dtype, normalize=normalize,
+                         int8_stem=int8_stem)
 
         def fold(name, k_pad):
             wp, plo, phi = fold_conv_poly(_hwio(params[f"{name}.weight"]), 2, k_pad, 2, 1)
@@ -238,3 +297,25 @@ class FusedStage3Frontend(PolyphaseFrontend):
         out = F.relu_(self._image_conv(out, f"{self.stage3}.1.conv1"))
         out = F.relu_(self._image_conv(out, f"{self.stage3}.1.conv2") + r)
         return nchw_to_nhwc(out)
+
+
+def calibrate_stem_scales(frontend: PolyphaseFrontend, batches) -> list[float]:
+    """Static per-conv activation scales for an ``int8_stem`` frontend
+    (``tpuseg``'s ``calibrate_stem_scales``): runs the FLOAT stem convs in
+    the frontend's dtype over ``batches`` (uint8 frames in ``fold_input``
+    form, tensors or numpy, moved to the frontend's device), records each
+    conv's input absmax, and returns ``max(s, 1e-8) / 127.0`` per conv
+    (Python floats), conv0's analytic scale kept when it has one.  Installs
+    them on ``frontend.stem_x_scales``."""
+    scales = [0.0] * len(frontend.convs)
+    with torch.inference_mode():
+        for fr in batches:
+            x = frontend._input(torch.as_tensor(fr).to(frontend.device))
+            for i, (wp, bias, plo, phi) in enumerate(frontend.convs):
+                scales[i] = max(scales[i], float(x.float().abs().amax()))
+                x = F.relu_(_conv(x, wp, bias, plo, phi))
+    out = [max(s, 1e-8) / 127.0 for s in scales]
+    if frontend.conv0_x_scale is not None:
+        out[0] = frontend.conv0_x_scale
+    frontend.stem_x_scales = out
+    return out

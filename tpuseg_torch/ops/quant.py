@@ -117,6 +117,40 @@ def full_support_packing(name: str, w_q: np.ndarray, w_scale: np.ndarray, dilati
     )
 
 
+def stem_packing(name: str, w_q: np.ndarray, w_scale: np.ndarray, pad_lo: int, pad_hi: int,
+                 x_scale: float | None = None) -> tuple[FusedSparseConvQ, torch.Tensor | None]:
+    """B3's packing of a folded int8 stem conv (HWIO ``w_q``, stride 1,
+    padding ``(pad_lo, pad_hi)`` on both axes) and the channel map its
+    quantize pass takes (None when x needs none):
+
+    - input channels not a multiple of 128 (conv0, 48) are padded with zero
+      weight rows, and the map ``[0..cin-1] + [-1] * pad`` makes the quantize
+      pass write the padded int8 operand (the integer sum is unchanged);
+    - a kernel that keeps the grid but is even or padded asymmetrically
+      (conv2: 2x2, pad (1, 0)) is embedded in the odd "same" kernel of
+      ``max(pad_lo, pad_hi)`` padding; the taps it adds are zero, so their
+      tiles are not live steps and B3 never walks them.
+
+    Quantization is untouched (zeros change no absmax).  Raises
+    ``ValueError``, naming the conv, on a shape B3 cannot take this way."""
+    kh, kw, cin, cout = w_q.shape
+    if kh != kw or pad_lo + pad_hi != kh - 1 or min(pad_lo, pad_hi) < 0 or cout % BM:
+        raise ValueError(
+            f"{name}: int8 stem conv {kh}x{kw} {cin}->{cout} with padding ({pad_lo}, "
+            f"{pad_hi}) does not fit kernel B3: it needs a square kernel that keeps the grid "
+            f"(pad_lo + pad_hi = kernel - 1) and output channels divisible by {BM}")
+    pad = max(pad_lo, pad_hi)
+    cin_p = -(-cin // BK) * BK
+    w = np.zeros((2 * pad + 1, 2 * pad + 1, cin_p, cout), np.int8)
+    off = pad - pad_lo  # tap p of the conv sits at tap p + off of the "same" kernel
+    w[off:off + kh, off:off + kw, :cin] = w_q
+    chan = None
+    if cin_p != cin:
+        chan = torch.cat([torch.arange(cin, dtype=torch.int32),
+                          torch.full((cin_p - cin,), -1, dtype=torch.int32)])
+    return full_support_packing(name, w, w_scale, 1, pad, x_scale), chan
+
+
 # tpuseg's eligibility rule (its build_quant_plans defaults, the only
 # values any caller uses)
 QUANT_STAGES = (4, 5, 6, 7, 8)

@@ -70,6 +70,13 @@ integer conv and the epilogue ``float(acc) * (x_scale[n] * w_scale[o])``.
   int8 plan: the same launches write ``bf16(float(bf16(y)) +
   float(bias))``; ``fused_sparse_conv_q_bias_bf16_reference`` is the cast
   and bias passes it replaces (``cast_bias_bf16``).
+- ``fused_sparse_conv_q_bias_relu``: the int8 stem's route
+  (``tpuseg/ops/polyphase.py:349-359``): the same launches write
+  ``relu(y + bias)`` in f32, as f32 or rounded once to bf16, with
+  ``tpuseg``'s relu (``relu_tpuseg``); its plain version is
+  ``fused_sparse_conv_q_bias_relu_reference``.  A negative entry of a
+  channel map reads 0 (``select_channels``), so the quantize pass pads
+  conv0's 48 channels to the 128 B3 takes.
 """
 
 from __future__ import annotations
@@ -705,6 +712,16 @@ def quantize_fused_plan(plan: FusedSparseConv, x_scale: float | None = None) -> 
     )
 
 
+def select_channels(x: torch.Tensor, chan: torch.Tensor | None) -> torch.Tensor:
+    """``x.index_select(-1, chan)`` where a negative entry of ``chan``
+    gives a channel of zeros: the plain version of the quantize kernels'
+    channel map (``chan=None``: x itself)."""
+    if chan is None:
+        return x
+    chan = chan.to(device=x.device, dtype=torch.int64)
+    return x.index_select(x.dim() - 1, chan.clamp_min(0)).masked_fill_(chan < 0, 0)
+
+
 def quantize_activation_reference(x: torch.Tensor,
                                   x_scale: float | None) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``quantize_activation``: ``tpuseg``'s ops in its
@@ -732,7 +749,9 @@ def quantize_activation(x: torch.Tensor, x_scale: float | None,
     scales, ``tpuseg``'s x quantization (``quantize_activation_reference``).
     With ``chan`` (an int32 index of x's last axis) it quantizes
     ``x.index_select(-1, chan)``, the scale taken over those channels, as
-    ``tpuseg``'s ``CompactSparseQ`` does after its gather.
+    ``tpuseg``'s ``CompactSparseQ`` does after its gather; a negative entry
+    of ``chan`` reads as 0 (``select_channels``), which pads x's channels
+    in the same pass (the int8 stem's conv0).
 
     On a CPU tensor this runs the plain version.  On a CUDA tensor (bf16 or
     f32, contiguous, channels last) it launches the hand-written kernels of
@@ -742,8 +761,7 @@ def quantize_activation(x: torch.Tensor, x_scale: float | None,
     gathered copy is never made) and writes xq and xs (counted in
     ``quantize_activation.launches``); it raises if a launch fails."""
     if x.device.type == "cpu":
-        return quantize_activation_reference(
-            x if chan is None else x.index_select(x.dim() - 1, chan), x_scale)
+        return quantize_activation_reference(select_channels(x, chan), x_scale)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in _DTYPE_CODE:
@@ -871,10 +889,12 @@ def _check_q(x: torch.Tensor, plan: FusedSparseConvQ, chan: torch.Tensor | None)
 
 
 def _launch_b3(xq: torch.Tensor, xs: torch.Tensor, plan: FusedSparseConvQ,
-               bias: torch.Tensor | None, bf16_out: bool) -> torch.Tensor:
+               bias: torch.Tensor | None, bf16_out: bool, relu: bool = False) -> torch.Tensor:
     """One launch of kernel B3 (``csrc/sparse_conv_q.cu``) on int8 NHWC
     ``xq`` and its (N,) scales ``xs``, checked by the caller: the f32 y, or
-    with ``bf16_out`` the bf16 ``bf16(float(bf16(y)) + float(bias))``."""
+    with ``bf16_out`` the bf16 ``bf16(float(bf16(y)) + float(bias))`` (bias
+    bf16); with ``relu`` ``relu(y + bias)`` (bias f32) as f32, or rounded
+    to bf16 with ``bf16_out``."""
     from tpuseg_torch.ops._build import load_library
 
     n, h, w, cin = xq.shape
@@ -887,7 +907,8 @@ def _launch_b3(xq: torch.Tensor, xs: torch.Tensor, plan: FusedSparseConvQ,
             xq.data_ptr(), plan.vals_k.data_ptr(), plan.rows.data_ptr(), plan.steps.data_ptr(),
             plan.nsteps.data_ptr(), plan.w_scale.data_ptr(), xs.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            n, h, w, cin, plan.cout, plan.s, plan.kernel, plan.dilation, int(bf16_out), stream,
+            n, h, w, cin, plan.cout, plan.s, plan.kernel, plan.dilation,
+            2 * int(relu) + int(bf16_out), stream,
         )
     _raise_on(lib, "sparse_conv_q", err)
     return out
@@ -958,3 +979,54 @@ def fused_sparse_conv_q_bias_bf16(x: torch.Tensor, plan: FusedSparseConvQ,
     out = _b3_cuda(x, plan, chan, b, True)
     fused_sparse_conv_apply_q.launches += 1
     return out
+
+
+def relu_tpuseg(v: torch.Tensor) -> torch.Tensor:
+    """``tpuseg``'s ``jax.nn.relu`` = ``jnp.maximum(v, 0)``: -0.0 becomes
+    +0.0 and a NaN stays a NaN (``torch.relu`` keeps -0.0)."""
+    return torch.where(v <= 0, 0.0, v)
+
+
+def fused_sparse_conv_q_bias_relu_reference(x: torch.Tensor, plan: FusedSparseConvQ,
+                                            bias: torch.Tensor, out_dtype: torch.dtype,
+                                            chan: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of the int8 stem's route: B3's f32 y
+    (``fused_sparse_conv_q_reference`` on ``select_channels(x, chan)``),
+    then the f32 bias added and ``relu_tpuseg`` in f32, then one cast to
+    ``out_dtype``."""
+    y = fused_sparse_conv_q_reference(select_channels(x, chan), plan)
+    return relu_tpuseg(y + bias.to(device=y.device, dtype=torch.float32)).to(out_dtype)
+
+
+def fused_sparse_conv_q_bias_relu(x: torch.Tensor, plan: FusedSparseConvQ, bias: torch.Tensor,
+                                  out_dtype: torch.dtype,
+                                  chan: torch.Tensor | None = None) -> torch.Tensor:
+    """The int8 stem's conv (``tpuseg/ops/polyphase.py:349-359``):
+    ``relu(float(acc) * (x_scale * w_scale) + bias)`` in f32, each step
+    rounded on its own, cast to ``out_dtype`` (f32 or bf16): (N, H, W, Cout).
+    ``bias`` is taken as f32 (a bf16 bias converts exactly); ``chan`` is
+    the quantize pass's channel map (-1 pads with zeros).
+
+    On a CUDA tensor the quantize kernels and one B3 launch write it (B3's
+    epilogue modes 2 and 3), counted in ``fused_sparse_conv_apply_q.
+    launches`` with B3's other routes and in ``fused_sparse_conv_q_bias_relu.
+    launches``; on a CPU tensor it runs
+    ``fused_sparse_conv_q_bias_relu_reference``."""
+    _check_q(x, plan, chan)
+    if bias.dim() != 1 or bias.shape[0] != plan.cout:
+        raise ValueError(f"bias must be ({plan.cout},), got {tuple(bias.shape)}")
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if x.device.type == "cpu":
+        return fused_sparse_conv_q_bias_relu_reference(x, plan, bias, out_dtype, chan)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    b = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    xq, xs = quantize_activation(x, plan.x_scale, chan)
+    out = _launch_b3(xq, xs, plan, b, out_dtype == torch.bfloat16, relu=True)
+    fused_sparse_conv_apply_q.launches += 1
+    fused_sparse_conv_q_bias_relu.launches += 1
+    return out
+
+
+fused_sparse_conv_q_bias_relu.launches = 0

@@ -1,13 +1,15 @@
 """Video segmentation serving: frames -> device -> fused inference -> ids.
 
-Counterpart of ``tpuseg/video/pipeline.py`` in exact mode: dense, with
-sparse execution plans, or int8 (``quantize=True``, optionally calibrated);
-no temporal reuse, int8 stem, device resize or device outputs yet.  Per
-batch of flat uint8 frames the device runs the BN-folded polyphase frontend
-(normalize fused after space-to-depth), the dilated stages, the 1x1 seg
-head and the fused x8 upsample+argmax CUDA kernel; only uint8 frames go up
-and uint8 class ids come down.  Color and overlay are rebuilt on the host
-from the ids (an integer gather, bit-identical to doing it on the device).
+Counterpart of ``tpuseg/video/pipeline.py``: dense, with sparse execution
+plans, or int8 (``quantize=True``, optionally calibrated, optionally with
+the int8 stem), exact or with batched temporal reuse (interval and budgeted
+modes); no sequential adaptive mode, nearest or warped reuse, device resize
+or device outputs yet.  Per batch of flat uint8 frames the device runs the
+BN-folded polyphase frontend (normalize fused after space-to-depth), the
+dilated stages, the 1x1 seg head and the fused x8 upsample+argmax CUDA
+kernel; only uint8 frames go up and uint8 class ids come down.  Color and
+overlay are rebuilt on the host from the ids (an integer gather,
+bit-identical to doing it on the device).
 
 ``run`` keeps two batches in flight: each batch's ids are copied to pinned
 host memory with ``non_blocking=True`` and a CUDA event marks the copy's
@@ -29,8 +31,13 @@ from tpuseg_torch.models.drn import DrnSpec
 from tpuseg_torch.models.drnseg import drnseg_logits
 from tpuseg_torch.models.sparse_exec import plans_to, quantize_sparse_plans
 from tpuseg_torch.ops.fold_bn import fold_bn
-from tpuseg_torch.ops.polyphase import FusedStage3Frontend, PolyphaseFrontend
+from tpuseg_torch.ops.polyphase import (
+    FusedStage3Frontend,
+    PolyphaseFrontend,
+    calibrate_stem_scales,
+)
 from tpuseg_torch.ops.quant import build_quant_plans, calibrate_scales
+from tpuseg_torch.ops.temporal import budget_select, frame_deltas
 from tpuseg_torch.ops.upsample import upsample_argmax
 
 
@@ -78,7 +85,26 @@ class VideoSegmenter:
     are calibrated (``calibrate_scales``) and static.  The user's
     ``exec_plans`` are lifted to int8 with the same scales
     (``quantize_sparse_plans``) and take precedence per conv, as in
-    ``tpuseg``."""
+    ``tpuseg``.
+
+    ``quantize_stem=True`` (with or without ``quantize``) runs the three
+    folded stem convs in int8 (``PolyphaseFrontend(int8_stem=True)``).
+    With ``quantize`` and ``calib_frames`` the order is ``tpuseg``'s: the
+    stem's scales first (``calibrate_stem_scales``), then those of stages
+    4-8 through the now-int8 stem, then the plans rebuilt with them.
+
+    Temporal reuse, ``tpuseg``'s batched modes without nearest or warped
+    reuse:
+    - ``temporal_interval=N``: each batch forwards every Nth frame, and each
+      frame takes its preceding keyframe's ids;
+    - ``temporal_thresh=T`` with ``temporal_budget=K``: per batch the frame
+      deltas (kernel K3) and the budgeted keyframe choice (K4) run on the
+      device, one K-frame forward serves the chosen frames, and every frame
+      takes its keyframe's ids.  The carry (last raw frame, the live
+      keyframe's ids, accumulated drift, keyframes so far) stays on the
+      device across ``run()`` batches; the first frame ever is promoted.
+    ``temporal_thresh`` without a budget (the sequential mode),
+    ``temporal_nearest`` and ``temporal_warp`` raise: not ported yet."""
 
     def __init__(
         self,
@@ -95,8 +121,16 @@ class VideoSegmenter:
         want_overlay: bool = False,
         exec_plans: dict | None = None,
         quantize: bool = False,
+        quantize_stem: bool = False,
         calib_frames=None,
+        temporal_interval: int = 1,
+        temporal_thresh: float | None = None,
+        temporal_budget: int | None = None,
+        temporal_nearest: bool = False,
+        temporal_warp: bool = False,
     ):
+        _check_temporal(batch, temporal_interval, temporal_thresh, temporal_budget,
+                        temporal_nearest, temporal_warp)
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
         if spec.variant != "D":
@@ -107,9 +141,14 @@ class VideoSegmenter:
         self.batch = batch
         self.want_overlay = want_overlay
         self.palette_np = np.asarray(palette, np.uint8)
+        self.temporal_interval = temporal_interval
+        self.temporal_thresh = temporal_thresh
+        self.temporal_budget = temporal_budget
+        self._carry = None  # budgeted mode: persists across run() batches
 
         folded = fold_bn(params, bn_state, spec)
-        frontend = dict(device=self.device, dtype=compute_dtype, normalize=(mean, std))
+        frontend = dict(device=self.device, dtype=compute_dtype, normalize=(mean, std),
+                        int8_stem=quantize_stem)
         if _fused_stage3(spec):
             self.stem_fn, self.stem_stages = FusedStage3Frontend(folded, **frontend), 4
         else:
@@ -128,14 +167,16 @@ class VideoSegmenter:
         if quantize:
             # int8 plans from the f32 folded weights (``folded`` is still f32
             # on the host: only ``self.params`` were cast)
-            exec_plans = self._int8_plans(folded, exec_plans, calib_frames, mean, std)
+            exec_plans = self._int8_plans(folded, exec_plans, calib_frames, mean, std,
+                                          quantize_stem)
         self.exec_plans = plans_to(exec_plans, self.device)
 
-    def _int8_plans(self, folded, user_plans, calib_frames, mean, std) -> dict:
+    def _int8_plans(self, folded, user_plans, calib_frames, mean, std, quantize_stem) -> dict:
         """``tpuseg``'s order: dense int8 plans; with calibration frames,
-        static scales from a float forward on this device, then the plans
-        rebuilt with them; the user's plans lifted with the same scales and
-        merged over the dense ones."""
+        the int8 stem's static scales (``quantize_stem``), then static
+        scales from a forward on this device (float stages, the stem as
+        served), then the plans rebuilt with them; the user's plans lifted
+        with the same scales and merged over the dense ones."""
         plans = build_quant_plans(folded, self.spec)
         scales = None
         if calib_frames is not None and len(calib_frames) and plans:
@@ -149,6 +190,8 @@ class VideoSegmenter:
                 cal = ((arr.astype(np.float32) / 255.0 - np.asarray(mean, np.float32))
                        / np.asarray(std, np.float32))
             batches = [cal[i:i + self.batch] for i in range(0, len(cal), self.batch)]
+            if quantize_stem and use_stem:
+                calibrate_stem_scales(self.stem_fn, batches)
             scales = calibrate_scales(
                 self.params, {}, self.spec, batches, plans=plans,
                 compute_dtype=self.compute_dtype,
@@ -182,6 +225,48 @@ class VideoSegmenter:
         # upsampled map can overshoot the frame by a few pixels — crop
         return ids[:, :h, :w]
 
+    @torch.inference_mode()
+    def _forward(self, frames_u8: torch.Tensor) -> torch.Tensor:
+        """One batch in exact or interval mode -> (B, H, W) ids: with
+        ``temporal_interval`` N only every Nth frame is forwarded and each
+        frame takes its preceding keyframe's ids (``tpuseg`` pipeline.py:
+        521-535, 572-576)."""
+        n = self.temporal_interval
+        if n == 1:
+            return self.ids_for(frames_u8)
+        ids = self.ids_for(frames_u8[::n])
+        return ids.repeat_interleave(n, dim=0)[:frames_u8.shape[0]]
+
+    def _make_carry(self, h: int, w: int) -> tuple:
+        """Fresh budgeted-mode carry for (h, w) frames, on the device: the
+        previous raw frame (flat), the live keyframe's ids, the accumulated
+        drift and the keyframe count; 0 keyframes forces the first frame
+        ever to promote (``tpuseg`` pipeline.py:840-861)."""
+        dev = self.device
+        return (torch.zeros((h, w * 3), dtype=torch.uint8, device=dev),
+                torch.zeros((h, w), dtype=torch.uint8, device=dev),
+                torch.zeros((1,), dtype=torch.float32, device=dev),
+                torch.zeros((1,), dtype=torch.int32, device=dev))
+
+    @torch.inference_mode()
+    def _budget_step(self, frames_u8: torch.Tensor, carry: tuple):
+        """One batch of budgeted temporal serving (``tpuseg``'s
+        ``program_budget``, pipeline.py:642-778, without nearest and warp)
+        -> (ids (B, H, W), flags (B,) bool, the new carry).  Frame deltas
+        (K3), the keyframe choice (K4), one K-frame forward of the chosen
+        frames (unfilled slots forward frame 0), and each frame's ids from
+        its keyframe's slot, or the carried ids before the batch's first
+        keyframe.  Nothing leaves the device."""
+        prev, key_ids, acc0, n_keyed = carry
+        k = self.temporal_budget
+        d = frame_deltas(frames_u8, prev)
+        flags, fwd_idx, keyslot, acc0, n_keyed = budget_select(
+            d, acc0, n_keyed, self.temporal_thresh, k)
+        ids_k = self.ids_for(frames_u8.index_select(0, fwd_idx))
+        ids = torch.where((keyslot >= 0).view(-1, 1, 1),
+                          ids_k.index_select(0, keyslot.clamp(0, k - 1)), key_ids)
+        return ids, flags, (frames_u8[-1].clone(), ids[-1].clone(), acc0, n_keyed)
+
     def run(
         self,
         frames,
@@ -197,8 +282,13 @@ class VideoSegmenter:
         overlay, when ``need_color``), ``frames``, ``seconds`` and ``fps``
         (wall clock from the first submit to the last collect; the first
         batch also runs once untimed, so first-call costs stay out) and
-        ``batch_times`` (overlapping under pipelining, diagnostic only)."""
+        ``batch_times`` (overlapping under pipelining, diagnostic only); in
+        budgeted mode also ``promoted`` and ``promotion_rate``, over the
+        returned frames only.  The untimed first call leaves the budgeted
+        carry as it found it."""
         cuda = self.device.type == "cuda"
+        adaptive = self.temporal_budget is not None
+        promoted_flags = []
         ids_out, color_out = [], []
         batch_times = []
         fps_meter = FpsMeter()
@@ -206,6 +296,14 @@ class VideoSegmenter:
         pending = []
         first = True
         t_wall0 = None
+
+        def call_program(x):
+            if not adaptive:
+                return self._forward(x), None
+            if self._carry is None:
+                self._carry = self._make_carry(x.shape[1], x.shape[2] // 3)
+            ids, flags, self._carry = self._budget_step(x, self._carry)
+            return ids, flags
 
         def submit(buf):
             nonlocal first, t_wall0
@@ -219,31 +317,39 @@ class VideoSegmenter:
             if cuda:
                 x = x.pin_memory().to(self.device, non_blocking=True)
             if first:
-                # first-call costs (kernel build, cuDNN plans) stay untimed
-                self.ids_for(x)
+                # first-call costs (kernel build, cuDNN plans) stay untimed;
+                # the warmup would advance the budgeted carry: restore it
+                carry0 = self._carry
+                call_program(x)
                 if cuda:
                     torch.cuda.synchronize(self.device)
+                self._carry = carry0
                 first = False
             t0 = time.perf_counter()
             if t_wall0 is None:
                 t_wall0 = t0
-            ids = self.ids_for(x)
+            ids, flags = call_program(x)
             done = None
             if cuda:
-                # start the device->host copy now so it overlaps the next
+                # start the device->host copies now so they overlap the next
                 # batch; collect() waits on the event, not the device
                 host = torch.empty(ids.shape, dtype=torch.uint8, pin_memory=True)
                 host.copy_(ids, non_blocking=True)
+                if flags is not None:
+                    flags_host = torch.empty(flags.shape, dtype=torch.bool, pin_memory=True)
+                    flags = flags_host.copy_(flags, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record()
                 ids = host
-            return ids, done, arr.shape[0] - pad, t0, arr
+            return ids, done, arr.shape[0] - pad, t0, arr, flags
 
         def collect(flight):
-            ids, done, n, t0, frames_host = flight
+            ids, done, n, t0, frames_host, flags = flight
             if done is not None:
                 done.synchronize()
             ids = ids.numpy()
+            if flags is not None:
+                promoted_flags.append(flags.numpy()[:n])
             color = None
             if need_color:
                 # host reconstruction from ids: palette gather / overlay blend
@@ -288,7 +394,7 @@ class VideoSegmenter:
             ids_all = ids_all[:max_frames]
             color_all = color_all[:max_frames]
             total_n = max_frames
-        return {
+        out = {
             "ids": ids_all,
             "color": color_all,
             "frames": total_n,
@@ -296,6 +402,15 @@ class VideoSegmenter:
             "fps": total_n / total_t if total_t > 0 else 0.0,
             "batch_times": batch_times,
         }
+        if adaptive:
+            # promotions over exactly the returned frames (tpuseg
+            # pipeline.py:1063-1073): flights past a max_frames cut do not
+            # count
+            flags = (np.concatenate(promoted_flags)[:total_n] if promoted_flags
+                     else np.zeros((0,), bool))
+            out["promoted"] = int(flags.sum())
+            out["promotion_rate"] = out["promoted"] / total_n if total_n else 0.0
+        return out
 
     def benchmark_device_fps(
         self, size: tuple[int, int], inner: int = 32, reps: int = 3
@@ -303,12 +418,18 @@ class VideoSegmenter:
         """Device throughput (frames/sec) at (H, W): ``inner`` batches back
         to back, timed with CUDA events, best of ``reps``.  Each batch's
         input carries one byte of the previous batch's ids, so every
-        iteration depends on the one before (bench.py's methodology).
-        Raises on a CPU segmenter: a device rate comes only from the card."""
+        iteration depends on the one before (bench.py's methodology); in
+        interval mode each batch forwards its keyframes.  Raises on a CPU
+        segmenter (a device rate comes only from the card) and in budgeted
+        mode, whose rate depends on the content
+        (``benchmark_adaptive_device_fps``)."""
         if self.device.type != "cuda":
             raise RuntimeError(
                 "benchmark_device_fps times a CUDA device; this segmenter "
                 f"runs on {self.device}")
+        if self.temporal_budget is not None:
+            raise ValueError("the budgeted mode's device rate depends on the content; use "
+                             "benchmark_adaptive_device_fps with real frames")
         h, w = size
         with torch.inference_mode():
             frames = torch.zeros((self.batch, h, w * 3), dtype=torch.uint8,
@@ -316,7 +437,7 @@ class VideoSegmenter:
 
             def loop():
                 for _ in range(inner):
-                    ids = self.ids_for(frames)
+                    ids = self._forward(frames)
                     frames.view(-1)[:1].copy_(ids[0, 0, :1])
 
             loop()  # warm (kernel build, cuDNN plans)
@@ -331,3 +452,70 @@ class VideoSegmenter:
                 end.synchronize()
                 best = min(best, start.elapsed_time(end) / 1000.0 / inner)
         return self.batch / best
+
+    def benchmark_adaptive_device_fps(self, frames, reps: int = 3) -> dict:
+        """Device rate of budgeted temporal serving on real frames (its rate
+        depends on the content), ``tpuseg``'s method (pipeline.py:
+        1120-1187): full batches only (the remainder is dropped, never
+        padded), all on the device, chained through the carry from a fresh
+        one with no host sync, timed with CUDA events, best of ``reps``.
+        Returns ``device_fps``, ``promotion_rate`` (of these frames),
+        ``frames`` and ``frames_dropped``.  Raises on a CPU segmenter and
+        outside the budgeted mode."""
+        if self.device.type != "cuda":
+            raise RuntimeError(
+                "benchmark_adaptive_device_fps times a CUDA device; this segmenter "
+                f"runs on {self.device}")
+        if self.temporal_budget is None:
+            raise ValueError("benchmark_adaptive_device_fps times the budgeted temporal mode")
+        arr = np.stack([np.asarray(f) for f in frames])
+        b = self.batch
+        if len(arr) < b:
+            raise ValueError(f"need at least one full batch ({b}) of frames, got {len(arr)}")
+        dropped = len(arr) % b
+        arr = arr[:len(arr) - dropped]
+        h, w = arr.shape[1], arr.shape[2]
+        with torch.inference_mode():
+            xs = torch.from_numpy(arr.reshape(len(arr) // b, b, h, -1)).to(self.device)
+            carry0 = self._make_carry(h, w)
+
+            def loop():
+                carry, promoted = carry0, []
+                for fb in xs:
+                    _, flags, carry = self._budget_step(fb, carry)
+                    promoted.append(flags)
+                return promoted
+
+            n_promoted = int(torch.cat(loop()).sum())  # warm (kernel build, cuDNN plans)
+            best = float("inf")
+            for _ in range(reps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                loop()
+                end.record()
+                end.synchronize()
+                best = min(best, start.elapsed_time(end) / 1000.0)
+        n = len(arr)
+        return {"device_fps": n / best, "promotion_rate": n_promoted / n, "frames": n,
+                "frames_dropped": dropped}
+
+
+def _check_temporal(batch, interval, thresh, budget, nearest, warp) -> None:
+    """``tpuseg``'s argument checks of the temporal modes (pipeline.py:
+    404-432, 825-835) as ``ValueError``s, and the modes not ported yet."""
+    if interval < 1:
+        raise ValueError(f"temporal_interval must be >= 1, got {interval}")
+    if interval > 1 and thresh is not None:
+        raise ValueError("temporal_interval and temporal_thresh are mutually exclusive")
+    if budget is not None and thresh is None:
+        raise ValueError("temporal_budget requires temporal_thresh")
+    if nearest:
+        raise ValueError("temporal_nearest is not ported yet (ROADMAP A19)")
+    if warp:
+        raise ValueError("temporal_warp is not ported yet (ROADMAP A19)")
+    if thresh is not None and budget is None:
+        raise ValueError("temporal_thresh without temporal_budget (the sequential adaptive "
+                         "mode) is not ported yet (ROADMAP A19)")
+    if budget is not None and not 0 < budget <= batch:
+        raise ValueError(f"temporal_budget {budget} must be in 1..batch ({batch})")
