@@ -2,9 +2,10 @@
 """On-card check of the PyTorch/CUDA port (``tpuseg_torch``): builds the CUDA
 kernels from ``tpuseg_torch/csrc/``, holds each against its plain PyTorch
 version, drives the served slices (DRN-D-22 DRNSeg, 19 classes, 1024x2048,
-dense and pruned, float and int8, with the int8 stem, with batched temporal
-reuse) through ``VideoSegmenter``, and times the kernels against their plain
-versions.
+dense and pruned, float and int8, with the int8 stem, every temporal mode,
+the yuv420 transport, the device resize, packed ids and device outputs)
+through ``VideoSegmenter`` and the CLI, and times the kernels against their
+plain versions.
 
     python3 chip_smoke.py        # from the repo root, one CUDA card
 
@@ -121,7 +122,30 @@ Phases (any failed check raises and the exit code is non-zero):
      K3 1, K4 1, B2 0), the promoted count equal to the CPU plain selection,
      ``benchmark_adaptive_device_fps``;
  24. dense bf16 with temporal_interval=4: B1 once a batch, each frame's ids
-     its keyframe's, the device rate at batch 32.
+     its keyframe's, the device rate at batch 32;
+ 25. K5 (``keyframe_select``), K6 (``estimate_block_shifts``), K7
+     (``warp_ids``) and K8 (``i420_to_rgb_flat``) bit-equal to their plain
+     versions (K5 from n_keyed = 0, a cut, a diff at the threshold, the
+     shapes frames; K6 a known translation and the serving luma; K7 the seam
+     and range cases and (32, 1024, 2048) ids; K8 0/255, random planes, 8
+     frames at 1024x2048), a strided input raising, and each timed in turns
+     against its plain version with its bound;
+ 26. interval 4 with nearest and warped reuse, dense bf16, batch 32: run()
+     with exact counts a batch (B1, K3, K6, K7 once), the keyframes' ids
+     equal ``ids_for`` on the same 8 frames, the device rate;
+ 27. phase 23's configuration with nearest and warped reuse: exact counts
+     (B3 13, B1, K3, K4, K6, K7 once a batch), the promotions equal the CPU
+     selection, ``benchmark_adaptive_device_fps``;
+ 28. the sequential adaptive mode, dense bf16, batch 8: promotions equal
+     K5's plain version on the CPU, one forward a batch of exactly the
+     promoted frames, K5 batch + 1 launches a batch, the adaptive rate;
+ 29. yuv420 with a 512x1024 -> 1024x2048 device resize and 5-bit ids at
+     batch 8: K8 and B1 once a batch, ids equal the unpacked run's,
+     device color and overlay equal their reconstruction, bytes up and down
+     a batch;
+ 30. ``python -m tpuseg_torch.cli.seg_video --video shapes --size 1024x2048
+     --frames 32 --batch 8 --temporal-autotune 0.9 --temporal-warp``: its
+     temporal_autotune event and result line parse.
 The line before the last is the kernels' JSON record (each kernel's time,
 its plain version's, its bound at the card's published peaks and the
 PyTorch call's, at its main shape; B3's time is its served route, the
@@ -1618,6 +1642,427 @@ def _interval_full(torch, np, dev, params, state, spec, frames, smi) -> dict:
     return row
 
 
+# phases 25-30: this slice's kernels and serving modes
+SEQ_BATCH = 8  # the sequential adaptive mode's batch (phase 28)
+FLOW_ENTRIES = {  # wrapper -> (kernel, source, tpuseg file:line)
+    "keyframe_select": ("K5", "tpuseg_torch/csrc/temporal.cu", "tpuseg/video/pipeline.py:614-638"),
+    "estimate_block_shifts": ("K6", "tpuseg_torch/csrc/flow.cu", "tpuseg/video/flow.py:82-142"),
+    "warp_ids": ("K7", "tpuseg_torch/csrc/flow.cu", "tpuseg/video/flow.py:145-206"),
+    "i420_to_rgb_flat": ("K8", "tpuseg_torch/csrc/yuv.cu", "tpuseg/video/yuv.py:77-99"),
+}
+
+
+def _equal_outputs(torch, got, want) -> bool:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return all(torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want))
+
+
+def _raises_on_strided(fn) -> bool:
+    try:
+        fn()
+    except ValueError as e:
+        return "contiguous" in str(e)
+    return False
+
+
+def _new_kernels(torch, np, dev, frames, smi) -> dict:
+    """Phase 25: K5 (``keyframe_select``), K6 (``estimate_block_shifts``),
+    K7 (``warp_ids``) and K8 (``i420_to_rgb_flat``) bit-equal to their plain
+    versions on the card: K5 from n_keyed = 0, on a scene cut, on a diff
+    exactly at the threshold and on the 32 shapes frames; K6 on integer luma
+    with a known translation and on the serving luma (the shapes frames'
+    pooled luma against their interval-4 keyframes'); K7 on the seam and
+    range cases of tests/test_video.py:460 and on (32, 1024, 2048) ids with
+    shifts in [-6, 6]; K8 on 0/255 planes, random planes and the shapes
+    frames as I420.  A strided input must raise.  Then each in turns against
+    its plain version (and K5 against tpuseg's f32-mean scan in eager
+    PyTorch) at its serving shape, with its bound."""
+    from tpuseg_torch.ops.temporal import keyframe_select, keyframe_select_reference
+    from tpuseg_torch.video.autotune import drift_threshold
+    from tpuseg_torch.video.flow import (
+        estimate_block_shifts, estimate_block_shifts_reference, pooled_luma, warp_ids,
+        warp_ids_reference)
+    from tpuseg_torch.video.yuv import i420_to_rgb_flat, i420_to_rgb_flat_reference, rgb_to_i420
+
+    h, w = FULL
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    rng = np.random.default_rng(25)
+    fb = torch.from_numpy(np.stack(frames).reshape(len(frames), h, -1)).to(dev)
+    thresh = drift_threshold(frames[:SEQ_BATCH])[0]
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
+
+    def n_keyed(n):
+        return torch.tensor([n], dtype=torch.int32, device=dev)
+
+    a, b = u8(64, 96), u8(64, 96)
+    k5_cases = {  # label -> (frames, carried, n_keyed, thresh)
+        "n_keyed = 0, static": (torch.stack([a, a, a]), a, 0, 5.0),
+        "scene cut": (torch.stack([a, a, b, b]), a, 1, 5.0),
+        "diff = thresh": (torch.stack([torch.full_like(a, v) for v in (12, 14, 15)]),
+                          torch.full_like(a, 10), 1, 2.0),
+        "shapes 32 frames": (fb, fb[0], 0, thresh),
+        "shapes, carried": (fb[8:16], fb[3], 2, thresh),
+    }
+    for label, (x, carried, n, t) in k5_cases.items():
+        got = keyframe_select(x, carried, n_keyed(n), t)
+        want = keyframe_select_reference(x, carried, n_keyed(n), t)
+        count = int(want[4])
+        same = (_equal_outputs(torch, got[:2] + got[3:], want[:2] + want[3:])
+                and torch.equal(got[2][:count], want[2][:count]))
+        _emit(phase="k5_vs_plain", case=label, frames=x.shape[0], promoted=count, equal=same)
+        if not same:
+            raise AssertionError(f"K5 differs from its plain version ({label})")
+    # K6: tests/test_video.py:316's translation at block 8, and the serving luma
+    img = torch.from_numpy(rng.integers(0, 256, size=(2, 32, 32)).astype(np.float32)).to(dev)
+    luma = pooled_luma(fb)
+    k6_cases = {
+        "translation (2, -3), block 8": (img, torch.roll(img, (2, -3), dims=(1, 2)), 8),
+        "serving luma vs interval-4 keyframes": (luma[::4].repeat_interleave(4, 0), luma, 16),
+        "serving luma, shifted (1, -2) blocks of 8 px": (
+            luma, pooled_luma(torch.roll(fb.view(-1, h, w, 3), (8, -16), dims=(1, 2))), 16),
+    }
+    for label, (key, cur, blk) in k6_cases.items():
+        got = estimate_block_shifts(key.contiguous(), cur.contiguous(), block=blk)
+        want = estimate_block_shifts_reference(key.contiguous(), cur.contiguous(), block=blk)
+        same = _equal_outputs(torch, got, want)
+        _emit(phase="k6_vs_plain", case=label, shape=list(key.shape), block=blk, equal=same,
+              accepted=int((want[0] != 0).sum() + (want[1] != 0).sum()))
+        if not same:
+            raise AssertionError(f"K6 differs from its plain version ({label})")
+    # K7: the seam/range cases (scale 4: the byte path) and the serving shape
+    # (scale 8: the 8-byte path)
+    ids32 = torch.from_numpy(rng.integers(0, 19, size=(1, 32, 32)).astype(np.uint8)).to(dev)
+    seam_dy = torch.tensor([[[0, 2], [0, 2]]], dtype=torch.int32, device=dev)
+    seam_dx = torch.tensor([[[0, -1], [0, -1]]], dtype=torch.int32, device=dev)
+    big = torch.tensor([[[0, 7], [0, 7]]], dtype=torch.int32, device=dev)
+    ids_full = torch.randint(0, 19, (32, h, w), generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.uint8)
+    dyf = torch.randint(-6, 7, (32, h // 128, w // 128), generator=gen, device=dev,
+                        dtype=torch.int32)
+    dxf = torch.randint(-6, 7, (32, h // 128, w // 128), generator=gen, device=dev,
+                        dtype=torch.int32)
+    k7_cases = {
+        "seam (scale 4, block 4)": (ids32, seam_dy, seam_dx, 4, 4),
+        "out of radius": (ids32, big, seam_dx * 0, 4, 4),
+        "serving (32, 1024, 2048)": (ids_full, dyf, dxf, 8, 16),
+    }
+    for label, (ids, dy, dx, scale, blk) in k7_cases.items():
+        got = warp_ids(ids, dy, dx, scale=scale, block=blk)
+        want = warp_ids_reference(ids, dy, dx, scale=scale, block=blk)
+        same = torch.equal(got, want)
+        _emit(phase="k7_vs_plain", case=label, shape=list(ids.shape), equal=same,
+              moved=int((want != ids).sum()))
+        if not same:
+            raise AssertionError(f"K7 differs from its plain version ({label})")
+    # K8
+    i420 = torch.from_numpy(rgb_to_i420(np.stack(frames[:8]))).to(dev)
+    k8_cases = {
+        "0 and 255": torch.stack([torch.zeros((24, 16), dtype=torch.uint8, device=dev),
+                                  torch.full((24, 16), 255, dtype=torch.uint8, device=dev)]),
+        "random planes": u8(4, 96, 130),
+        "shapes 8 x 1024x2048": i420,
+    }
+    for label, x in k8_cases.items():
+        same = torch.equal(i420_to_rgb_flat(x), i420_to_rgb_flat_reference(x))
+        _emit(phase="k8_vs_plain", case=label, shape=list(x.shape), bit_equal=same)
+        if not same:
+            raise AssertionError(f"K8 differs from its plain version ({label})")
+    strided = {
+        "keyframe_select": lambda: keyframe_select(fb[::2], fb[0], n_keyed(0), 1.0),
+        "estimate_block_shifts": lambda: estimate_block_shifts(luma[::2], luma[1::2]),
+        "warp_ids": lambda: warp_ids(ids_full[::2], dyf[::2], dxf[::2], scale=8, block=16),
+        "i420_to_rgb_flat": lambda: i420_to_rgb_flat(i420[::2]),
+    }
+    for name, fn in strided.items():
+        if not _raises_on_strided(fn):
+            raise AssertionError(f"{name} took a strided input without raising")
+    _emit(phase="strided_inputs_raise", kernels=list(strided))
+
+    # times at the serving shapes, in turns, with each bound
+    fb8, kf = fb[:SEQ_BATCH], fb[SEQ_BATCH]
+
+    def k5_eager():  # tpuseg's scan (pipeline.py:614-634) in eager PyTorch
+        key, n = kf, 0
+        for f in fb8:
+            diff = torch.mean(torch.abs(f.to(torch.int16) - key.to(torch.int16)).float())
+            if n == 0 or bool(diff > thresh):
+                key, n = f, n + 1
+        return key
+
+    ks, cs = luma[::4].repeat_interleave(4, 0).contiguous(), luma
+    dyk, dxk = estimate_block_shifts(ks, cs)
+    ids_k = ids_full
+    times = {}
+    specs = {  # name -> (kernel, plain, library or None, iters, bytes, f32 operations)
+        "keyframe_select": (
+            lambda: keyframe_select(fb8, kf, n_keyed(0), thresh),
+            lambda: keyframe_select_reference(fb8, kf, n_keyed(0), thresh), k5_eager, (10, 2),
+            (SEQ_BATCH + 1) * kf.numel() + kf.numel() + SEQ_BATCH * 13, SEQ_BATCH * kf.numel()),
+        "estimate_block_shifts": (
+            lambda: estimate_block_shifts(ks, cs), lambda: estimate_block_shifts_reference(ks, cs),
+            None, (20, 3), 2 * ks.numel() * 4 + 2 * dyk.numel() * 4, 81 * 3 * ks.numel()),
+        "warp_ids": (
+            lambda: warp_ids(ids_k, dyk, dxk, scale=8, block=16),
+            lambda: warp_ids_reference(ids_k, dyk, dxk, scale=8, block=16), None, (20, 2),
+            2 * ids_k.numel() + 2 * dyk.numel() * 4, 0),
+        "i420_to_rgb_flat": (
+            lambda: i420_to_rgb_flat(i420), lambda: i420_to_rgb_flat_reference(i420), None,
+            (20, 3), i420.numel() + 8 * h * w * 3, 8 * h * w * 3 * 3),
+    }
+    for name, (kern, plain, library, (it_k, it_p), nbytes, ops) in specs.items():
+        fns = {"kernel": kern, "plain": plain}
+        iters = {"kernel": it_k, "plain": it_p}
+        if library is not None:
+            fns["library"], iters["library"] = library, it_p
+        turns = _time_turns(torch, fns, iters)
+        bound = _bound(nbytes, ops, "f32")
+        row = {"ms": min(turns["kernel"]), "plain_ms": min(turns["plain"]),
+               "library_ms": min(turns["library"]) if library is not None else None,
+               "bound_ms": bound[0], "bound_by": bound[1]}
+        times[name] = row
+        _emit(phase="new_kernel_time", kernel=name, id=FLOW_ENTRIES[name][0], turns=turns, **row,
+              card=smi)
+    del fb, ids_full, luma, ks, i420
+    torch.cuda.empty_cache()
+    return times
+
+
+def _zero_counts(torch, *fns):
+    torch.cuda.synchronize()
+    for f in fns:
+        f.launches = 0
+
+
+def _interval_warp_full(torch, np, dev, params, state, spec, frames, smi) -> dict:
+    """Phase 26: interval 4 with temporal_nearest and temporal_warp, dense
+    bf16, batch 32, 1024x2048, the 32 shapes frames: run() with every count
+    zeroed just before and read just after (a batch: B1 1, K3 1, K6 1, K7 1);
+    each keyframe's ids equal ``ids_for`` on the same 8 keyframes, bit for
+    bit (the same batch of 8: in bf16 cuDNN may pick another algorithm at
+    another batch size); the device rate at batch 32."""
+    from tpuseg_torch.ops.temporal import frame_deltas
+    from tpuseg_torch.ops.upsample import upsample_argmax
+    from tpuseg_torch.video.flow import estimate_block_shifts, warp_ids
+    from tpuseg_torch.video.pipeline import VideoSegmenter
+
+    seg = VideoSegmenter(params, state, spec, MEAN, STD, device=dev, compute_dtype=torch.bfloat16,
+                         batch=32, temporal_interval=4, temporal_nearest=True,
+                         temporal_warp=True)
+    counters = (upsample_argmax, frame_deltas, estimate_block_shifts, warp_ids)
+    _zero_counts(torch, *counters)
+    res = seg.run(frames, need_color=False)
+    torch.cuda.synchronize()
+    got = {f.__name__: f.launches for f in counters}
+    forwards = 1 + -(-len(frames) // 32)
+    want = {f.__name__: forwards for f in counters}
+    ids = res["ids"]
+    with torch.inference_mode():
+        keys = seg.ids_for(torch.from_numpy(np.stack(frames[::4]).reshape(8, FULL[0], -1)).to(dev))
+    keyed = bool(np.array_equal(ids[::4], keys.cpu().numpy()))
+    moved = float(np.mean([(ids[i] != ids[i - i % 4]).mean() for i in range(len(ids))]))
+    fps = seg.benchmark_device_fps(FULL, inner=8, reps=2)
+    del seg
+    torch.cuda.empty_cache()
+    row = {"launches": got, "want": want, "keyframes_equal_ids_for": keyed,
+           "share_of_ids_moved_by_reuse": moved, "run_fps": res["fps"], "device_fps": fps}
+    _emit(phase="interval_nearest_warp_full", size=list(FULL), dtype="bfloat16", batch=32,
+          interval=4, frames=res["frames"], **row, card=smi)
+    if got != want or not keyed or ids.shape != (len(frames),) + FULL:
+        raise AssertionError(f"interval nearest+warp: launches {got} (want {want}), "
+                             f"keyframes equal {keyed}")
+    return row
+
+
+def _budget_warp_full(torch, np, dev, masked, state, spec, gplans, calib, inputs, smi) -> dict:
+    """Phase 27: phase 23's sparse_int8_budget8 with temporal_nearest and
+    temporal_warp: run() with counts zeroed just before and read just after
+    (a batch: B3 13, B1 1, K3 1, K4 1, K6 1, K7 1), the promotions equal to
+    the CPU plain selection (nearest and warp leave the choice as it is),
+    ``benchmark_adaptive_device_fps``."""
+    from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_apply_q
+    from tpuseg_torch.ops.temporal import budget_select, frame_deltas
+    from tpuseg_torch.ops.upsample import upsample_argmax
+    from tpuseg_torch.video.flow import estimate_block_shifts, warp_ids
+    from tpuseg_torch.video.pipeline import VideoSegmenter
+
+    frames = list(inputs["frames"])
+    seg = VideoSegmenter(masked, state, spec, MEAN, STD, device=dev, compute_dtype=torch.bfloat16,
+                         batch=BUDGET_BATCH, exec_plans=gplans, quantize=True, calib_frames=calib,
+                         temporal_thresh=inputs["thresh"], temporal_budget=BUDGET_K,
+                         temporal_nearest=True, temporal_warp=True)
+    counters = (fused_sparse_conv_apply_q, upsample_argmax, frame_deltas, budget_select,
+                estimate_block_shifts, warp_ids)
+    _zero_counts(torch, *counters)
+    res = seg.run(frames, need_color=False)
+    torch.cuda.synchronize()
+    got = {f.__name__: f.launches for f in counters}
+    forwards = 1 + len(frames) // BUDGET_BATCH
+    want = {f.__name__: forwards for f in counters}
+    want["fused_sparse_conv_apply_q"] = B3_PER_FORWARD["gathered"] * forwards
+    assert res["ids"].shape == (len(frames),) + FULL
+    dev_res = seg.benchmark_adaptive_device_fps(frames, reps=2)
+    del seg
+    torch.cuda.empty_cache()
+    row = {"launches": got, "want": want, "promoted": res["promoted"],
+           "promoted_cpu": inputs["promoted_cpu"], "run_fps": res["fps"],
+           "device_fps": dev_res["device_fps"], "device_promotion_rate": dev_res["promotion_rate"]}
+    _emit(phase="budget_nearest_warp_full", config=SERVED_CONFIG, lowering="gathered",
+          size=list(FULL), batch=BUDGET_BATCH, budget=BUDGET_K, frames=len(frames), **row,
+          card=smi)
+    if got != want or res["promoted"] != inputs["promoted_cpu"]:
+        raise AssertionError(f"budget nearest+warp: launches {got} (want {want}), promoted "
+                             f"{res['promoted']} vs the CPU selection {inputs['promoted_cpu']}")
+    return row
+
+
+def _sequential_full(torch, np, dev, params, state, spec, frames, smi) -> dict:
+    """Phase 28: the sequential adaptive mode, dense bf16, batch 8, the 32
+    shapes frames, threshold ``drift_threshold`` of the first 8: the
+    promotions equal K5's plain version on the CPU (chained over the
+    batches from a fresh carry); each batch one forward of exactly its
+    promoted frames (recorded), K5 launched batch + 1 times a batch and B1
+    once a batch that promotes; the adaptive device rate."""
+    from tpuseg_torch.ops.temporal import keyframe_select, keyframe_select_reference
+    from tpuseg_torch.ops.upsample import upsample_argmax
+    from tpuseg_torch.video.autotune import drift_threshold
+    from tpuseg_torch.video.pipeline import VideoSegmenter
+
+    h, w = FULL
+    thresh = drift_threshold(frames[:SEQ_BATCH])[0]
+    kf, nk, cpu_counts = torch.zeros((h, w * 3), dtype=torch.uint8), torch.zeros(
+        1, dtype=torch.int32), []
+    for i in range(0, len(frames), SEQ_BATCH):
+        fb = torch.from_numpy(np.stack(frames[i:i + SEQ_BATCH]).reshape(SEQ_BATCH, h, -1))
+        _, _, _, _, count, nk, kf = keyframe_select_reference(fb, kf, nk, thresh)
+        cpu_counts.append(int(count))
+    seg = VideoSegmenter(params, state, spec, MEAN, STD, device=dev, compute_dtype=torch.bfloat16,
+                         batch=SEQ_BATCH, temporal_thresh=thresh)
+    sizes = []
+    orig = seg.ids_for
+    seg.ids_for = lambda x: sizes.append(x.shape[0]) or orig(x)
+    _zero_counts(torch, keyframe_select, upsample_argmax)
+    res = seg.run(frames, need_color=False)
+    torch.cuda.synchronize()
+    got = {"keyframe_select": keyframe_select.launches, "upsample_argmax": upsample_argmax.launches}
+    seg.ids_for = orig
+    batches = len(frames) // SEQ_BATCH
+    run_sizes = [c for c in [cpu_counts[0]] + cpu_counts if c]  # the untimed first call + batches
+    want = {"keyframe_select": (batches + 1) * (SEQ_BATCH + 1), "upsample_argmax": len(run_sizes)}
+    dev_res = seg.benchmark_adaptive_device_fps(frames, reps=2)
+    del seg
+    torch.cuda.empty_cache()
+    row = {"launches": got, "want": want, "forward_sizes": sizes, "cpu_promoted": cpu_counts,
+           "promoted": res["promoted"], "promotion_rate": res["promotion_rate"], "thresh": thresh,
+           "run_fps": res["fps"], "device_fps": dev_res["device_fps"],
+           "device_promotion_rate": dev_res["promotion_rate"]}
+    _emit(phase="sequential_full", size=list(FULL), dtype="bfloat16", batch=SEQ_BATCH,
+          frames=res["frames"], **row, card=smi)
+    if got != want or sizes != run_sizes or res["promoted"] != sum(cpu_counts):
+        raise AssertionError(f"sequential mode: launches {got} (want {want}), forwards {sizes} "
+                             f"(want {run_sizes}), promoted {res['promoted']} vs the CPU "
+                             f"{sum(cpu_counts)}")
+    return row
+
+
+def _transport_full(torch, np, dev, params, state, spec, smi) -> dict:
+    """Phase 29: transport="yuv420" with target_size from a 512x1024 decode
+    to 1024x2048 and ids_bits=5, dense bf16, run() at batch 8 over 32 shapes
+    frames made at decode size: K8 and B1 once a batch; the unpacked ids
+    equal the unpacked-free run's bit for bit; device_outputs' color and
+    overlay equal their reconstruction from the same ids and frames (the
+    palette gather, and the blend of the frames through K8 and the device
+    resize); the bytes each batch ships up (1.5 a decode pixel) and down,
+    and run()'s host work a batch (RGB -> I420, the unpack)."""
+    from tpuseg_torch.data.shapes import shapes_video
+    from tpuseg_torch.ops.idpack import unpack_ids
+    from tpuseg_torch.ops.upsample import upsample_argmax
+    from tpuseg_torch.video.pipeline import VideoSegmenter, resize_frames
+    from tpuseg_torch.video.yuv import i420_to_rgb_flat, rgb_to_i420
+
+    dec = (512, 1024)
+    frames = list(shapes_video(32, dec, seed=0)[0])
+    kw = dict(device=dev, compute_dtype=torch.bfloat16, batch=8, target_size=FULL,
+              transport="yuv420")
+    seg = VideoSegmenter(params, state, spec, MEAN, STD, ids_bits=5, **kw)
+    _zero_counts(torch, i420_to_rgb_flat, upsample_argmax)
+    packed = seg.run(frames, need_color=False)
+    torch.cuda.synchronize()
+    got = {"i420_to_rgb_flat": i420_to_rgb_flat.launches,
+           "upsample_argmax": upsample_argmax.launches}
+    forwards = 1 + len(frames) // 8
+    want = {"i420_to_rgb_flat": forwards, "upsample_argmax": forwards}
+    plain = VideoSegmenter(params, state, spec, MEAN, STD, **kw).run(frames, need_color=False)
+    same_ids = bool(np.array_equal(packed["ids"], plain["ids"]))
+    outs = {}
+    for overlay in (False, True):
+        s = VideoSegmenter(params, state, spec, MEAN, STD, device_outputs=True,
+                           want_overlay=overlay, **kw)
+        outs[overlay] = s.run(frames[:8])
+    ids8 = outs[False]["ids"]
+    color = seg.palette_np[ids8]
+    with torch.inference_mode():
+        x = torch.from_numpy(rgb_to_i420(np.stack(frames[:8]))).to(dev)
+        rgb = resize_frames(i420_to_rgb_flat(x), FULL).cpu().numpy().reshape(8, *FULL, 3)
+    color_ok = bool(np.array_equal(outs[False]["color"], color)
+                    and np.array_equal(outs[True]["ids"], ids8))
+    overlay_ok = bool(np.array_equal(outs[True]["color"], rgb // 2 + color // 2))
+    batches = len(frames) // 8
+    # run()'s host work a batch: RGB -> I420 of an RGB source (a decoder
+    # emitting I420 skips it) and the 5-bit unpack
+    t0 = time.perf_counter()
+    rgb_to_i420(np.stack(frames[:8]))
+    t1 = time.perf_counter()
+    unpack_ids(np.zeros((8, FULL[0], FULL[1] * 5 // 8), np.uint8), 5)
+    t2 = time.perf_counter()
+    row = {"launches": got, "want": want, "ids_equal_unpacked_run": same_ids,
+           "host_rgb_to_i420_ms": (t1 - t0) * 1e3, "host_unpack_ids_ms": (t2 - t1) * 1e3,
+           "device_color_equal": color_ok, "device_overlay_equal": overlay_ok,
+           "h2d_bytes_per_batch": packed["h2d_bytes"] // batches,
+           "h2d_bytes_rgb_target_per_batch": 8 * FULL[0] * FULL[1] * 3,
+           "d2h_bytes_per_batch": packed["d2h_bytes"] // batches,
+           "d2h_bytes_unpacked_per_batch": plain["d2h_bytes"] // batches,
+           "run_fps": packed["fps"], "run_fps_unpacked": plain["fps"],
+           "run_fps_device_outputs_8": outs[False]["fps"]}
+    _emit(phase="transport_full", decode=list(dec), target=list(FULL), dtype="bfloat16", batch=8,
+          frames=packed["frames"], ids_bits=5, **row, card=smi)
+    del seg, outs
+    torch.cuda.empty_cache()
+    if (got != want or not (same_ids and color_ok and overlay_ok)
+            or row["h2d_bytes_per_batch"] != 8 * dec[0] * dec[1] * 3 // 2
+            or row["d2h_bytes_per_batch"] * 8 != row["d2h_bytes_unpacked_per_batch"] * 5):
+        raise AssertionError(f"transport run: {row}")
+    return row
+
+
+def _cli_autotune(smi) -> dict:
+    """Phase 30: the CLI once, as a user runs it: autotuning with warped
+    reuse on 32 shapes frames at 1024x2048, batch 8; its temporal_autotune
+    event and result line must parse."""
+    import os
+
+    cmd = [sys.executable, "-m", "tpuseg_torch.cli.seg_video", "--video", "shapes", "--size",
+           "1024x2048", "--frames", "32", "--batch", "8", "--temporal-autotune", "0.9",
+           "--temporal-warp"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"seg_video exited {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    event = next(ln for ln in lines if ln.get("event") == "temporal_autotune")
+    line = lines[-1]
+    _emit(phase="cli_autotune", command=" ".join(cmd[1:]), seconds=round(seconds, 1),
+          choice=event["choice"], table=event["table"], result=line, card=smi)
+    if "frames" not in line or line["frames"] != 32 or "autotune_choice" not in line:
+        raise AssertionError(f"seg_video's result line: {line}")
+    return {"event": event, "result": line}
+
+
 def main() -> int:
     import torch
 
@@ -1661,8 +2106,8 @@ def main() -> int:
 
 
 def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
-    """Phases 2-24 and the closing lines (``main`` builds, then runs these
-    with the worker process that makes phase 23's inputs)."""
+    """Phases 2-30 and the closing lines (``main`` builds, then runs these
+    with the worker process that makes phase 23's and 27's inputs)."""
     from tpuseg_torch.data.shapes import shapes_video
     from tpuseg_torch.models.drnseg import bilinear_upsample_kernel, init_drnseg
     from tpuseg_torch.ops import _build
@@ -2027,8 +2472,19 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
     # sparse_int8_budget8, interval mode
     temporal_k = _temporal_kernels(torch, np, dev, frames, smi)
     budget = _budget_full(torch, np, dev, masked, state, spec, gplans, frames[:8], inputs, smi)
-    del inputs
     _interval_full(torch, np, dev, params, state, spec, frames, smi)
+    # 25-30. this slice: K5-K8 against their plain versions, interval and
+    # budgeted serving with nearest and warped reuse, the sequential adaptive
+    # mode, the yuv420 transport with the device resize and packed ids, the
+    # CLI's autotuning
+    new_k = _new_kernels(torch, np, dev, frames, smi)
+    interval_warp = _interval_warp_full(torch, np, dev, params, state, spec, frames, smi)
+    budget_warp = _budget_warp_full(torch, np, dev, masked, state, spec, gplans, frames[:8],
+                                    inputs, smi)
+    del inputs
+    sequential = _sequential_full(torch, np, dev, params, state, spec, frames, smi)
+    transport = _transport_full(torch, np, dev, params, state, spec, smi)
+    _cli_autotune(smi)
 
     _emit(phase="total", seconds=round(time.perf_counter() - t_start, 1))
     sc_src, b2_src = "tpuseg/ops/sparse_conv.py", "tpuseg_torch/csrc/sparse_conv.cu"
@@ -2077,7 +2533,15 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
         timed("budget_select", "tpuseg_torch/csrc/temporal.cu",
               "tpuseg/video/pipeline.py:680-704", budget["launches"]["budget_select"],
               temporal_k["budget_select"]),
-    ]
+    ] + [timed(name, source, replaces, launched, new_k[name])
+         for name, launched in (
+             ("keyframe_select", sequential["launches"]["keyframe_select"]),
+             ("estimate_block_shifts", interval_warp["launches"]["estimate_block_shifts"]
+              + budget_warp["launches"]["estimate_block_shifts"]),
+             ("warp_ids", interval_warp["launches"]["warp_ids"]
+              + budget_warp["launches"]["warp_ids"]),
+             ("i420_to_rgb_flat", transport["launches"]["i420_to_rgb_flat"]))
+         for _, source, replaces in [FLOW_ENTRIES[name]]]
     bad = [k["name"] for k in kernels if not k["launches"] > 0]
     if bad:
         raise AssertionError(f"kernels never launched on their path: {bad}")

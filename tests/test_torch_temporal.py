@@ -168,9 +168,9 @@ def test_promotion_rate_counts_returned_frames():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(temporal_thresh=5.0), "not ported yet"),
-    (dict(temporal_thresh=5.0, temporal_budget=2, temporal_nearest=True), "not ported yet"),
-    (dict(temporal_interval=2, temporal_warp=True), "not ported yet"),
+    (dict(temporal_thresh=5.0, temporal_nearest=True), "BATCHED"),
+    (dict(temporal_nearest=True), "BATCHED"),
+    (dict(temporal_thresh=5.0, temporal_warp=True), "temporal_warp requires"),
     (dict(temporal_budget=2), "requires temporal_thresh"),
     (dict(temporal_interval=2, temporal_thresh=5.0, temporal_budget=2), "mutually exclusive"),
     (dict(temporal_thresh=5.0, temporal_budget=0), "1..batch"),

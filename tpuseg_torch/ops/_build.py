@@ -211,6 +211,48 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,                  # cudaStream_t
     ]
     lib.tpuseg_budget_select.restype = ctypes.c_int
+    lib.tpuseg_keyframe_select.argtypes = [
+        ctypes.c_void_p,                  # frames (B, H, W*3) uint8
+        ctypes.c_void_p,                  # carried keyframe (H, W*3) uint8
+        ctypes.c_void_p,                  # n_in (1,) int32
+        ctypes.c_void_p,                  # state (3,) int32: keyframe index, n, promotions
+        ctypes.c_void_p,                  # sums (B,) uint64, zeroed
+        ctypes.c_void_p,                  # done (B,) uint32, zeroed
+        ctypes.c_float, ctypes.c_int,     # thresh, B
+        ctypes.c_longlong,                # bytes per frame
+        ctypes.c_void_p,                  # flags (B,) bool
+        ctypes.c_void_p,                  # keyslot (B,) int32
+        ctypes.c_void_p,                  # fwd_idx (B,) int32
+        ctypes.c_void_p,                  # diffs (B,) f32
+        ctypes.c_void_p,                  # out: the new carried keyframe (H, W*3) uint8
+        ctypes.c_void_p,                  # cudaStream_t
+    ]
+    lib.tpuseg_keyframe_select.restype = ctypes.c_int
+    lib.tpuseg_block_shifts.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,  # key, cur luma (B, hs, ws) f32
+        ctypes.c_void_p, ctypes.c_void_p,  # dy, dx (B, hs/block, ws/block) int32
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B hs ws
+        ctypes.c_int, ctypes.c_int,       # radius, block
+        ctypes.c_float,                   # accept_frac
+        ctypes.c_void_p,                  # cudaStream_t
+    ]
+    lib.tpuseg_block_shifts.restype = ctypes.c_int
+    lib.tpuseg_warp_ids.argtypes = [
+        ctypes.c_void_p,                  # key ids (B, H, W) uint8
+        ctypes.c_void_p, ctypes.c_void_p,  # dy, dx (B, H/up, W/up) int32
+        ctypes.c_void_p,                  # out (B, H, W) uint8
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H W
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # scale block radius
+        ctypes.c_void_p,                  # cudaStream_t
+    ]
+    lib.tpuseg_warp_ids.restype = ctypes.c_int
+    lib.tpuseg_i420_to_rgb.argtypes = [
+        ctypes.c_void_p,                  # in (B, H*3/2, W) uint8
+        ctypes.c_void_p,                  # out (B, H, W*3) uint8
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H W
+        ctypes.c_void_p,                  # cudaStream_t
+    ]
+    lib.tpuseg_i420_to_rgb.restype = ctypes.c_int
     lib.tpuseg_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tpuseg_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,7 +1,8 @@
-"""Budgeted temporal serving's per-batch selection (the XLA work of
-``tpuseg/video/pipeline.py::program_budget``, ``:670-704``), as two
-hand-written CUDA kernels in ``tpuseg_torch/csrc/temporal.cu``, each with its
-plain PyTorch version beside it.
+"""Temporal serving's keyframe choice (the XLA work of
+``tpuseg/video/pipeline.py::program_budget``, ``:670-704``, and of
+``program_adaptive``'s scan, ``:614-638``), as three hand-written CUDA kernels
+in ``tpuseg_torch/csrc/temporal.cu``, each with its plain PyTorch version
+beside it.
 
 - ``frame_deltas`` (K3): ``d[i] = mean |f[i] - f[i-1]|`` over a batch of
   flat uint8 frames, ``f[-1]`` the carried previous frame.  The |differences|
@@ -13,6 +14,11 @@ plain PyTorch version beside it.
   the threshold, at most ``budget`` a batch) and its slot arithmetic: the
   flags, the forwarded frames' indices ``fwd_idx`` (0 where a slot is not
   filled) and each frame's keyframe slot ``keyslot`` (cumsum(flags) - 1).
+- ``keyframe_select`` (K5): the sequential adaptive mode's choice, for each
+  frame in order the mean |f[i] - kf| against the live keyframe (exact
+  integer sum divided in double, as K3), promote when nothing was keyed yet
+  or it exceeds the threshold, and the promoted frame becomes the keyframe.
+  It depends only on pixels, so a whole batch is chosen before any forward.
 
 On a CUDA tensor each wrapper launches its kernel on the current stream,
 counts it in ``<wrapper>.launches`` and raises if the launch fails; on a CPU
@@ -157,3 +163,93 @@ def budget_select(d: torch.Tensor, acc0: torch.Tensor, n_keyed: torch.Tensor,
 
 
 budget_select.launches = 0
+
+
+def _check_keyframe(frames, carried, n_keyed) -> None:
+    _check_frames(frames, carried)
+    if n_keyed.dtype != torch.int32 or n_keyed.numel() != 1 or n_keyed.device != frames.device:
+        raise ValueError("n_keyed must be one int32 on the frames' device")
+    if frames.shape[0] == 0:
+        raise ValueError("frames must hold at least one frame")
+
+
+def keyframe_select_reference(frames: torch.Tensor, carried: torch.Tensor,
+                              n_keyed: torch.Tensor, thresh: float):
+    """Plain version of K5: ``tpuseg``'s scan as a loop, each diff the exact
+    int64 sum of |f[i] - kf| divided in double by the frame's element
+    count and rounded to f32, compared with ``thresh`` rounded to f32."""
+    _check_keyframe(frames, carried, n_keyed)
+    t = torch.tensor(thresh, dtype=torch.float32)
+    nb = frames.shape[0]
+    n = int(n_keyed.reshape(()))
+    key, used = -1, 0
+    flags = torch.zeros(nb, dtype=torch.bool)
+    keyslot = torch.empty(nb, dtype=torch.int32)
+    fwd_idx = torch.zeros(nb, dtype=torch.int32)
+    diffs = torch.empty(nb, dtype=torch.float32)
+    for i in range(nb):
+        kf = carried if key < 0 else frames[key]
+        s = (frames[i].to(torch.int16) - kf.to(torch.int16)).abs_().sum(dtype=torch.int64)
+        diffs[i] = (s.to(torch.float64) / carried.numel()).to(torch.float32)
+        if n == 0 or bool(diffs[i] > t):
+            fwd_idx[used] = i
+            used += 1
+            n += 1
+            key = i
+            flags[i] = True
+        keyslot[i] = used - 1
+    dev = frames.device
+    new_kf = (carried if key < 0 else frames[key]).clone()
+    return (flags.to(dev), keyslot.to(dev), fwd_idx.to(dev), diffs.to(dev),
+            torch.tensor([used], dtype=torch.int32, device=dev),
+            torch.tensor([n], dtype=torch.int32, device=dev), new_kf)
+
+
+def keyframe_select(frames: torch.Tensor, carried: torch.Tensor, n_keyed: torch.Tensor,
+                    thresh: float):
+    """The sequential adaptive mode's keyframe choice over a batch of uint8
+    frames (B, ...) from the carried keyframe ``carried`` (one frame's shape)
+    and promotion count ``n_keyed`` (0 promotes the first frame):
+    ``(flags (B,) bool, keyslot (B,) int32, fwd_idx (B,) int32, diffs (B,)
+    f32, count (1,) int32, n_keyed (1,) int32, keyframe)``.  ``keyslot[i]``
+    is the promotions up to frame i - 1 (-1: the carried keyframe);
+    ``fwd_idx[:count]`` are the promoted frames in order (the rest
+    unspecified); ``keyframe`` is the live keyframe after the batch, a new
+    tensor.  The inputs are not written.
+
+    On a CUDA tensor (both frames contiguous) it launches K5: B + 1 kernel
+    launches, counted in ``keyframe_select.launches``; on a CPU tensor it
+    runs ``keyframe_select_reference``."""
+    _check_keyframe(frames, carried, n_keyed)
+    if frames.device.type == "cpu":
+        return keyframe_select_reference(frames, carried, n_keyed, thresh)
+    if frames.device.type != "cuda":
+        raise ValueError(f"unsupported device {frames.device}")
+    if not (frames.is_contiguous() and carried.is_contiguous()):
+        raise ValueError("frames and the carried keyframe must be contiguous")
+    from tpuseg_torch.ops._build import load_library
+
+    nb, dev = frames.shape[0], frames.device
+    n_in = n_keyed.reshape(1).contiguous()
+    state = torch.empty((3,), dtype=torch.int32, device=dev)
+    sums = torch.zeros((nb,), dtype=torch.int64, device=dev)
+    done = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    flags = torch.empty((nb,), dtype=torch.bool, device=dev)
+    keyslot = torch.empty((nb,), dtype=torch.int32, device=dev)
+    fwd_idx = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    diffs = torch.empty((nb,), dtype=torch.float32, device=dev)
+    new_kf = torch.empty_like(carried)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tpuseg_keyframe_select(
+            frames.data_ptr(), carried.data_ptr(), n_in.data_ptr(), state.data_ptr(),
+            sums.data_ptr(), done.data_ptr(), float(thresh), nb, carried.numel(),
+            flags.data_ptr(), keyslot.data_ptr(), fwd_idx.data_ptr(), diffs.data_ptr(),
+            new_kf.data_ptr(), stream)
+    _raise_on(lib, "keyframe_select", err)
+    keyframe_select.launches += nb + 1
+    return flags, keyslot, fwd_idx, diffs, state[2:3], state[1:2], new_kf
+
+
+keyframe_select.launches = 0
