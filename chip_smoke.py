@@ -4,8 +4,9 @@ kernels from ``tpuseg_torch/csrc/``, holds each against its plain PyTorch
 version, drives the served slices (DRN-D-22 DRNSeg, 19 classes, 1024x2048,
 dense and pruned, float and int8, with the int8 stem, every temporal mode,
 the yuv420 transport, the device resize, packed ids and device outputs)
-through ``VideoSegmenter`` and the CLI, and times the kernels against their
-plain versions.
+through ``VideoSegmenter`` and the CLI, trains DRNSeg at crop 512 (dense,
+masked, ``--sparse-exec``) through the trainer's CLI, and times the kernels
+against their plain versions.
 
     python3 chip_smoke.py        # from the repo root, one CUDA card
 
@@ -146,6 +147,33 @@ Phases (any failed check raises and the exit code is non-zero):
  30. ``python -m tpuseg_torch.cli.seg_video --video shapes --size 1024x2048
      --frames 32 --batch 8 --temporal-autotune 0.9 --temporal-warp``: its
      temporal_autotune event and result line parse.
+ 31. ``sparse_conv_train`` (B2 in the forward and, on the transposed
+     packing, in the dgrad) vs its plain version within 2*K*eps on each of
+     the 10 structs ``build_sparse_train_structs`` makes from
+     block128reg_87.50, at its crop-512, batch-8 activation (8, 64, 64,
+     Cin), and on k in {1, 3}, d in {1, 2, 4} cases; y and dx also vs
+     cuDNN's f64 conv and dgrad of the bf16 masked weight, which a wrong
+     packing or transpose index would fail; the f32 wgrad vs the dense
+     conv's weight gradient on the mask; one B2 launch in the forward
+     and one in the backward of each call; a live tile of zero weights, then
+     refilled, under one plan; a strided dy raising; the forward and the
+     dgrad at layer.6.1.conv2's shape timed against their plain versions and
+     cuDNN's dense conv and dgrad;
+ 32. ``python -m tpuseg_torch.cli.semantic_seg train --synthetic 64 -s 512
+     --batch-size 8 --eval-every 1 --epochs 1`` in this process (bf16), then
+     resumed from its checkpoint for epoch 1; ms a step (CUDA events, after
+     warm-up) and peak memory with and without --remat, and without it the
+     device's busy ms and idle share over 5 profiled steps; in f32, --remat's
+     loss equal and its peak lower at full width, and one step on the card
+     against the CPU at 64x64 (loss rtol 1e-4, params and BN state rtol
+     2e-3 / atol 5e-4);
+ 33. the README's masked command (``--mc-pruning --pr-static
+     --pr-config-path`` block128reg_87.50) with and without
+     ``--sparse-exec``: its sparse_exec report, B2 launched exactly 2 x 10
+     times a train step (forward and dgrad) and never in evaluation, ms a
+     step of each and its device busy ms, idle share and largest kernels
+     over 5 profiled steps, masked weights exactly 0, and in f32 at 64x64 the two
+     trajectories within phase 32's tolerances.
 The line before the last is the kernels' JSON record (each kernel's time,
 its plain version's, its bound at the card's published peaks and the
 PyTorch call's, at its main shape; B3's time is its served route, the
@@ -157,6 +185,7 @@ entry conv1 of the stem); the last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2063,6 +2092,476 @@ def _cli_autotune(smi) -> dict:
     return {"event": event, "result": line}
 
 
+# phases 31-33: segmentation training, the README's command (crop 512, batch
+# 8, bf16) on --synthetic data: dense, masked and --sparse-exec
+TRAIN_CROP = 512
+TRAIN_BATCH = 8
+TRAIN_SAMPLES = 64   # --synthetic 64: 8 train steps an epoch
+TRAIN_STRUCTS = 10   # convs of block128reg_87.50 that --sparse-exec runs through B2
+TRAIN_TIMED = "layer.6.1.conv2"  # the struct timed in phase 31
+TRAIN_ENTRIES = {  # wrapper -> the role in which tpuseg's trainer launches B2
+    "sparse_conv_train_forward": "tpuseg/ops/sparse_train.py:225-227 (forward)",
+    "sparse_conv_train_dgrad": "tpuseg/ops/sparse_train.py:239 (dgrad)",
+}
+TRAIN_CLI = ["train", "--synthetic", str(TRAIN_SAMPLES), "-s", str(TRAIN_CROP),
+             "--batch-size", str(TRAIN_BATCH), "--eval-every", "1"]
+TRAIN_MASKED = ["--mc-pruning", "--pr-static", "--pr-config-path", SERVED_CONFIG]
+
+
+def _train_case(torch, np, name, plan, wt, mask, x, dy) -> dict:
+    """One struct on the card against its plain version: B2's forward (y)
+    and dgrad (dx) within 2*K*eps of ``fused_sparse_conv_reference`` on the
+    same packings, and of cuDNN's f64 conv and dgrad of the bf16 masked
+    weight (K the dense contraction: these hold the packing and transpose
+    indices); the f32 wgrad within 2*K*eps of the dense conv's weight
+    gradient of the same bf16 operands on the mask; and the autograd route
+    (``sparse_conv_train``) launching B2 once in the forward and once in the
+    backward, its y within 2*K*eps of the f64 conv, its dx and dW (cast to
+    bf16 by the route) within bf16 rounding of the f64 dgrad and the dense
+    weight gradient, dW 0 off the mask."""
+    from tpuseg_torch.ops import sparse_train as tst
+    from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_apply, fused_sparse_conv_reference
+
+    st = plan.struct
+    n, h, w, _ = x.shape
+    info = {"case": name, "shape": [n, h, w, st.cin], "cout": st.cout, "kernel": st.kernel,
+            "dilation": st.dilation, "s": st.s, "st": st.st}
+    vals = tst.pack_vals(wt, plan, torch.bfloat16)
+    vals_t = tst._transpose_vals(vals, plan)
+    dyc = dy.to(torch.bfloat16)
+    k2 = st.kernel * st.kernel
+    y_kernel = tst.sparse_conv_train_forward(x, vals, plan)
+    dx_kernel = tst.sparse_conv_train_dgrad(dyc, vals_t, plan)
+    y_err = _close(torch, np, "train_forward_vs_plain", y_kernel,
+                   fused_sparse_conv_reference(x, tst._fwd_plan(vals, plan)), k2 * st.s * 128,
+                   **info)
+    dx_err = _close(torch, np, "train_dgrad_vs_plain", dx_kernel,
+                    fused_sparse_conv_reference(dyc, tst._bwd_plan(vals_t, plan)),
+                    k2 * st.st * 128, **info)
+    pad = st.dilation * (st.kernel - 1) // 2
+    # the dense conv and dgrad of the same bf16 operands, exact in f64
+    w64 = wt.to(torch.bfloat16).double() * mask
+    x64 = x.double().permute(0, 3, 1, 2).contiguous()
+    dy64 = dyc.double().permute(0, 3, 1, 2).contiguous()
+    y_dense = torch.nn.functional.conv2d(x64, w64, None, 1, pad, st.dilation)
+    y_dense = y_dense.permute(0, 2, 3, 1).float()
+    dx_dense = torch.nn.grad.conv2d_input(tuple(x64.shape), w64, dy64, 1, pad, st.dilation)
+    dx_dense = dx_dense.permute(0, 2, 3, 1).float()
+    del x64, dy64
+    y_dense_err = _close(torch, np, "train_forward_vs_dense", y_kernel, y_dense,
+                         k2 * st.cin, **info)
+    dx_dense_err = _close(torch, np, "train_dgrad_vs_dense", dx_kernel, dx_dense,
+                          k2 * st.cout, **info)
+    dw_dense = torch.nn.grad.conv2d_weight(
+        x.float().permute(0, 3, 1, 2), tuple(wt.shape), dyc.float().permute(0, 3, 1, 2), 1, pad,
+        st.dilation) * mask
+    dw_err = _close(torch, np, "train_wgrad_vs_dense", tst.sparse_wgrad(x, dyc, plan),
+                    tst.pack_vals(dw_dense, plan, torch.float32), n * h * w, **info)
+    # the autograd route
+    fwd, dgrad = tst.sparse_conv_train_forward, tst.sparse_conv_train_dgrad
+    _zero_counts(torch, fwd, dgrad, fused_sparse_conv_apply)
+    xl, wl = x.float().requires_grad_(), wt.clone().requires_grad_()
+    y = tst.sparse_conv_train(xl, wl, plan, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    in_forward = (fwd.launches, dgrad.launches)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    in_all = (fwd.launches, dgrad.launches, fused_sparse_conv_apply.launches)
+    if in_forward != (1, 0) or in_all != (1, 1, 0):
+        raise AssertionError(f"{name}: sparse_conv_train launched B2 (forward, dgrad) "
+                             f"{in_forward} in the forward and (forward, dgrad, apply) {in_all} "
+                             "in all; want (1, 0) and (1, 1, 0)")
+    _close(torch, np, "train_autograd_y_vs_dense", y.detach(), y_dense, k2 * st.cin, **info)
+    off = float((wl.grad * (1 - mask)).abs().max())
+    grad_rel = float((wl.grad - dw_dense).abs().max() / dw_dense.abs().max())
+    # the route returns dx in bf16: its rounding (2^-8) and the f32 sum's order
+    dx_rel = float((xl.grad - dx_dense).abs().max() / dx_dense.abs().max())
+    dx_tol = 2.0 ** -8 + 2 * k2 * st.cout * float(np.finfo(np.float32).eps)
+    if off != 0.0 or not grad_rel <= 2.0 ** -8 or not dx_rel <= dx_tol:
+        raise AssertionError(f"{name}: autograd dW off the mask {off}, vs the dense gradient "
+                             f"{grad_rel} (limit 2^-8), dx vs the dense dgrad {dx_rel} "
+                             f"(limit {dx_tol})")
+    return {"y": y_err, "dx": dx_err, "dw": dw_err, "y_vs_dense": y_dense_err,
+            "dx_vs_dense": dx_dense_err, "autograd_dw_rel": grad_rel, "autograd_dx_rel": dx_rel}
+
+
+def _train_kernels(torch, np, dev, rng, smi) -> dict:
+    """Phase 31: ``sparse_conv_train`` on the card against its plain version
+    on each struct ``build_sparse_train_structs`` makes from
+    block128reg_87.50 at its crop-512, batch-8 activation shape (every
+    eligible conv of DRN-D-22 runs at output stride 8: 64x64) and on small
+    cases with k in {1, 3} and d in {1, 2, 4} (one with an out-block of no
+    in-block); a live tile of all-zero weights, then of nonzero weights,
+    under one plan; a strided dy raising; B2's forward and dgrad at
+    ``TRAIN_TIMED``'s shape in turns against their plain versions and cuDNN's
+    dense bf16 conv and dgrad of the masked weight."""
+    import torch.nn.functional as F
+
+    from tpuseg_torch.models.drnseg import init_drnseg
+    from tpuseg_torch.ops import sparse_train as tst
+    from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_reference
+    from tpuseg_torch.sparsity import create_masker
+
+    params, _, spec = init_drnseg(0, ARCH, CLASSES)
+    masks = create_masker(SERVED_CONFIG, seed=0).generate_masks(params)
+    structs, report = tst.build_sparse_train_structs(masks, spec)
+    if len(structs) != TRAIN_STRUCTS:
+        raise AssertionError(f"{len(structs)} sparse-train structs, want {TRAIN_STRUCTS}: "
+                             f"{report}")
+    hw = TRAIN_CROP // 8
+    cases = [(name, st, masks[f"{name}.weight"], (TRAIN_BATCH, hw, hw))
+             for name, st in structs.items()]
+    for k, d in ((1, 1), (3, 1), (3, 2), (3, 4)):
+        m = _b2_mask(rng, k, 384, 256, 2, dead_out=(d == 2))
+        cases.append((f"k{k}_d{d}", tst.plan_sparse_conv_train(m.transpose(2, 3, 1, 0),
+                                                                dilation=d),
+                       torch.from_numpy(m), (2, 24, 40)))
+    g = torch.Generator(device=dev).manual_seed(31)
+    errs, kept = {}, {}
+    for name, st, mask, (n, h, w) in cases:
+        plan, mask = st.to(dev), mask.to(dev)
+        k2 = st.kernel * st.kernel
+        wt = torch.randn((st.cout, st.cin, st.kernel, st.kernel), generator=g, device=dev)
+        wt = wt * (2.0 / (k2 * st.cin)) ** 0.5 * mask
+        x = torch.randn((n, h, w, st.cin), generator=g, device=dev).to(torch.bfloat16)
+        dy = torch.randn((n, h, w, st.cout), generator=g, device=dev)
+        errs[name] = _train_case(torch, np, name, plan, wt, mask, x, dy)
+        if name == TRAIN_TIMED:
+            kept = {"plan": plan, "wt": wt, "mask": mask, "x": x, "dy": dy}
+    # a live tile of zero weights is still a step: the same plan stays right
+    # once the tile's weights are nonzero
+    plan, wt = kept["plan"], kept["wt"].clone()
+    j, t, s = (int(v) for v in np.argwhere(plan.struct.nzsel != 0)[0])
+    kb, (p, q) = int(plan.struct.rows[j, s]), divmod(t, plan.struct.kernel)
+    tile = (slice(j * 128, (j + 1) * 128), slice(kb * 128, (kb + 1) * 128), p, q)
+    zeroed = wt.clone()
+    zeroed[tile] = 0.0
+    for label, wv in (("zero_tile", zeroed), ("tile_refilled", wt)):
+        errs[label] = _train_case(torch, np, f"{TRAIN_TIMED} {label}", plan, wv, kept["mask"],
+                                  kept["x"], kept["dy"])
+    # B2 checks dy's layout in the dgrad role too
+    vals = tst.pack_vals(kept["wt"], plan, torch.bfloat16)
+    vals_t = tst._transpose_vals(vals, plan)
+    n, h, w, _ = kept["x"].shape
+    strided = torch.randn((n, plan.struct.cout, h, w), device=dev, dtype=torch.bfloat16)
+    if not _raises_on_strided(lambda: tst.sparse_conv_train_dgrad(
+            strided.permute(0, 2, 3, 1), vals_t, plan)):
+        raise AssertionError("the dgrad accepted a strided dy")
+    # times at TRAIN_TIMED's shape
+    st, x, dyc = plan.struct, kept["x"], kept["dy"].to(torch.bfloat16)
+    fplan, bplan = tst._fwd_plan(vals, plan), tst._bwd_plan(vals_t, plan)
+    pad = st.dilation * (st.kernel - 1) // 2
+    w_b = kept["wt"].to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    x_nchw, dy_nchw = x.permute(0, 3, 1, 2), dyc.permute(0, 3, 1, 2)
+    turns = _time_turns(torch, {
+        "forward": lambda: tst.sparse_conv_train_forward(x, vals, plan),
+        "forward_plain": lambda: fused_sparse_conv_reference(x, fplan),
+        "forward_cudnn": lambda: F.conv2d(x_nchw, w_b, None, 1, pad, st.dilation),
+        "dgrad": lambda: tst.sparse_conv_train_dgrad(dyc, vals_t, plan),
+        "dgrad_plain": lambda: fused_sparse_conv_reference(dyc, bplan),
+        "dgrad_cudnn": lambda: torch.nn.grad.conv2d_input(
+            tuple(x_nchw.shape), w_b, dy_nchw, 1, pad, st.dilation),
+    }, {"forward": 20, "forward_plain": 3, "forward_cudnn": 20, "dgrad": 20, "dgrad_plain": 3,
+        "dgrad_cudnn": 20})
+    pixels = n * h * w
+    bounds = {"forward": _b2_bound(pixels, vals, plan.rows, st.cout),
+              "dgrad": _b2_bound(pixels, vals_t, plan.rows_t, st.cin)}
+    out = {}
+    for role, wrapper in (("forward", "sparse_conv_train_forward"),
+                          ("dgrad", "sparse_conv_train_dgrad")):
+        out[wrapper] = {"ms": min(turns[role]), "plain_ms": min(turns[f"{role}_plain"]),
+                        "library_ms": min(turns[f"{role}_cudnn"]),
+                        "bound_ms": bounds[role][0], "bound_by": bounds[role][1],
+                        "max_abs_err": max(e["y" if role == "forward" else "dx"]
+                                           for e in errs.values())}
+    _emit(phase="train_kernels", structs=report, cases=len(cases), errors=errs,
+          timed=TRAIN_TIMED, shape=[n, h, w, st.cin], ms=turns,
+          bound_ms={r: b[0] for r, b in bounds.items()}, card=smi)
+    return out
+
+
+def _train_batch(torch, np, dev, n, size, seed):
+    """``--synthetic``-style images and labels (5 % ignored) on ``dev``."""
+    rng = np.random.default_rng(seed)
+    images = rng.random((n, size, size, 3), dtype=np.float32)
+    labels = rng.integers(0, CLASSES, size=(n, size, size)).astype(np.int32)
+    labels[rng.random(labels.shape) < 0.05] = 255
+    return torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev)
+
+
+def _masks_zero(torch, ts, masks) -> bool:
+    return all(float((ts.params[k] * (1 - m)).abs().max()) == 0.0 for k, m in masks.items())
+
+
+def _trainer(torch, dev, params, state, spec, masks=None, sparse=False, remat=False,
+             dtype=None, lr=0.01):
+    """(train state on ``dev``, train step, eval step) of the port's trainer
+    (``dtype`` None: f32)."""
+    from tpuseg_torch.ops.sparse_train import build_sparse_train_structs
+    from tpuseg_torch.train import (create_train_state, make_eval_step, make_seg_train_step,
+                                    make_sgd)
+
+    def on(tensors):
+        return {k: v.to(dev) for k, v in tensors.items()}
+
+    plans = ({k: st.to(dev) for k, st in build_sparse_train_structs(masks, spec)[0].items()}
+             if sparse else None)
+    tx = make_sgd(lambda _: lr, 0.9, 1e-4)
+    ts = create_train_state(on(params), on(state), tx, on(masks) if masks else None)
+    return (ts, make_seg_train_step(spec, tx, compute_dtype=dtype, remat=remat,
+                                    sparse_plans=plans),
+            make_eval_step(spec, "seg", compute_dtype=dtype))
+
+
+def _profiled_steps(torch, ts, step, batch, iters) -> tuple:
+    """(train state, profile) of ``iters`` more steps under ``torch.profiler``
+    (after one profiled step that is not read) with CUDA events recorded
+    inside the same window: the device's busy ms a step (the sum of its
+    kernels' and copies' times), the window's wall ms a step, its idle
+    share 1 - busy/wall (not clamped: on one stream busy cannot exceed
+    wall, and ``busy_exceeds_wall`` says if it did), and the 12 kernels with
+    the most device time.  Only device activity is traced: tracing the
+    host's ops too slowed these steps by up to half on the H100, so the
+    window would no longer be the step it measures."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    # one step profiled first: a process's first profile pays the tracer's
+    # set-up inside its window
+    with torch.profiler.profile(activities=acts):
+        ts, _m = step(ts, *batch)
+        torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        start.record()
+        for _ in range(iters):
+            ts, _m = step(ts, *batch)
+        end.record()
+        end.synchronize()
+    wall = start.elapsed_time(end) / iters
+    kernels: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total / 1e3 / iters
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no device time for the train steps")
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return ts, {"busy_ms_per_step": busy, "wall_ms_per_step": wall,
+                "idle_share": 1 - busy / wall, "busy_exceeds_wall": busy > wall,
+                "top_kernels_ms_per_step": [[k[:80], v] for k, v in top]}
+
+
+def _timed_steps(torch, dev, ts, step, batch, masks=None, warmup=3, iters=5,
+                 profile=False) -> dict:
+    """ms a train step by CUDA events over ``iters`` steps after ``warmup``,
+    the peak memory allocated over the timed steps, the last loss; the
+    masked weights checked exactly 0 after each warm-up step and after the
+    timed steps; B2's launches in the timed steps.  ``profile``: then
+    ``iters`` steps more under ``_profiled_steps`` (masks checked after
+    them too)."""
+    from tpuseg_torch.ops import sparse_train as tst
+
+    for _ in range(warmup):
+        ts, m = step(ts, *batch)
+        if masks and not _masks_zero(torch, ts, masks):
+            raise AssertionError("a masked weight moved off 0")
+    _zero_counts(torch, tst.sparse_conv_train_forward, tst.sparse_conv_train_dgrad)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        ts, m = step(ts, *batch)
+    end.record()
+    end.synchronize()
+    if masks and not _masks_zero(torch, ts, masks):
+        raise AssertionError("a masked weight moved off 0")
+    out = {"ms_per_step": start.elapsed_time(end) / iters,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev), "loss": float(m["loss"]),
+           "b2_forward": tst.sparse_conv_train_forward.launches,
+           "b2_dgrad": tst.sparse_conv_train_dgrad.launches}
+    if profile:
+        ts, out["profiled"] = _profiled_steps(torch, ts, step, batch, iters)
+        if masks and not _masks_zero(torch, ts, masks):
+            raise AssertionError("a masked weight moved off 0")
+    return {"ts": ts, **out}
+
+
+def _train_cli(argv) -> tuple[list, str]:
+    """``python -m tpuseg_torch.cli.semantic_seg`` in this process: (its JSON
+    lines, its whole output)."""
+    import contextlib
+    import io
+
+    from tpuseg_torch.cli import semantic_seg
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        semantic_seg.main(argv)
+    text = buf.getvalue()
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")], text
+
+
+def _epoch_line(lines, epoch):
+    line = next(ln for ln in lines if ln.get("epoch") == epoch and "train_loss" in ln)
+    if not (math.isfinite(line["train_loss"]) and "val_miou" in line):
+        raise AssertionError(f"epoch line {line}")
+    return line
+
+
+def _close_states(torch, np, label, got, want) -> None:
+    """Params and BN state within ``tests/test_sparse_train.py``'s
+    tolerances (rtol 2e-3, atol 5e-4)."""
+    for part in ("params", "bn_state"):
+        a, b = getattr(got, part), getattr(want, part)
+        for k in b:
+            np.testing.assert_allclose(a[k].float().cpu().numpy(), b[k].float().cpu().numpy(),
+                                       rtol=2e-3, atol=5e-4, err_msg=f"{label}: {part} {k}")
+
+
+def _dense_training(torch, np, dev, workdir, smi) -> dict:
+    """Phase 32: the trainer's CLI, dense at full width (DRN-D-22, crop 512,
+    batch 8, bf16, 8 steps and an evaluation), then resumed from its
+    checkpoint for a second epoch; ms a step by CUDA events and the peak
+    memory with and without --remat (bf16); f32: --remat's loss equal to
+    the loss without it at full width and its peak lower, and one step on
+    the card against the CPU at 64x64."""
+    from tpuseg_torch.models.drnseg import init_drnseg
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    save = f"{workdir}/dense"
+    lines, _ = _train_cli(TRAIN_CLI + ["--epochs", "1", "--save-dir", save])
+    cli_peak = torch.cuda.max_memory_allocated(dev)
+    epoch0 = _epoch_line(lines, 0)
+    resumed, _ = _train_cli(TRAIN_CLI + ["--epochs", "2", "--resume", f"{save}/checkpoint.npz",
+                                         "--save-dir", f"{workdir}/resume"])
+    if [ln["epoch"] for ln in resumed if "train_loss" in ln] != [1]:
+        raise AssertionError(f"the resumed run did not run epoch 1 alone: {resumed}")
+    epoch1 = _epoch_line(resumed, 1)
+    cli_s = time.perf_counter() - t0
+
+    params, state, spec = init_drnseg(0, ARCH, CLASSES)
+    batch = _train_batch(torch, np, dev, TRAIN_BATCH, TRAIN_CROP, 32)
+    timed = {}
+    for remat in (False, True):
+        ts, step, _ = _trainer(torch, dev, params, state, spec, remat=remat,
+                               dtype=torch.bfloat16)
+        r = _timed_steps(torch, dev, ts, step, batch, profile=not remat)
+        timed["remat" if remat else "plain"] = {k: v for k, v in r.items() if k != "ts"}
+        del ts, step, r
+        torch.cuda.empty_cache()
+    # f32 at full width: --remat's loss and peak
+    f32 = {}
+    for remat in (False, True):
+        ts, step, _ = _trainer(torch, dev, params, state, spec, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ts, m = step(ts, *batch)
+        f32["remat" if remat else "plain"] = {"loss": float(m["loss"]),
+                                              "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+        del ts, step
+        torch.cuda.empty_cache()
+    if not (abs(f32["remat"]["loss"] - f32["plain"]["loss"]) <= 1e-6 * abs(f32["plain"]["loss"])
+            and f32["remat"]["peak_bytes"] < f32["plain"]["peak_bytes"]
+            and timed["remat"]["peak_bytes"] < timed["plain"]["peak_bytes"]):
+        raise AssertionError(f"--remat: f32 {f32}, bf16 {timed}")
+    # f32 parity: one step on the card against the CPU at 64x64
+    small = _train_batch(torch, np, "cpu", 2, 64, 33)
+    runs = {}
+    for name in ("cuda", "cpu"):
+        d = dev if name == "cuda" else torch.device("cpu")
+        ts, step, _ = _trainer(torch, d, params, state, spec)
+        runs[name] = step(ts, *(t.to(d) for t in small))
+    loss_c, loss_h = float(runs["cuda"][1]["loss"]), float(runs["cpu"][1]["loss"])
+    if not abs(loss_c - loss_h) <= 1e-4 * abs(loss_h):
+        raise AssertionError(f"f32 train step loss on the card {loss_c}, on the CPU {loss_h}")
+    _close_states(torch, np, "f32 card vs CPU", runs["cuda"][0], runs["cpu"][0])
+    _emit(phase="train_dense", command=" ".join(TRAIN_CLI + ["--epochs", "1"]), epoch=epoch0, resumed_epoch=epoch1,
+          cli_seconds=round(cli_s, 1), cli_peak_bytes=cli_peak, steps=timed,
+          f32_full_width=f32, f32_parity={"loss_cuda": loss_c, "loss_cpu": loss_h,
+                                          "size": [2, 64, 64]}, card=smi)
+    return {"ms_per_step": timed["plain"]["ms_per_step"]}
+
+
+def _sparse_training(torch, np, dev, workdir, smi) -> dict:
+    """Phase 33: the README's masked command through the CLI with and
+    without --sparse-exec (the counts zeroed just before the --sparse-exec
+    run and read just after: B2 2 x 10 a step, in the forward and the
+    dgrad, and none in its evaluation); ms a step by CUDA events of
+    masked-dense and --sparse-exec (bf16), with B2's launches in those
+    steps, masked weights exactly 0 and one evaluation launching no B2; f32
+    at 64x64: the two trajectories agree over two steps."""
+    from tpuseg_torch.models.drnseg import init_drnseg
+    from tpuseg_torch.ops import sparse_train as tst
+    from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_apply
+    from tpuseg_torch.sparsity import create_masker
+
+    fwd, dgrad = tst.sparse_conv_train_forward, tst.sparse_conv_train_dgrad
+    steps = TRAIN_SAMPLES // TRAIN_BATCH
+    lines, _ = _train_cli(TRAIN_CLI + ["--epochs", "1"] + TRAIN_MASKED
+                          + ["--save-dir", f"{workdir}/masked"])
+    masked_epoch = _epoch_line(lines, 0)
+    _zero_counts(torch, fwd, dgrad, fused_sparse_conv_apply)
+    lines, _ = _train_cli(TRAIN_CLI + ["--epochs", "1"] + TRAIN_MASKED
+                          + ["--sparse-exec", "--save-dir", f"{workdir}/sparse"])
+    torch.cuda.synchronize()
+    launches = {"sparse_conv_train_forward": fwd.launches,
+                "sparse_conv_train_dgrad": dgrad.launches,
+                "fused_sparse_conv_apply": fused_sparse_conv_apply.launches}
+    sparse_epoch = _epoch_line(lines, 0)
+    report = next(ln["sparse_exec"] for ln in lines if "sparse_exec" in ln)
+    want = TRAIN_STRUCTS * steps
+    if (launches["sparse_conv_train_forward"], launches["sparse_conv_train_dgrad"],
+            launches["fused_sparse_conv_apply"]) != (want, want, 0):
+        raise AssertionError(f"--sparse-exec CLI launched {launches}; want {want} in the "
+                             "forward and the dgrad, 0 served")
+    if sparse_epoch["mean_weight_sparsity"] != masked_epoch["mean_weight_sparsity"]:
+        raise AssertionError(f"weight sparsity {sparse_epoch} vs {masked_epoch}")
+
+    params, state, spec = init_drnseg(0, ARCH, CLASSES)
+    masks = create_masker(SERVED_CONFIG, seed=0).generate_masks(params)
+    masks_dev = {k: v.to(dev) for k, v in masks.items()}
+    batch = _train_batch(torch, np, dev, TRAIN_BATCH, TRAIN_CROP, 32)
+    timed = {}
+    for sparse in (False, True):
+        ts, step, eval_step = _trainer(torch, dev, params, state, spec, masks, sparse,
+                                       dtype=torch.bfloat16)
+        r = _timed_steps(torch, dev, ts, step, batch, masks_dev, profile=True)
+        per = (r["b2_forward"], r["b2_dgrad"])
+        if per != ((TRAIN_STRUCTS * 5,) * 2 if sparse else (0, 0)):
+            raise AssertionError(f"sparse={sparse}: B2 launched {per} in 5 steps")
+        _zero_counts(torch, fwd, dgrad, fused_sparse_conv_apply)
+        eval_step(r["ts"].params, r["ts"].bn_state, *batch)
+        torch.cuda.synchronize()
+        if fwd.launches or dgrad.launches or fused_sparse_conv_apply.launches:
+            raise AssertionError("the evaluation launched B2")
+        timed["sparse_exec" if sparse else "masked_dense"] = {
+            k: v for k, v in r.items() if k != "ts"}
+        del ts, step, r
+        torch.cuda.empty_cache()
+    # f32 at 64x64: the two trajectories over two steps at lr 0.005
+    small = [_train_batch(torch, np, dev, 2, 64, 40 + i) for i in range(2)]
+    traj = {}
+    for sparse in (False, True):
+        ts, step, _ = _trainer(torch, dev, params, state, spec, masks, sparse, lr=0.005)
+        losses = []
+        for b in small:
+            ts, m = step(ts, *b)
+            losses.append(float(m["loss"]))
+            if not _masks_zero(torch, ts, masks_dev):
+                raise AssertionError("a masked weight moved off 0")
+        traj[sparse] = (ts, losses)
+    np.testing.assert_allclose(traj[True][1], traj[False][1], rtol=1e-4)
+    _close_states(torch, np, "f32 --sparse-exec vs masked dense", traj[True][0], traj[False][0])
+    _emit(phase="train_sparse", command=" ".join(TRAIN_CLI + ["--epochs", "1"] + TRAIN_MASKED),
+          sparse_exec=report,
+          masked_epoch=masked_epoch, sparse_exec_epoch=sparse_epoch, cli_launches=launches,
+          steps=timed, f32_losses={"masked_dense": traj[False][1], "sparse_exec": traj[True][1]},
+          card=smi)
+    return {"launches": launches, "ms_per_step": {k: v["ms_per_step"] for k, v in timed.items()}}
+
+
 def main() -> int:
     import torch
 
@@ -2106,7 +2605,7 @@ def main() -> int:
 
 
 def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
-    """Phases 2-30 and the closing lines (``main`` builds, then runs these
+    """Phases 2-33 and the closing lines (``main`` builds, then runs these
     with the worker process that makes phase 23's and 27's inputs)."""
     from tpuseg_torch.data.shapes import shapes_video
     from tpuseg_torch.models.drnseg import bilinear_upsample_kernel, init_drnseg
@@ -2485,6 +2984,16 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
     sequential = _sequential_full(torch, np, dev, params, state, spec, frames, smi)
     transport = _transport_full(torch, np, dev, params, state, spec, smi)
     _cli_autotune(smi)
+    # 31-33. segmentation training: sparse_conv_train's two B2 roles against
+    # their plain version, then the trainer's CLI dense, masked and with
+    # --sparse-exec at crop 512, batch 8
+    train_k = _train_kernels(torch, np, dev, rng, smi)
+    torch.cuda.empty_cache()
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
+        _dense_training(torch, np, dev, workdir, smi)
+        train_sparse = _sparse_training(torch, np, dev, workdir, smi)
 
     _emit(phase="total", seconds=round(time.perf_counter() - t_start, 1))
     sc_src, b2_src = "tpuseg/ops/sparse_conv.py", "tpuseg_torch/csrc/sparse_conv.cu"
@@ -2541,7 +3050,10 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
              ("warp_ids", interval_warp["launches"]["warp_ids"]
               + budget_warp["launches"]["warp_ids"]),
              ("i420_to_rgb_flat", transport["launches"]["i420_to_rgb_flat"]))
-         for _, source, replaces in [FLOW_ENTRIES[name]]]
+         for _, source, replaces in [FLOW_ENTRIES[name]]] + [
+        entry(name, b2_src, f"{sc_src}:270", train_sparse["launches"][name], t["max_abs_err"],
+              t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]), t["library_ms"])
+        for name, t in train_k.items()]
     bad = [k["name"] for k in kernels if not k["launches"] > 0]
     if bad:
         raise AssertionError(f"kernels never launched on their path: {bad}")

@@ -99,7 +99,8 @@ def test_drn_forward_matches_jax_f32(arch):
     ref, _, _ = jdrn.drn_forward(jp, js, jnp.asarray(x), spec)
     tp, ts = from_jax_params(jp, js)
     tspec = tdrn.build_drn_spec(arch, num_classes=0, naming="seg")
-    out = tdrn.drn_forward(tp, ts, torch.from_numpy(x), tspec)
+    out, updates = tdrn.drn_forward(tp, ts, torch.from_numpy(x), tspec)
+    assert updates == {}
     assert out.is_contiguous()
     _assert_close(out.numpy(), ref)
 
@@ -113,8 +114,8 @@ def test_drnseg_forward_matches_jax_f32(arch, upsample):
     jlogp, jseg_out, _ = jseg.drnseg_forward(
         jp, js, jnp.asarray(x), spec, upsample=upsample)
     tp, ts, tspec = tseg.init_drnseg(0, arch, 19)
-    logp, seg = tseg.drnseg_forward(tp, ts, torch.from_numpy(x), tspec,
-                                    upsample=upsample)
+    logp, seg, _ = tseg.drnseg_forward(tp, ts, torch.from_numpy(x), tspec,
+                                       upsample=upsample)
     _assert_close(seg.numpy(), jseg_out)
     _assert_close(logp.numpy(), jlogp)
 

@@ -46,7 +46,7 @@ def test_folded_forward_matches_unfolded():
     spec = tdrn.build_drn_spec("drn_d_22", 0, naming="seg")
     x = torch.from_numpy(
         np.random.default_rng(3).normal(size=(2, 48, 40, 3)).astype(np.float32))
-    ref = tdrn.drn_forward(tp, ts, x, spec)
-    out = tdrn.drn_forward(tfold(tp, ts, spec), {}, x, spec)
+    ref, _ = tdrn.drn_forward(tp, ts, x, spec)
+    out, _ = tdrn.drn_forward(tfold(tp, ts, spec), {}, x, spec)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-4,
                                atol=1e-4 * ref.abs().max().item())

@@ -142,7 +142,7 @@ def test_drn_forward_with_plans_matches_jax():
     assert any(isinstance(v, RbgpPlan) and v.kind == "grouped_conv" for v in tplans.values())
     x = np.random.default_rng(0).random((1, 64, 64, 3), dtype=np.float32)
     fused_sparse_conv_apply.launches = 0
-    got = drn_forward(tfold, {}, torch.from_numpy(x), tspec, sparse_plans=tplans)
+    got, _ = drn_forward(tfold, {}, torch.from_numpy(x), tspec, sparse_plans=tplans)
     assert fused_sparse_conv_apply.launches == 0
     want, _, _ = j_drn_forward(jfold, {}, jnp.asarray(x), jspec, train=False,
                                sparse_plans=jplans)

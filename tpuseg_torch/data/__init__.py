@@ -1,1 +1,2 @@
-"""Frame data for the port: the Cityscapes palette and the shapes world."""
+"""Data for the port: the Cityscapes lists and palette, paired transforms,
+batching with device prefetch, and the shapes world."""

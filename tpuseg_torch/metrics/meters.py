@@ -1,11 +1,37 @@
-"""Timing meters (counterpart of ``tpuseg/metrics/meters.py``).
+"""Timing / averaging meters (counterpart of ``tpuseg/metrics/meters.py``).
 
-Reference: EMA fps counter (plot_pyqt.py:329-339).
+Reference: AverageMeter (utils.py:249-264), EMA fps counter
+(plot_pyqt.py:329-339).
 """
 
 from __future__ import annotations
 
 import time
+
+
+class AverageMeter:
+    """Computes and stores the average and current value."""
+
+    def __init__(self, name: str = "", fmt: str = ":f"):
+        self.name = name
+        self.fmt = fmt
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val: float, n: int = 1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / self.count
+
+    def __str__(self):
+        fmtstr = "{name} {val" + self.fmt + "} ({avg" + self.fmt + "})"
+        return fmtstr.format(**self.__dict__)
 
 
 class FpsMeter:

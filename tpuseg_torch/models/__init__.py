@@ -1,4 +1,4 @@
-"""DRN backbones and the DRNSeg head (inference), with ``tpuseg``'s names."""
+"""DRN backbones and the DRNSeg head (eval and train), with ``tpuseg``'s names."""
 from tpuseg_torch.models.drn import (  # noqa: F401
     DRN_ARCHS,
     DrnSpec,

@@ -1,14 +1,18 @@
-"""Dilated Residual Networks (DRN): the inference forward in PyTorch.
+"""Dilated Residual Networks (DRN): the forward in PyTorch, eval and train.
 
 Counterpart of ``tpuseg/models/drn.py``.  The architecture spec
 (``ConvDef`` ... ``DrnSpec``, ``DRN_ARCHS``, ``build_drn_spec``) and the numpy
 init are copied from there unchanged, so one seed gives identical weights in
-both packages.  The forward is the eval path only: dense convs through
-``torch.nn.functional.conv2d`` (cuDNN on the card), eval-mode BatchNorm or
-BN-folded biases, and the same residual rule.  Convs listed in a
-``sparse_plans`` dict (``tpuseg_torch.models.sparse_exec.build_sparse_plans``,
-``tpuseg_torch.ops.quant.build_quant_plans``) run through their sparse or
-int8 lowering instead.  No train mode, no remat.
+both packages.  The forward runs dense convs through
+``torch.nn.functional.conv2d`` (cuDNN on the card), BatchNorm (eval: the
+running stats; train: f32 batch statistics, with the running-stat updates
+returned, not written) or BN-folded biases, and the same residual rule.
+Convs listed in a ``sparse_plans`` dict run through their sparse or int8
+lowering instead (``tpuseg_torch.models.sparse_exec.build_sparse_plans``,
+``tpuseg_torch.ops.quant.build_quant_plans``), or, in training, through the
+trainable block-sparse conv
+(``tpuseg_torch.ops.sparse_train.build_sparse_train_structs``).  ``remat``
+recomputes each stage in the backward pass (``torch.utils.checkpoint``).
 
 Layout: parameters are a flat ``{torch-style name: tensor}`` dict with conv
 weights in OIHW (``tpuseg`` stores HWIO; ``tpuseg_torch.models.weights``
@@ -428,7 +432,7 @@ def init_drn(key: int, spec: DrnSpec) -> tuple[Params, State]:
 
 
 # --------------------------------------------------------------------------
-# Forward (inference)
+# Forward
 # --------------------------------------------------------------------------
 
 
@@ -452,13 +456,30 @@ def conv2d(
 
 
 def batch_norm(
-    x: torch.Tensor, params: Params, state: State, name: str, eps: float = BN_EPS
+    x: torch.Tensor, params: Params, state: State, name: str, eps: float = BN_EPS,
+    updates: State | None = None, momentum: float = BN_MOMENTUM,
 ) -> torch.Tensor:
-    """Eval-mode BatchNorm over the channel axis of an NCHW tensor, in f32
-    with the result cast back to ``x.dtype`` (``tpuseg`` drn.py:502-506)."""
+    """BatchNorm over the channel axis of an NCHW tensor, in f32 with the
+    result cast back to ``x.dtype`` (``tpuseg`` drn.py:474-506).
+
+    Eval (``updates`` None): the running statistics.  Train (``updates`` a
+    dict): the f32 batch mean and biased variance normalize, and the running
+    statistics' new values (the unbiased variance folded in at
+    ``momentum``) go into ``updates``; nothing is written in place, so a
+    stage recomputed under ``remat`` applies the momentum once."""
     shape = (1, -1, 1, 1)
-    inv = torch.rsqrt(state[f"{name}.running_var"] + eps) * params[f"{name}.weight"]
-    out = (x.float() - state[f"{name}.running_mean"].view(shape)) * inv.view(shape)
+    if updates is None:
+        mean, var = state[f"{name}.running_mean"], state[f"{name}.running_var"]
+    else:
+        var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+        n = x.numel() // x.shape[1]
+        unbiased = var.detach() * (n / max(n - 1, 1))
+        updates[f"{name}.running_mean"] = (
+            (1 - momentum) * state[f"{name}.running_mean"] + momentum * mean.detach())
+        updates[f"{name}.running_var"] = (
+            (1 - momentum) * state[f"{name}.running_var"] + momentum * unbiased)
+    inv = torch.rsqrt(var + eps) * params[f"{name}.weight"]
+    out = (x.float() - mean.view(shape)) * inv.view(shape)
     return (out + params[f"{name}.bias"].view(shape)).to(x.dtype)
 
 
@@ -522,8 +543,14 @@ def _sparse_conv_bias_bf16(x, plan, bias):
     return nhwc_to_nchw(y)
 
 
+def _is_train_plan(plan) -> bool:
+    from tpuseg_torch.ops.sparse_train import SparseTrainPlan
+
+    return isinstance(plan, SparseTrainPlan)
+
+
 def _conv_maybe_bn(x, params, state, cdef: ConvDef, bdef: BNDef | None, compute_dtype,
-                   sparse_plans=None):
+                   sparse_plans=None, updates=None):
     """conv -> (folded bias | batch norm).  BN-folded weights
     (``tpuseg_torch.ops.fold_bn``) carry a conv bias and no BN params.
 
@@ -534,10 +561,24 @@ def _conv_maybe_bn(x, params, state, cdef: ConvDef, bdef: BNDef | None, compute_
     is added in that dtype (drn.py:556-560).  In bf16 a bf16
     ``FusedSparseConv`` or ``CompactSparse`` plan and every int8 plan do
     both in their kernel's epilogue, bit for bit
-    (``_sparse_conv_bias_bf16``)."""
+    (``_sparse_conv_bias_bf16``).
+
+    A ``SparseTrainPlan`` (``SparseTrainStruct.to(device)``) runs the
+    trainable block-sparse conv on the live weight (``tpuseg``
+    drn.py:518-526): packed each call, with the kernel in the forward and
+    the dgrad.  ``updates`` (a dict) selects train-mode BatchNorm."""
     plan = sparse_plans.get(cdef.name) if sparse_plans else None
     bias = params.get(f"{cdef.name}.bias")
-    if plan is not None:
+    if plan is not None and _is_train_plan(plan):
+        from tpuseg_torch.ops.sparse_train import sparse_conv_train
+
+        out_dtype = x.dtype if compute_dtype is None else compute_dtype
+        y = sparse_conv_train(nchw_to_nhwc(x), params[f"{cdef.name}.weight"], plan,
+                              compute_dtype=out_dtype if compute_dtype else torch.float32)
+        x = nhwc_to_nchw(y).to(out_dtype)
+        if bias is not None:
+            x = x + bias.to(x.dtype).view(1, -1, 1, 1)
+    elif plan is not None:
         out_dtype = x.dtype if compute_dtype is None else compute_dtype
         y = _sparse_conv_bias_bf16(x, plan, bias) if out_dtype == torch.bfloat16 else None
         if y is None:
@@ -556,22 +597,24 @@ def _conv_maybe_bn(x, params, state, cdef: ConvDef, bdef: BNDef | None, compute_
             bias=bias,
         )
     if bdef is not None and f"{bdef.name}.weight" in params:
-        x = batch_norm(x, params, state, bdef.name)
+        x = batch_norm(x, params, state, bdef.name, updates=updates)
     return x
 
 
-def _run_block(x, params, state, block: BlockDef, compute_dtype, sparse_plans=None):
+def _run_block(x, params, state, block: BlockDef, compute_dtype, sparse_plans=None,
+               updates=None):
     residual = x
     out = x
     n = len(block.convs)
     for i, (cdef, bdef) in enumerate(zip(block.convs, block.bns)):
-        out = _conv_maybe_bn(out, params, state, cdef, bdef, compute_dtype, sparse_plans)
+        out = _conv_maybe_bn(out, params, state, cdef, bdef, compute_dtype, sparse_plans,
+                             updates)
         if i < n - 1:
             out = F.relu_(out)
     if block.downsample is not None:
         cdef, bdef = block.downsample
         residual = _conv_maybe_bn(residual, params, state, cdef, bdef, compute_dtype,
-                                  sparse_plans)
+                                  sparse_plans, updates)
     # Bottleneck always adds the residual (drn.py:103); BasicBlock honors the
     # flag (drn.py:61-62) even when a downsample path exists.
     if block.kind == "bottleneck" or block.residual:
@@ -579,15 +622,28 @@ def _run_block(x, params, state, block: BlockDef, compute_dtype, sparse_plans=No
     return F.relu_(out)
 
 
-def _run_stage(x, params, state, stage: StageDef, compute_dtype, sparse_plans=None):
+def _run_stage(x, params, state, stage: StageDef, compute_dtype, sparse_plans=None,
+               updates=None):
+    """One backbone stage; ``updates`` (a dict) selects train-mode BatchNorm
+    and receives the stage's running-stat updates."""
     if stage.kind == "convs":
         for cdef, bdef in stage.convs:
             x = F.relu_(_conv_maybe_bn(x, params, state, cdef, bdef, compute_dtype,
-                                       sparse_plans))
+                                       sparse_plans, updates))
     else:
         for block in stage.blocks:
-            x = _run_block(x, params, state, block, compute_dtype, sparse_plans)
+            x = _run_block(x, params, state, block, compute_dtype, sparse_plans, updates)
     return x
+
+
+def _stage_and_updates(x, params, state, stage: StageDef, compute_dtype, sparse_plans,
+                       train: bool):
+    """``x -> (x, bn_updates)`` of one stage (no updates in eval):
+    functional, so that under ``remat`` the checkpoint's recompute returns
+    its updates instead of writing them a second time."""
+    updates: State | None = {} if train else None
+    x = _run_stage(x, params, state, stage, compute_dtype, sparse_plans, updates)
+    return x, updates or {}
 
 
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -612,8 +668,13 @@ def drn_forward(
     stem_fn: Callable | None = None,
     stem_stages: int = 1,
     sparse_plans: dict | None = None,
-) -> torch.Tensor:
-    """Run the DRN backbone (inference): NHWC ``x`` -> NHWC feature map.
+    train: bool = False,
+    remat: bool = False,
+) -> tuple[torch.Tensor, State]:
+    """Run the DRN backbone: NHWC ``x`` -> ``(NHWC feature map,
+    bn_updates)``, as ``tpuseg``'s ``drn_forward`` without its middle taps.
+    ``bn_updates`` is empty in eval; with ``train=True`` it holds every BN's
+    new running statistics (``batch_norm``).
 
     ``stem_fn`` optionally replaces the first ``stem_stages`` stages
     (BN-folded weights only) — the polyphase frontend
@@ -624,14 +685,20 @@ def drn_forward(
     ``sparse_plans`` maps conv names to sparse plans (on ``x``'s device);
     plans of stages that ``stem_fn`` replaces are not used, as in ``tpuseg``.
 
+    ``remat=True`` wraps each stage in ``torch.utils.checkpoint`` (not
+    reentrant): the backward pass recomputes the stage from its input
+    instead of keeping its activations, so a stage's kernels launch twice
+    per step.
+
     Only backbones without a classifier head (the DRNSeg backbone, and
-    classification specs built with ``num_classes=0``) are served here.
+    classification specs built with ``num_classes=0``) are run here.
     """
     if spec.fc_name is not None or spec.stem_maxpool:
         raise ValueError(
             f"{spec.arch}: the port's drn_forward serves headless DRN-C/D "
             "backbones (DRNSeg); classifier heads are not ported"
         )
+    updates: State = {}
     if compute_dtype is not None and stem_fn is None:
         # a stem_fn owns its own input handling (the polyphase frontend
         # space-to-depths RAW uint8 frames before any float math)
@@ -645,5 +712,14 @@ def drn_forward(
             continue
         if stage_index == 0:
             x = nhwc_to_nchw(x)
-        x = _run_stage(x, params, state, stage, compute_dtype, sparse_plans)
-    return nchw_to_nhwc(x)
+        if remat:
+            from torch.utils.checkpoint import checkpoint
+
+            x, stage_updates = checkpoint(_stage_and_updates, x, params, state, stage,
+                                          compute_dtype, sparse_plans, train,
+                                          use_reentrant=False)
+        else:
+            x, stage_updates = _stage_and_updates(x, params, state, stage, compute_dtype,
+                                                  sparse_plans, train)
+        updates.update(stage_updates)
+    return nchw_to_nhwc(x), updates

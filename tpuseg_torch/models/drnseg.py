@@ -3,9 +3,11 @@
 Counterpart of ``tpuseg/models/drnseg.py``.  The upsampler is the
 reference's depthwise ``ConvTranspose2d(classes, classes, 16, stride=8,
 padding=4, groups=classes)`` with frozen bilinear weights; here it is that
-transposed conv itself (``upsample8``), the plain version.  Serving never
-materializes the upsampled logits: it calls ``drnseg_logits`` and the fused
-upsample+argmax (``tpuseg_torch.ops.upsample.upsample_argmax``).
+transposed conv itself (``upsample8``), which ``drnseg_forward`` runs for
+training and evaluation (``tpuseg`` computes it in XLA, outside any Pallas
+kernel).  Serving never materializes the upsampled logits: it calls
+``drnseg_logits`` and the fused upsample+argmax
+(``tpuseg_torch.ops.upsample.upsample_argmax``).
 """
 
 from __future__ import annotations
@@ -83,6 +85,19 @@ def upsample8(x: torch.Tensor, up_kernel: torch.Tensor) -> torch.Tensor:
     return nchw_to_nhwc(y)
 
 
+def _logits_and_updates(params, state, x, spec, *, compute_dtype, stem_fn, stem_stages,
+                        sparse_plans, train, remat) -> tuple[torch.Tensor, State]:
+    feats, updates = drn_forward(
+        params, state, x, spec, compute_dtype=compute_dtype, stem_fn=stem_fn,
+        stem_stages=stem_stages, sparse_plans=sparse_plans, train=train, remat=remat,
+    )
+    seg = conv2d(
+        nhwc_to_nchw(feats), params["seg.weight"], compute_dtype=compute_dtype,
+        bias=params["seg.bias"],
+    )
+    return nchw_to_nhwc(seg), updates
+
+
 def drnseg_logits(
     params: Params,
     state: State,
@@ -94,17 +109,11 @@ def drnseg_logits(
     stem_stages: int = 1,
     sparse_plans: dict | None = None,
 ) -> torch.Tensor:
-    """Backbone + seg head: NHWC input -> NHWC logits at stride 8
-    (``sparse_plans``: see ``drn_forward``)."""
-    feats = drn_forward(
-        params, state, x, spec, compute_dtype=compute_dtype,
-        stem_fn=stem_fn, stem_stages=stem_stages, sparse_plans=sparse_plans,
-    )
-    seg = conv2d(
-        nhwc_to_nchw(feats), params["seg.weight"], compute_dtype=compute_dtype,
-        bias=params["seg.bias"],
-    )
-    return nchw_to_nhwc(seg)
+    """Backbone + seg head (inference): NHWC input -> NHWC logits at stride
+    8 (``sparse_plans``: see ``drn_forward``)."""
+    return _logits_and_updates(
+        params, state, x, spec, compute_dtype=compute_dtype, stem_fn=stem_fn,
+        stem_stages=stem_stages, sparse_plans=sparse_plans, train=False, remat=False)[0]
 
 
 def drnseg_forward(
@@ -113,20 +122,24 @@ def drnseg_forward(
     x: torch.Tensor,
     spec: DrnSpec,
     *,
+    train: bool = False,
     compute_dtype: torch.dtype | None = None,
     upsample: bool = True,
     stem_fn=None,
     stem_stages: int = 1,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full DRNSeg forward (inference).
+    sparse_plans: dict | None = None,
+    remat: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, State]:
+    """Full DRNSeg forward (``tpuseg``'s ``drnseg_forward``).
 
-    Returns ``(log_probs, seg_logits)``: ``log_probs`` is the f32
-    log-softmax of the x8-upsampled logits (NHWC), as in the reference
-    forward (semantic_seg.py:154-158); with ``upsample=False`` it is the
-    log-softmax at feature resolution."""
-    seg = drnseg_logits(
-        params, state, x, spec, compute_dtype=compute_dtype,
-        stem_fn=stem_fn, stem_stages=stem_stages,
-    )
+    Returns ``(log_probs, seg_logits, bn_updates)``: ``log_probs`` is the
+    f32 log-softmax of the x8-upsampled logits (NHWC; the transposed conv
+    runs in the compute dtype), as in the reference forward
+    (semantic_seg.py:154-158); with ``upsample=False`` it is the log-softmax
+    at feature resolution.  ``train``, ``remat`` and ``sparse_plans``: see
+    ``drn_forward``; ``bn_updates`` is empty in eval."""
+    seg, updates = _logits_and_updates(
+        params, state, x, spec, compute_dtype=compute_dtype, stem_fn=stem_fn,
+        stem_stages=stem_stages, sparse_plans=sparse_plans, train=train, remat=remat)
     y = upsample8(seg, params["up.weight"]) if upsample else seg
-    return torch.log_softmax(y.float(), dim=-1), seg
+    return torch.log_softmax(y.float(), dim=-1), seg, updates

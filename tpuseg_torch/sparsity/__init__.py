@@ -7,8 +7,9 @@ compute on the HWIO numpy view of the port's weights and the masks come
 back as OIHW tensors, so one seed gives the same masks in both packages bit
 for bit.
 
-Masks are static (``is_static=True``, the construction both serving CLIs
-use): drawn at random from the seed, not from the weights' magnitudes.
+Masks are static by default (``is_static=True``, the construction both
+serving CLIs use): drawn at random from the seed, not from the weights'
+magnitudes; the trainer's ``--pr-static`` chooses, as in ``tpuseg``.
 """
 
 from __future__ import annotations
@@ -37,11 +38,12 @@ class Masker:
     def __init__(self, config, seed):
         self._masker = base.create_masker(config, seed=seed)
 
-    def generate_masks(self, params: Mapping) -> dict[str, torch.Tensor]:
+    def generate_masks(self, params: Mapping, is_static: bool = True,
+                       verbose: bool = False) -> dict[str, torch.Tensor]:
         from tpuseg_torch.models.weights import from_jax_params, to_jax_params
 
         hwio, _ = to_jax_params(params)
-        masks = self._masker.generate_masks(hwio, is_static=True)
+        masks = self._masker.generate_masks(hwio, is_static=is_static, verbose=verbose)
         return from_jax_params(masks)[0]
 
 
