@@ -70,7 +70,9 @@ Phases (any failed check raises and the exit code is non-zero):
      epilogue), B3 alone (bf16 and f32 out), the quantize kernels alone
      (per-frame and static), their plain versions, B2, the dense cuDNN bf16
      conv with bias (context only: no PyTorch call computes an int8 conv on
-     CUDA) and the dense S=4 conv through B3's served route;
+     CUDA) and the dense S=4 conv through B3's served route; then B2's
+     bf16+bias route and B3's served route there at 1024x2048 (w = 256)
+     and 512x1024 frames (w = 128) in turns;
  14. B4 (``bsr_matmul_xw``, B2's kernel at k=1) and ``sparse_conv_apply``
      vs their plain versions (TF32 off): the CPU tests' cases in f32 and
      bf16, x (32768, 512) and (1048576, 512) bf16 against a 512x512
@@ -151,7 +153,11 @@ Phases (any failed check raises and the exit code is non-zero):
      packing, in the dgrad) vs its plain version within 2*K*eps on each of
      the 10 structs ``build_sparse_train_structs`` makes from
      block128reg_87.50, at its crop-512, batch-8 activation (8, 64, 64,
-     Cin), and on k in {1, 3}, d in {1, 2, 4} cases; y and dx also vs
+     Cin), on k in {1, 3}, d in {1, 2, 4} cases, and on B2's tile
+     geometry (``TILE_CASES``: R whole rows of a narrow map, rows past h,
+     w not dividing 256, R = 1 segments; R and the grid printed before
+     each); rows per tile out of range raising, the other legal ones
+     agreeing with the plain version; y and dx also vs
      cuDNN's f64 conv and dgrad of the bf16 masked weight, which a wrong
      packing or transpose index would fail; the f32 wgrad vs the dense
      conv's weight gradient on the mask; one B2 launch in the forward
@@ -493,6 +499,30 @@ def _b2_vs_plain(torch, np, dev, rng, served: dict, folded: dict) -> float:
     else:
         raise AssertionError("B2 accepted a non-contiguous NHWC view")
     return worst
+
+
+def _served_w128_times(torch, dev, x, plan, qplan, bias, smi) -> None:
+    """Phase 13's served routes of ``layer.6.1.conv2`` (B2's bf16+bias
+    route, B3's quantize + B3 + bias) at 1024x2048 frames (x, w = 256) and
+    at 512x1024 frames (w = 128), in turns.  B2 tiles R = 2 rows at w = 128;
+    B3 keeps 256-pixel row segments, half of each tile past the row's end."""
+    from tpuseg_torch.ops.sparse_conv import (
+        b2_tile_rows, fused_sparse_conv_bias_bf16, fused_sparse_conv_q_bias_bf16)
+
+    sn, sh, sw, sc = x.shape
+    x128 = torch.randn((sn, sh // 2, sw // 2, sc), device=dev).to(torch.bfloat16)
+    turns = _time_turns(torch, {
+        "b2_route_w256": lambda: fused_sparse_conv_bias_bf16(x, plan, bias),
+        "b2_route_w128": lambda: fused_sparse_conv_bias_bf16(x128, plan, bias),
+        "b3_served_w256": lambda: fused_sparse_conv_q_bias_bf16(x, qplan, bias),
+        "b3_served_w128": lambda: fused_sparse_conv_q_bias_bf16(x128, qplan, bias),
+    }, dict.fromkeys(("b2_route_w256", "b2_route_w128", "b3_served_w256", "b3_served_w128"),
+                     10))
+    _emit(phase="served_w128_time", conv="layer.6.1.conv2", shape_w256=[sn, sh, sw, sc],
+          shape_w128=list(x128.shape), b2_rows_per_tile={"w256": b2_tile_rows(sw),
+                                                         "w128": b2_tile_rows(sw // 2)},
+          ms=turns, w128_over_w256={k: min(turns[f"{k}_w128"]) / min(turns[f"{k}_w256"])
+                                    for k in ("b2_route", "b3_served")}, card=smi)
 
 
 def _quantize_vs_cpu(torch, np, dev, rng) -> float:
@@ -2103,6 +2133,20 @@ TRAIN_ENTRIES = {  # wrapper -> the role in which tpuseg's trainer launches B2
     "sparse_conv_train_forward": "tpuseg/ops/sparse_train.py:225-227 (forward)",
     "sparse_conv_train_dgrad": "tpuseg/ops/sparse_train.py:239 (dgrad)",
 }
+# phase 31's tile-geometry cases, (n, h, w): B2's bf16 tile is R =
+# floor(256 / w) whole rows when w < 256 (``b2_tile_rows``), else a
+# 256-pixel row segment; each runs at (k, d) in TILE_KD
+TILE_CASES = (
+    (2, 5, 64),     # h not a multiple of R = 4
+    (2, 9, 96),     # w does not divide 256: R = 2, 192 of 256 tile rows
+    (2, 7, 112),    # the maps of a crop-896 step
+    (2, 6, 128),
+    (1, 4, 8),      # R = 32, past h
+    (1, 3, 200),    # R = 1
+    (1, 2, 256),    # R = 1, the served width
+    (1, 2, 300),    # R = 1, two row segments
+)
+TILE_KD = ((3, 1), (3, 4), (1, 1))
 TRAIN_CLI = ["train", "--synthetic", str(TRAIN_SAMPLES), "-s", str(TRAIN_CROP),
              "--batch-size", str(TRAIN_BATCH), "--eval-every", "1"]
 TRAIN_MASKED = ["--mc-pruning", "--pr-static", "--pr-config-path", SERVED_CONFIG]
@@ -2185,6 +2229,40 @@ def _train_case(torch, np, name, plan, wt, mask, x, dy) -> dict:
             "dx_vs_dense": dx_dense_err, "autograd_dw_rel": grad_rel, "autograd_dx_rel": dx_rel}
 
 
+def _b2_grid(n, h, w, cout) -> tuple[int, int]:
+    """(R, CTAs) of B2's bf16 launch on an (n, h, w) map with ``cout``
+    output channels, as ``csrc/sparse_conv.cu`` computes them."""
+    from tpuseg_torch.ops.sparse_conv import B2_TILE_PIXELS, b2_tile_rows
+
+    r = b2_tile_rows(w)
+    return r, n * -(-h // r) * -(-w // B2_TILE_PIXELS) * (cout // 128)
+
+
+def _tile_rows_checks(torch, np, plan, x) -> dict:
+    """B2 at rows per tile the wrapper names: every R the C entry point must
+    reject raises (R < 1, or R > 1 with R * w > 256), and the legal R
+    other than the wrapper's choice agree with the plain version."""
+    from tpuseg_torch.ops import sparse_conv as tsc
+
+    w, tile = x.shape[2], tsc.B2_TILE_PIXELS
+    bad = [0, -1, tile // w + 1]
+    for r in bad:
+        try:
+            tsc._launch_b2(x, plan, plan.kernel, plan.dilation, plan.cout, rows_per_tile=r)
+        except RuntimeError:
+            continue
+        raise AssertionError(f"B2 took rows_per_tile={r} at w={w} without raising")
+    want = tsc.fused_sparse_conv_reference(x, plan)
+    errs = {r: _close(torch, np, "b2_forced_rows_vs_plain",
+                      tsc._launch_b2(x, plan, plan.kernel, plan.dilation, plan.cout,
+                                     rows_per_tile=r),
+                      want, plan.kernel ** 2 * plan.s * 128, rows_per_tile=r,
+                      shape=list(x.shape))
+            for r in range(1, tile // w + 1) if r != tsc.b2_tile_rows(w)}
+    _emit(phase="b2_rows_per_tile_rejected", w=w, rejected=bad, legal_checked=list(errs))
+    return errs
+
+
 def _train_kernels(torch, np, dev, rng, smi) -> dict:
     """Phase 31: ``sparse_conv_train`` on the card against its plain version
     on each struct ``build_sparse_train_structs`` makes from
@@ -2192,14 +2270,17 @@ def _train_kernels(torch, np, dev, rng, smi) -> dict:
     eligible conv of DRN-D-22 runs at output stride 8: 64x64) and on small
     cases with k in {1, 3} and d in {1, 2, 4} (one with an out-block of no
     in-block); a live tile of all-zero weights, then of nonzero weights,
-    under one plan; a strided dy raising; B2's forward and dgrad at
+    under one plan; a strided dy raising; the tile geometry of ``TILE_CASES``
+    at each (k, d) of ``TILE_KD`` (R and the grid on a line before each);
+    out-of-range rows per tile raising, and the legal ones the wrapper does
+    not choose agreeing with the plain version; B2's forward and dgrad at
     ``TRAIN_TIMED``'s shape in turns against their plain versions and cuDNN's
     dense bf16 conv and dgrad of the masked weight."""
     import torch.nn.functional as F
 
     from tpuseg_torch.models.drnseg import init_drnseg
     from tpuseg_torch.ops import sparse_train as tst
-    from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_reference
+    from tpuseg_torch.ops.sparse_conv import b2_tile_rows, fused_sparse_conv_reference
     from tpuseg_torch.sparsity import create_masker
 
     params, _, spec = init_drnseg(0, ARCH, CLASSES)
@@ -2216,9 +2297,18 @@ def _train_kernels(torch, np, dev, rng, smi) -> dict:
         cases.append((f"k{k}_d{d}", tst.plan_sparse_conv_train(m.transpose(2, 3, 1, 0),
                                                                 dilation=d),
                        torch.from_numpy(m), (2, 24, 40)))
+    for k, d in TILE_KD:
+        m = _b2_mask(rng, k, 384, 256, 2)
+        st = tst.plan_sparse_conv_train(m.transpose(2, 3, 1, 0), dilation=d)
+        cases += [(f"tile_{n}x{h}x{w}_k{k}_d{d}", st, torch.from_numpy(m), (n, h, w))
+                  for n, h, w in TILE_CASES]
     g = torch.Generator(device=dev).manual_seed(31)
     errs, kept = {}, {}
     for name, st, mask, (n, h, w) in cases:
+        if name.startswith("tile_"):
+            r, fwd_ctas = _b2_grid(n, h, w, st.cout)
+            _emit(phase="b2_tile_geometry", case=name, shape=[n, h, w], rows_per_tile=r,
+                  grid_forward=fwd_ctas, grid_dgrad=_b2_grid(n, h, w, st.cin)[1])
         plan, mask = st.to(dev), mask.to(dev)
         k2 = st.kernel * st.kernel
         wt = torch.randn((st.cout, st.cin, st.kernel, st.kernel), generator=g, device=dev)
@@ -2247,6 +2337,7 @@ def _train_kernels(torch, np, dev, rng, smi) -> dict:
     if not _raises_on_strided(lambda: tst.sparse_conv_train_dgrad(
             strided.permute(0, 2, 3, 1), vals_t, plan)):
         raise AssertionError("the dgrad accepted a strided dy")
+    forced = _tile_rows_checks(torch, np, tst._fwd_plan(vals, plan), kept["x"])
     # times at TRAIN_TIMED's shape
     st, x, dyc = plan.struct, kept["x"], kept["dy"].to(torch.bfloat16)
     fplan, bplan = tst._fwd_plan(vals, plan), tst._bwd_plan(vals_t, plan)
@@ -2275,7 +2366,8 @@ def _train_kernels(torch, np, dev, rng, smi) -> dict:
                         "max_abs_err": max(e["y" if role == "forward" else "dx"]
                                            for e in errs.values())}
     _emit(phase="train_kernels", structs=report, cases=len(cases), errors=errs,
-          timed=TRAIN_TIMED, shape=[n, h, w, st.cin], ms=turns,
+          forced_rows_errors=forced, timed=TRAIN_TIMED, shape=[n, h, w, st.cin],
+          rows_per_tile=b2_tile_rows(w), grid_forward=_b2_grid(n, h, w, st.cout)[1], ms=turns,
           bound_ms={r: b[0] for r, b in bounds.items()}, card=smi)
     return out
 
@@ -2939,7 +3031,10 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
           dense_s4_served_tops=2 * sn * sh * sw * _live_tiles(qdense.vals) * 128 * 128
           / min(turns["b3_dense_s4_served"]) / 1e9)
 
-    del x, x_nchw, xq, out6
+    del x_nchw, xq, out6
+    torch.cuda.empty_cache()
+    _served_w128_times(torch, dev, x, plan, qplan, bias6, smi)
+    del x
     torch.cuda.empty_cache()
 
     # 14-16. slice 4's kernels vs their plain versions (TF32 off, set above)

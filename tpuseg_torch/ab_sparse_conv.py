@@ -17,7 +17,11 @@ batch-32 shapes of ``chip_smoke.py``:
 - ``--old`` (kernel B2, ``sparse_conv.cu``): B2 at ``layer.6.1.conv2`` of
   ``drn_d_22_block128reg_87.50`` (masker seed 0), f32 out, and the served
   bf16 step (the new kernel's bf16+bias route against the old kernel's f32
-  y cast and biased in PyTorch); B7a-f on the bench's 3x3 d=2 conv at 87.5 %
+  y cast and biased in PyTorch) at w = 256 (1024x2048 frames) and w = 128
+  (512x1024 frames, x (32, 64, 128, 512)); B2's two training roles,
+  ``sparse_conv_train_forward`` and ``sparse_conv_train_dgrad``, at that
+  conv's crop-512, batch-8 shape (8, 64, 64, 512) d=4 on random weights
+  on its mask; B7a-f on the bench's 3x3 d=2 conv at 87.5 %
   (both packings); B4 at x (2**20, 512) with a 512x512 BlockPruner 87.5 %
   W, and ``sparse_conv_apply`` (9 x B4) on the bench's conv; the pruned
   device fps at batch 32 (1024x2048, bf16) under the Pallas lowering with
@@ -41,7 +45,7 @@ batch-32 shapes of ``chip_smoke.py``:
   per kernel name over one dense batch with each.
 
 An old copy whose entry point predates a change of its C interface (B2
-without ``steps``/``nsteps``/``bias``, B3 without the step lists and the
+without ``steps``/``nsteps``/``bias``, or without ``rows_per_tile``, B3 without the step lists and the
 bf16 epilogue, B5/B6 without ``nnzb``) is launched with its own arguments,
 and the served path then keeps the passes that copy needed.  Every line
 printed is JSON; the card (``nvidia-smi`` name and power limit) is on the
@@ -72,6 +76,8 @@ MEAN = [0.290, 0.328, 0.287]
 STD = [0.183, 0.187, 0.184]
 FULL = (1024, 2048)
 BATCH32 = (32, 128, 256, 512)
+BATCH32_HALF = (32, 64, 128, 512)  # layer.6.1.conv2's input at 512x1024 frames
+TRAIN_SHAPE = (8, 64, 64)  # the trainer's stride-8 maps: crop 512, batch 8
 P32 = 32 * 128 * 256
 # per kernel: (source, C entry point, a parameter only the newer interface has)
 SOURCES = {"b2": ("sparse_conv.cu", "tpuseg_sparse_conv", "const void* nsteps"),
@@ -100,6 +106,8 @@ def build_old(copies: dict) -> dict:
         fname, symbol, marker = SOURCES[kernel]
         src = open(path).read()
         newer[kernel] = marker in src
+        if kernel == "b2" and "int rows_per_tile" in src:
+            newer[kernel] = 2  # B2 whose caller names the tile's rows
         with open(os.path.join(src_dir, fname.replace(".cu", "_old.cu")), "w") as fh:
             fh.write(src.replace(f'extern "C" int {symbol}(', f'extern "C" int {symbol}_old('))
     lib = ctypes.CDLL(_build.build_library(src_dir, build)[0])
@@ -115,12 +123,14 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def old_b2(fn, newer: bool):
-    """A launcher with ``sc._launch_b2``'s signature on the old B2 copy."""
-    fn.argtypes = ([ctypes.c_void_p] * (7 if newer else 4) + [ctypes.c_int] * (10 if newer else 9)
-                   + [ctypes.c_void_p])
+def old_b2(fn, newer: int):
+    """A launcher with ``sc._launch_b2``'s signature on the old B2 copy
+    (``newer``: 0 without steps, 1 with steps and the bf16 epilogue, 2 with
+    ``rows_per_tile`` too)."""
+    fn.argtypes = ([ctypes.c_void_p] * (7 if newer else 4)
+                   + [ctypes.c_int] * {0: 9, 1: 10, 2: 11}[int(newer)] + [ctypes.c_void_p])
 
-    def launch(x, p, kernel, dilation, cout, bias=None, bf16_out=False):
+    def launch(x, p, kernel, dilation, cout, bias=None, bf16_out=False, rows_per_tile=None):
         if not newer and bf16_out:
             raise ValueError("the old kernel has no bf16 epilogue")
         x = x.to(p.vals.dtype)
@@ -129,10 +139,12 @@ def old_b2(fn, newer: bool):
                           dtype=torch.bfloat16 if bf16_out else torch.float32)
         dt = sc._DTYPE_CODE[p.vals.dtype]
         if newer:
+            rows = ([sc.b2_tile_rows(w) if rows_per_tile is None else rows_per_tile]
+                    if newer == 2 else [])
             err = fn(x.data_ptr(), p.vals.data_ptr(), p.rows.data_ptr(), p.steps.data_ptr(),
                      p.nsteps.data_ptr(), None if bias is None else bias.data_ptr(),
                      out.data_ptr(), n, h, w, cin, cout, p.s, kernel, dilation, dt,
-                     int(bf16_out), _stream(x))
+                     int(bf16_out), *rows, _stream(x))
         else:
             err = fn(x.data_ptr(), p.vals.data_ptr(), p.rows.data_ptr(), out.data_ptr(),
                      n, h, w, cin, cout, p.s, kernel, dilation, dt, _stream(x))
@@ -262,16 +274,21 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def ab(kernels: Kernels, fns: dict, iters: int = 10) -> dict:
-    """name -> {"old": [ms, ms], "new": [ms, ms]}: each callable timed with
-    the old kernels, the new, the new and the old."""
+def ab(kernels: Kernels, fns: dict, iters: int = 10, rounds: int = 1) -> dict:
+    """name -> {"old": [ms, ...], "new": [ms, ...]}: each callable timed with
+    the old kernels, the new, the new and the old, ``rounds`` times over."""
     out = {name: {"old": [], "new": []} for name in fns}
-    for which in ("old", "new", "new", "old"):
+    for which in ("old", "new", "new", "old") * rounds:
         kernels.use(which)
         for name, fn in fns.items():
             out[name][which].append(_time_ms(fn, iters))
     kernels.use("new")
     return out
+
+
+def _median_ratios(turns: dict) -> dict:
+    """name -> the median of the new build's turns over the old's."""
+    return {name: float(np.median(t["new"]) / np.median(t["old"])) for name, t in turns.items()}
 
 
 def _served():
@@ -305,6 +322,31 @@ def _profile(seg, frames) -> dict:
     top = sorted(times.items(), key=lambda kv: -kv[1])[:12]
     return {"total_ms": sum(times.values()), "top": [[k[:90], v] for k, v in top],
             "upsample_argmax": [[k[:90], v] for k, v in times.items() if "upsample_argmax" in k]}
+
+
+def _train_turns(kernels: Kernels, params, spec, gen, dev) -> dict:
+    """B2's forward and dgrad on ``layer.6.1.conv2``'s training packings
+    (``build_sparse_train_structs`` of the config's masks) at
+    ``TRAIN_SHAPE``, random weights on the mask, in turns (old, new, new,
+    old)."""
+    from tpuseg_torch.ops import sparse_train as tst
+    from tpuseg_torch.sparsity import create_masker
+
+    masks = create_masker(CONFIG, seed=0).generate_masks(params)
+    plan = tst.build_sparse_train_structs(masks, spec)[0]["layer.6.1.conv2"].to(dev)
+    st = plan.struct
+    mask = masks["layer.6.1.conv2.weight"].to(dev)
+    wt = torch.randn((st.cout, st.cin, st.kernel, st.kernel), generator=gen, device=dev) * mask
+    vals = tst.pack_vals(wt, plan, torch.bfloat16)
+    vals_t = tst._transpose_vals(vals, plan)
+    xt = torch.randn(TRAIN_SHAPE + (st.cin,), generator=gen, device=dev, dtype=torch.bfloat16)
+    dyt = torch.randn(TRAIN_SHAPE + (st.cout,), generator=gen, device=dev, dtype=torch.bfloat16)
+    turns = ab(kernels, {"forward": lambda: tst.sparse_conv_train_forward(xt, vals, plan),
+                         "dgrad": lambda: tst.sparse_conv_train_dgrad(dyt, vals_t, plan)},
+               iters=50, rounds=4)
+    return {"shape": list(TRAIN_SHAPE) + [st.cin], "dilation": st.dilation,
+            "rows_per_tile": sc.b2_tile_rows(TRAIN_SHAPE[2]), "turns": turns,
+            "new_over_old": _median_ratios(turns)}
 
 
 def _fps_turns(kernels: Kernels, segs: dict, fixed: dict | None = None) -> dict:
@@ -363,22 +405,35 @@ def main(argv=None) -> int:
         params, state, spec = init_drnseg(0, "drn_d_22", 19)
     x = torch.randn(BATCH32, generator=gen, device=dev, dtype=torch.bfloat16)
 
-    def served_step(plan):
-        """The served bf16 layer: the route where the kernel has one, else
-        the f32 conv, cast and bias (``models/drn.py``)."""
-        y = kernels.drn._sparse_conv_bias_bf16(x.permute(0, 3, 1, 2), plan, bias)
+    def served_step(plan, xs=None):
+        """The served bf16 layer on ``xs`` (default ``x``): the route where
+        the kernel has one, else the f32 conv, cast and bias
+        (``models/drn.py``)."""
+        xs = (x if xs is None else xs).permute(0, 3, 1, 2)
+        y = kernels.drn._sparse_conv_bias_bf16(xs, plan, bias)
         if y is None:
-            y = kernels.drn._sparse_conv(x.permute(0, 3, 1, 2), plan, None).to(
+            y = kernels.drn._sparse_conv(xs, plan, None).to(
                 torch.bfloat16) + bias.view(1, -1, 1, 1)
         return y
 
     if "b2" in olds:
-        # B2 at layer.6.1.conv2, f32 out and the served bf16 step
+        # B2 at layer.6.1.conv2, f32 out and the served bf16 step, at w = 256
+        # and at w = 128
         plan = plans["pallas"]["layer.6.1.conv2"].to(dev)
+        x128 = torch.randn(BATCH32_HALF, generator=gen, device=dev, dtype=torch.bfloat16)
+        # four rounds of 30 launches: turns of 10 spread by up to 14 % on an H100
         turns = ab(kernels, {"b2_f32": lambda: sc.fused_sparse_conv_apply(x, plan),
-                             "served_step": lambda: served_step(plan)})
-        _emit(phase="b2", conv="layer.6.1.conv2", shape=list(BATCH32), s=plan.s, turns=turns,
-              card=smi)
+                             "served_step": lambda: served_step(plan),
+                             "served_step_w128": lambda: served_step(plan, x128)},
+                   iters=30, rounds=4)
+        _emit(phase="b2", conv="layer.6.1.conv2", shape=list(BATCH32), s=plan.s,
+              shape_w128=list(BATCH32_HALF), rows_per_tile={
+                  "w256": sc.b2_tile_rows(BATCH32[2]), "w128": sc.b2_tile_rows(BATCH32_HALF[2])},
+              turns=turns, new_over_old=_median_ratios(turns), card=smi)
+        del x128
+        # B2's training forward and dgrad at the same conv's crop-512 shape
+        _emit(phase="b2_train", conv="layer.6.1.conv2", **_train_turns(kernels, params, spec,
+                                                                       gen, dev), card=smi)
         # B7a-f on the bench's conv at 87.5 %, batch 32; B4; sparse_conv_apply
         _, w, _ = bench_sparse.Bench(dev, smi).problem()
         m = bench_sparse.block_mask(w, 0.875)

@@ -23,21 +23,29 @@
 // Zero tiles are skipped.  Each packing carries, per out-block, the list of
 // its live (tap, slot) steps t*S + s (`steps`, built with the plan from the
 // nonzero mask that filled `vals`) and their count (`nsteps`); the bf16 path
-// walks only those, and a step whose kernel row falls outside the image
-// (its x tile is all zero padding) is skipped too.  An out-block with no
+// walks only those, and a step whose x box lies wholly outside the image
+// (it holds only zero padding) is skipped too.  An out-block with no
 // live step reads nothing and writes zeros.  On finite x this is the
 // function exactly (a skipped tile adds only +0 products); an Inf or NaN
 // in x would not propagate through a skipped tile.  Served activations are
 // finite.
 //
 // bf16 design: an implicit GEMM on wgmma, fed by TMA.  One CTA computes one
-// row segment of 256 output pixels (n, i, j0 .. j0+255) for one out-block jb:
-// M = 256 pixels, N = 128 channels, K = the live (tap, slot, 64-channel
-// slice) steps.  Per step, one TMA load of a 4-D tensor map over x (C, W, H,
-// N) with a box of (64 channels, 256 pixels, 1, 1) at (c0, j0 + q*d - pad,
-// i + p*d - pad, n) brings the tap-shifted A tile; TMA fills coordinates
-// outside x with zeros, which is the "same" padding, so there is no halo
-// logic and no padded copy of x.  Two TMA loads of a 2-D map over vals
+// tile of up to 256 output pixels for one out-block jb: M = 256 pixels, N =
+// 128 channels, K = the live (tap, slot, 64-channel slice) steps.  The tile
+// is R whole rows i0 .. i0+R-1 of image n when the map is narrow (R =
+// floor(256 / w), chosen by the wrapper, tpuseg_torch/ops/sparse_conv.py
+// b2_tile_rows; tpuseg's TPU kernel tiles whole rows too), else (R = 1) a
+// row segment of 256 pixels (n, i0, j0 .. j0+255).  Per step, one TMA load
+// of a 4-D tensor map over x (C, W, H, N) brings the tap-shifted A tile: a
+// box of (64 channels, w pixels, R rows, 1) at (c0, q*d - pad, i0 + p*d -
+// pad, n), or with R = 1 (64, 256, 1, 1) at (c0, j0 + q*d - pad, i0 + p*d -
+// pad, n).  TMA fills coordinates outside x with zeros, which is the "same"
+// padding, so there is no halo logic and no padded copy of x.  It lays the
+// box out pixel-major, one 128-byte row a pixel, so tile row m is pixel (i0
+// + m / w, m % w) under the same 128-byte swizzle for any w, and R whole
+// rows of one image are contiguous in NHWC: the epilogue's store is one
+// run of pixels from (n, i0, j0).  Two TMA loads of a 2-D map over vals
 // bring B, the 64 x 128 slice of vals[jb] for (t, s), N-contiguous, which
 // wgmma takes as its MN-major operand.  Both land 128-byte swizzled in a
 // 4-stage mbarrier ring (48 KB a stage).  Warp specialisation: one producer
@@ -46,10 +54,11 @@
 // accumulators of 64 f32 registers a thread, and release a stage as soon as
 // wgmma.wait_group says the MMAs reading it are done (one group in flight),
 // with no block-wide barrier in the loop.  The epilogue writes the f32 (or
-// bf16 + bias) tile straight from the accumulators; pixels past the row end
-// are not written.  The grid is every (row segment, out-block) pair,
-// out-block fastest, so an out-block with few or no steps finishes early
-// and the hardware scheduler fills its SM with the next CTA.
+// bf16 + bias) tile straight from the accumulators; pixels past the tile's
+// rows in the image (or the row's end) are not written.  The grid is every
+// (tile, out-block) pair, out-block fastest, so an out-block with few or no
+// steps finishes early and the hardware scheduler fills its SM with the
+// next CTA.  Tiles never cross an image.
 //
 // What bounds it on the H100.  At the serving shape of layer.6.1.conv2 (x
 // (32,128,256,512) bf16, d=4, S=1, four live out-blocks, 9 taps): 1.24 TFLOP
@@ -68,6 +77,17 @@
 // overlapped with MMAs.  An N of 256 would read each A tile once for twice
 // the columns, but an out-block is 128 channels and its neighbours read
 // other in-blocks.
+//
+// On narrow maps the tile shape is what matters.  The trainer's convs run
+// at output stride 8 of a 512 crop, 64-wide maps: with 256-pixel row
+// segments, 192 of every tile's 256 rows were TMA zero fill that wgmma
+// multiplied and the epilogue dropped, and at (8,64,64,512) d=4 the kernel
+// ran in 0.29 ms, 13 % of its 0.039 ms bound and slower than cuDNN's dense
+// conv.  R whole rows fill the tile (R*w = 256 at w = 64), so the grid has a
+// quarter of the CTAs for the same output, and the kernel runs that shape
+// in 0.086 ms, against 0.18 ms for cuDNN (NVIDIA H100 80GB HBM3 at 700 W;
+// PERF.md).  Where w does not divide 256 (w = 96: 192 of 256 rows) the
+// band still leaves part of the tile idle.
 //
 // f32 path (the plan is f32 only for exact parity checks): CUDA cores, 128
 // consecutive pixels of the flattened (n, i, j) index per block, 16-channel
@@ -93,7 +113,7 @@ constexpr int kBlockK = 128;   // channels per support block
 constexpr int kThreads = 256;  // f32 path
 
 // bf16 wgmma path
-constexpr int kTileM = 256;                       // output pixels per CTA (one row segment)
+constexpr int kTileM = 256;                       // output pixels per CTA: R rows or a row segment
 constexpr int kBK = 64;                           // channels per step: one 128-byte swizzle row
 constexpr int kChunks = kBlockK / kBK;            // steps per (tap, slot)
 constexpr int kStages = 4;
@@ -117,8 +137,29 @@ constexpr int kFChunksPerBlock = kBlockK / kFK;
 
 struct Geom {
   int h, w, cin, cout, s, k, dil, pad;
+  int tile_rows;  // bf16 path: image rows per tile (R); 1: 256-pixel row segments
+  int box_w;      // bf16 path: the x box's W extent (w when R > 1, else 256)
   long long pixels;  // n * h * w
 };
+
+// The x box of tap t for the bf16 tile whose first pixel is (i0, j0): its
+// first row ii and column jj, and whether any of its R x box_w pixels lies
+// in the image.  A step whose box lies wholly outside holds only zero
+// padding and is skipped.  The producer and the consumers both decide
+// through this one function: if they disagreed on a step, the mbarrier ring
+// would wait forever.
+struct StepBox {
+  int ii, jj;
+  bool live;
+};
+__device__ __forceinline__ StepBox step_box(int t, int i0, int j0, const Geom& g) {
+  const int p = t / g.k;
+  StepBox b;
+  b.ii = i0 + p * g.dil - g.pad;
+  b.jj = j0 + (t - p * g.k) * g.dil - g.pad;
+  b.live = b.ii < g.h && b.ii + g.tile_rows > 0 && b.jj < g.w && b.jj + g.box_w > 0;
+  return b;
+}
 
 // Write one m64 accumulator (rows r, r + 8 of the warp's 16) of a tile: f32,
 // or bf16 with the bias added after the cast (no add without a bias: +0.0
@@ -164,15 +205,20 @@ sparse_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
   uint64_t* empty = full + kStages;
 
+  // tile -> (image n, first row i0, first column j0): ceil(h / R) bands of
+  // R rows an image, each cut into ceil(w / 256) segments (one when R > 1)
   const int nmb = g.cout / kBN;
   const int segs = (g.w + kTileM - 1) / kTileM;
+  const int bands = (g.h + g.tile_rows - 1) / g.tile_rows;
   const int ts_len = g.k * g.k * g.s;
   const int jb = static_cast<int>(blockIdx.x % nmb);
   const long long tile = blockIdx.x / nmb;
-  const long long row = tile / segs;  // n * h + i
+  const long long band = tile / segs;  // n * bands + i0 / R
   const int j0 = static_cast<int>(tile % segs) * kTileM;
-  const int i = static_cast<int>(row % g.h);
-  const int n = static_cast<int>(row / g.h);
+  const int i0 = static_cast<int>(band % bands) * g.tile_rows;
+  const int n = static_cast<int>(band / bands);
+  // bytes of one x box: TMA counts its zero fill, so the whole box
+  const uint32_t a_bytes = static_cast<uint32_t>(g.tile_rows * g.box_w * kBK * 2);
   const int live = __ldg(nsteps + jb);
   const int* jsteps = steps + static_cast<long long>(jb) * ts_len;
 
@@ -196,17 +242,15 @@ sparse_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         const int ts = __ldg(jsteps + e);
         const int t = ts / g.s;
         const int s = ts - t * g.s;
-        const int p = t / g.k;
-        const int ii = i + p * g.dil - g.pad;
-        if (ii < 0 || ii >= g.h) continue;  // the whole x tile is zero padding
-        const int jj = j0 + (t - p * g.k) * g.dil - g.pad;
+        const StepBox box = step_box(t, i0, j0, g);
+        if (!box.live) continue;
         const int c0 = __ldg(rows + jb * g.s + s) * kBlockK;
         const int vrow = (jb * ts_len + ts) * kBlockK;
         for (int c = 0; c < kChunks; ++c) {
           mbar_wait(&empty[stage], phase ^ 1);
           unsigned char* a = smem + stage * kStageBytes;
-          mbar_expect_tx(&full[stage], kStageBytes);
-          tma_load_4d(a, &xmap, &full[stage], c0 + c * kBK, jj, ii, n);
+          mbar_expect_tx(&full[stage], a_bytes + kBBytes);
+          tma_load_4d(a, &xmap, &full[stage], c0 + c * kBK, box.jj, box.ii, n);
           tma_load_2d(a + kABytes, &vmap, &full[stage], 0, vrow + c * kBK);
           tma_load_2d(a + kABytes + kBBytes / 2, &vmap, &full[stage], kBN / 2, vrow + c * kBK);
           if (++stage == kStages) {
@@ -217,7 +261,10 @@ sparse_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       }
     }
   } else {
-    // consumer warpgroups: pixels wg*128 .. +127 of the tile, all 128 channels
+    // consumer warpgroups: pixels wg*128 .. +127 of the tile, all 128 channels.
+    // When R * box_w < 256, rows R * box_w .. 255 of a stage's A tile are
+    // not written by its load and hold what the ring last held; only
+    // accumulator rows the epilogue never stores read them.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     float acc0[64], acc1[64];
 #pragma unroll
@@ -226,9 +273,7 @@ sparse_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     int stage = 0, held = -1;
     uint32_t phase = 0;
     for (int e = 0; e < live; ++e) {
-      const int t = __ldg(jsteps + e) / g.s;
-      const int ii = i + (t / g.k) * g.dil - g.pad;
-      if (ii < 0 || ii >= g.h) continue;
+      if (!step_box(__ldg(jsteps + e) / g.s, i0, j0, g).live) continue;
       for (int c = 0; c < kChunks; ++c) {
         mbar_wait(&full[stage], phase);
         const uint32_t a = smem_u32(smem + stage * kStageBytes) + wg * 128 * (kBK * 2);
@@ -266,8 +311,10 @@ sparse_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       bv[2 * j] = bias != nullptr ? __bfloat162float(bias[col + j * 8]) : 0.0f;
       bv[2 * j + 1] = bias != nullptr ? __bfloat162float(bias[col + j * 8 + 1]) : 0.0f;
     }
-    const int valid = min(kTileM, g.w - j0);
-    const long long pix0 = row * g.w + j0;
+    // R whole rows of one image are one run of pixels in NHWC; the rows past
+    // h (and, when w does not divide 256, the tail past R * w) are not stored
+    const int valid = min(kTileM, min(g.tile_rows, g.h - i0) * g.w - j0);
+    const long long pix0 = (static_cast<long long>(n) * g.h + i0) * g.w + j0;
     const bool bf16 = bf16_out != 0, has_bias = bias != nullptr;
     store_acc(acc0, r, valid, pix0, g.cout, col, out, bf16, has_bias, bv);
     store_acc(acc1, r + 64, valid, pix0, g.cout, col, out, bf16, has_bias, bv);
@@ -390,13 +437,17 @@ static_assert(kWsSmem <= kMaxSmem, "the bf16 ring does not fit shared memory");
 
 // dtype: 0 f32 (x, vals, out f32; steps, nsteps, bias unused), 1 bf16 (x,
 // vals bf16; out f32, or bf16 with out_bf16 = 1, then bias (cout,) bf16 or
-// null).
+// null).  rows_per_tile: the bf16 path's image rows per tile, R >= 1 with
+// R * w <= 256 when R > 1 (1: 256-pixel row segments); the f32 path
+// checks it and does not use it.
 extern "C" int tpuseg_sparse_conv(const void* x, const void* vals, const void* rows,
                                   const void* steps, const void* nsteps, const void* bias,
                                   void* out, int n, int h, int w, int cin, int cout, int s, int k,
-                                  int dil, int dtype, int out_bf16, void* stream) {
+                                  int dil, int dtype, int out_bf16, int rows_per_tile,
+                                  void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || s <= 0 || k <= 0 || (k & 1) == 0 || dil <= 0 ||
-      cin <= 0 || cin % kBlockK != 0 || cout <= 0 || cout % kBN != 0 ||
+      cin <= 0 || cin % kBlockK != 0 || cout <= 0 || cout % kBN != 0 || rows_per_tile < 1 ||
+      (rows_per_tile > 1 && static_cast<long long>(rows_per_tile) * w > kTileM) ||
       ((uintptr_t)x & 15u) != 0 || ((uintptr_t)vals & 15u) != 0 || ((uintptr_t)out & 15u) != 0 ||
       ((uintptr_t)rows & 3u) != 0 || (out_bf16 != 0 && out_bf16 != 1)) {
     return (int)cudaErrorInvalidValue;
@@ -410,11 +461,14 @@ extern "C" int tpuseg_sparse_conv(const void* x, const void* vals, const void* r
   g.k = k;
   g.dil = dil;
   g.pad = dil * (k - 1) / 2;
+  g.tile_rows = rows_per_tile;
+  g.box_w = rows_per_tile > 1 ? w : kTileM;
   g.pixels = static_cast<long long>(n) * h * w;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const long long nmb = cout / kBN;
-    const long long ctas = static_cast<long long>(n) * h * ((w + kTileM - 1) / kTileM) * nmb;
+    const long long ctas = static_cast<long long>(n) * ((h + rows_per_tile - 1) / rows_per_tile) *
+                           ((w + kTileM - 1) / kTileM) * nmb;
     const long long vrows = nmb * k * k * s * kBlockK;
     if (steps == nullptr || nsteps == nullptr || ((uintptr_t)steps & 3u) != 0 ||
         ((uintptr_t)nsteps & 3u) != 0 || ((uintptr_t)bias & 3u) != 0 ||
@@ -425,7 +479,7 @@ extern "C" int tpuseg_sparse_conv(const void* x, const void* vals, const void* r
     const cuuint64_t xdims[4] = {(cuuint64_t)cin, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)n};
     const cuuint64_t xstrides[3] = {(cuuint64_t)cin * 2, (cuuint64_t)w * cin * 2,
                                     (cuuint64_t)h * w * cin * 2};
-    const cuuint32_t xbox[4] = {kBK, kTileM, 1, 1};
+    const cuuint32_t xbox[4] = {kBK, (cuuint32_t)g.box_w, (cuuint32_t)rows_per_tile, 1};
     const cuuint64_t vdims[2] = {kBN, (cuuint64_t)vrows};
     const cuuint64_t vstrides[1] = {kBN * 2};
     const cuuint32_t vbox[2] = {kBN / 2, kBK};

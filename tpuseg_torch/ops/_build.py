@@ -134,6 +134,7 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # s kernel dilation
         ctypes.c_int,                     # dtype: 0 f32, 1 bf16
         ctypes.c_int,                     # out_bf16: 1 writes bf16(bf16(y) + bias)
+        ctypes.c_int,                     # rows_per_tile: image rows per bf16 tile
         ctypes.c_void_p,                  # cudaStream_t
     ]
     lib.tpuseg_sparse_conv.restype = ctypes.c_int

@@ -29,6 +29,9 @@ T*S) int32, each out-block's step ids t*S + s of nonzero tiles, and
   it launches the hand-written kernel ``tpuseg_torch/csrc/sparse_conv.cu``
   (the port of ``tpuseg.ops.sparse_conv.fused_sparse_conv_apply``); on a
   CPU tensor it runs the plain version.
+- ``b2_tile_rows``: the image rows R of one tile of the kernel's bf16 path,
+  floor(256 / W) on maps narrower than 256 pixels, else 1 (a 256-pixel row
+  segment); the wrapper passes it and the kernel checks it.
 - ``fused_sparse_conv_bias_bf16``: the route bf16 serving takes
   (``models/drn.py``): one launch of the same kernel writes
   ``bf16(float(bf16(y)) + float(bias))``, the bits of ``tpuseg``'s
@@ -247,14 +250,30 @@ def _check_packing(p, nmb: int, T: int, device) -> None:
                          f"{(nmb, T * p.s)} and nsteps {(nmb,)})")
 
 
+B2_TILE_PIXELS = 256  # output pixels of one tile of B2's bf16 path (kTileM)
+
+
+def b2_tile_rows(w: int) -> int:
+    """Image rows R of one tile of B2's bf16 path on a map ``w`` pixels wide:
+    1 when w >= 256 (a tile is a 256-pixel segment of one row), else
+    floor(256 / w) whole rows, so a narrow map fills the tile."""
+    if w < 1:
+        raise ValueError(f"map width must be positive, got {w}")
+    return max(1, B2_TILE_PIXELS // w)
+
+
 def _launch_b2(x: torch.Tensor, p, kernel: int, dilation: int, cout: int,
-               bias: torch.Tensor | None = None, bf16_out: bool = False) -> torch.Tensor:
+               bias: torch.Tensor | None = None, bf16_out: bool = False,
+               rows_per_tile: int | None = None) -> torch.Tensor:
     """One launch of kernel B2 (``csrc/sparse_conv.cu``) on NHWC-contiguous
     CUDA ``x`` and the packing ``p`` (``vals``, ``rows``, ``steps``,
     ``nsteps``, ``s``), whose operands the caller has checked: casts x to
     the vals dtype, launches on the current stream and raises if the launch
     fails.  Returns the f32 (N, H, W, cout) output, or with ``bf16_out``
-    (bf16 plans) the bf16 ``bf16(float(bf16(y)) + float(bias))``."""
+    (bf16 plans) the bf16 ``bf16(float(bf16(y)) + float(bias))``.  The
+    tile's rows are ``b2_tile_rows(W)`` unless ``rows_per_tile`` names
+    them; the kernel rejects R < 1, or R > 1 with R * W > 256, and this
+    raises."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     from tpuseg_torch.ops._build import load_library
@@ -270,7 +289,7 @@ def _launch_b2(x: torch.Tensor, p, kernel: int, dilation: int, cout: int,
             x.data_ptr(), p.vals.data_ptr(), p.rows.data_ptr(), p.steps.data_ptr(),
             p.nsteps.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
             n, h, w, cin, cout, p.s, kernel, dilation, _DTYPE_CODE[p.vals.dtype],
-            int(bf16_out), stream,
+            int(bf16_out), b2_tile_rows(w) if rows_per_tile is None else rows_per_tile, stream,
         )
     _raise_on(lib, "sparse_conv", err)
     return out
