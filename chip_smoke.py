@@ -5,8 +5,9 @@ version, drives the served slices (DRN-D-22 DRNSeg, 19 classes, 1024x2048,
 dense and pruned, float and int8, with the int8 stem, every temporal mode,
 the yuv420 transport, the device resize, packed ids and device outputs)
 through ``VideoSegmenter`` and the CLI, trains DRNSeg at crop 512 (dense,
-masked, ``--sparse-exec``) through the trainer's CLI, and times the kernels
-against their plain versions.
+masked, ``--sparse-exec``) through the trainer's CLI, runs the
+trained-weights fidelity tool and serves its checkpoint, and times the
+kernels against their plain versions.
 
     python3 chip_smoke.py        # from the repo root, one CUDA card
 
@@ -180,6 +181,24 @@ Phases (any failed check raises and the exit code is non-zero):
      step of each and its device busy ms, idle share and largest kernels
      over 5 profiled steps, masked weights exactly 0, and in f32 at 64x64 the two
      trajectories within phase 32's tolerances.
+ 34. ``python -m tpuseg_torch.tools.trained_fidelity`` in this process at
+     its defaults (DRN-D-22, train size 128, batch 8, up to 800 steps, 300
+     recovery steps, a 96-frame 128x256 video at 4 px/frame, serve batch 8):
+     train, fidelity (every mode, int8 and warp included), compress
+     (block128reg_87.5 through --sparse-exec), compose and budget_curve
+     (speeds 1 and 4), each stage's report row, seconds and launch counts
+     (zeroed just before the stage, read just after); gates: the exact rows
+     agree with themselves, every GT mIoU in [0, 100], the train stage's
+     val mIoU >= 60, the int8 rows >= 0.97 against their exact baseline,
+     and B2 (training), B1, B3, the quantize pass, K3/K4, K6/K7 and K8
+     launched in the stages that run them;
+ 35. ``python -m tpuseg_torch.tools.remat_mem --cases seg`` (DRN-D-22,
+     768x768, batch 4, bf16): temp_ratio < 1;
+ 36. ``seg_video --pretrained`` phase 34's checkpoint on ``shapes:2`` at
+     128x256: ids equal to a ``VideoSegmenter`` built here from the same
+     npz, unequal to the random-weights run, GT mIoU >= 60; then the host
+     decoders the machine has and, with cv2, a written video served with
+     ``--video <file> --pretrained``.
 The line before the last is the kernels' JSON record (each kernel's time,
 its plain version's, its bound at the card's published peaks and the
 PyTorch call's, at its main shape; B3's time is its served route, the
@@ -192,6 +211,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2654,6 +2674,199 @@ def _sparse_training(torch, np, dev, workdir, smi) -> dict:
     return {"launches": launches, "ms_per_step": {k: v["ms_per_step"] for k, v in timed.items()}}
 
 
+# phases 34-36: the trained-weights fidelity tool at its defaults (DRN-D-22,
+# train size 128, batch 8, lr 0.05, up to 800 steps, 300 recovery steps, a
+# 96-frame 128x256 video at 4 px/frame, serve batch 8), remat_mem, and
+# seg_video serving the tool's checkpoint
+FIDELITY_STAGES = (
+    ("train", []),
+    ("fidelity", []),
+    ("compress", ["--variants", "block128reg_87.5", "--sparse-exec"]),
+    ("compose", []),
+    ("budget_curve", ["--speeds", "1.0,4.0"]),
+)
+FIDELITY_TRAIN_MIN = 60.0  # val mIoU (percent); tpuseg reached 86.95, a pruned model 10.66
+INT8_TRAINED_MIN = 0.97    # int8 ids against their exact baseline (ROADMAP C's int8 floor)
+PRETRAINED_SIZE = (128, 256)
+
+
+def _counters():
+    """{name: wrapper} of every launch counter on the served and trained
+    paths (B1, B2 served and in training, B3 and its stem route, the quantize
+    pass, K3-K8)."""
+    from tpuseg_torch.ops import sparse_train as tst
+    from tpuseg_torch.ops.sparse_conv import (fused_sparse_conv_apply, fused_sparse_conv_apply_q,
+                                              fused_sparse_conv_q_bias_relu, quantize_activation)
+    from tpuseg_torch.ops.temporal import budget_select, frame_deltas, keyframe_select
+    from tpuseg_torch.ops.upsample import upsample_argmax
+    from tpuseg_torch.video.flow import estimate_block_shifts, warp_ids
+    from tpuseg_torch.video.yuv import i420_to_rgb_flat
+
+    fns = (upsample_argmax, fused_sparse_conv_apply, tst.sparse_conv_train_forward,
+           tst.sparse_conv_train_dgrad, fused_sparse_conv_apply_q, fused_sparse_conv_q_bias_relu,
+           quantize_activation, frame_deltas, budget_select, keyframe_select,
+           estimate_block_shifts, warp_ids, i420_to_rgb_flat)
+    return {f.__name__: f for f in fns}
+
+
+def _quiet(fn, argv):
+    """``fn(argv)`` with its standard output captured: (its result, the
+    text); the text's end goes to stderr when it raises."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn(argv)
+    except BaseException:
+        print(buf.getvalue()[-6000:], file=sys.stderr, flush=True)
+        raise
+    return out, buf.getvalue()
+
+
+def _trained_fidelity(torch, out_dir, smi) -> dict:
+    """Phase 34: ``python -m tpuseg_torch.tools.trained_fidelity`` in this
+    process at its defaults, stage by stage, every launch count zeroed just
+    before each stage and read just after; each stage's report row and
+    seconds.  Gates: the exact rows agree with themselves, every GT mIoU in
+    [0, 100], the train stage's val mIoU >= FIDELITY_TRAIN_MIN, the int8 rows
+    >= INT8_TRAINED_MIN against their exact baseline, and the kernels
+    launched where their modes ran."""
+    from tpuseg_torch.tools import trained_fidelity
+
+    counters = _counters()
+    stages, launches = {}, {}
+    for stage, flags in FIDELITY_STAGES:
+        _zero_counts(torch, *counters.values())
+        t0 = time.perf_counter()
+        _, text = _quiet(trained_fidelity.main, ["--stage", stage, "--out", out_dir] + flags)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[stage] = {k: f.launches for k, f in counters.items()}
+        with open(f"{out_dir}/report.json") as fh:
+            stages[stage] = next(r for r in json.load(fh) if r["stage"] == stage)
+        _emit(phase="trained_fidelity", stage=stage, seconds=round(seconds, 1),
+              launches=launches[stage], row=stages[stage],
+              log=[ln for ln in text.splitlines() if not ln.startswith("{")][-12:], card=smi)
+    fid, comp = stages["fidelity"]["modes"], stages["compose"]["modes"]
+    if fid["exact"]["ids_agreement_vs_exact"] != 1.0 or \
+            comp["sparse_exact"]["ids_agreement_vs_sparse_exact"] != 1.0:
+        raise AssertionError("an exact row does not agree with itself")
+    mious = [r["gt_miou"] for r in list(fid.values()) + list(comp.values())] + [
+        p["gt_miou"] for c in stages["budget_curve"]["curves"].values()
+        for p in c["points"].values()]
+    if not all(0 <= m <= 100 for m in mious):
+        raise AssertionError(f"GT mIoU out of [0, 100]: {mious}")
+    if not stages["train"]["val_miou"] >= FIDELITY_TRAIN_MIN:
+        raise AssertionError(f"train stage val mIoU {stages['train']['val_miou']}")
+    int8 = {**{k: fid[k]["ids_agreement_vs_exact"]
+               for k in ("int8_dynamic", "int8_calib", "int8_stem_calib")},
+            "compose.sparse_int8": comp["sparse_int8"]["ids_agreement_vs_sparse_exact"]}
+    if not all(v >= INT8_TRAINED_MIN for v in int8.values()):
+        raise AssertionError(f"int8 agreement on trained weights: {int8}")
+    need = {"compress": ("sparse_conv_train_forward", "sparse_conv_train_dgrad"),
+            "fidelity": ("upsample_argmax", "fused_sparse_conv_apply_q",
+                         "fused_sparse_conv_q_bias_relu", "quantize_activation",
+                         "frame_deltas", "budget_select", "estimate_block_shifts", "warp_ids",
+                         "i420_to_rgb_flat"),
+            "compose": ("upsample_argmax", "fused_sparse_conv_apply_q", "frame_deltas",
+                        "budget_select"),
+            "budget_curve": ("upsample_argmax", "frame_deltas", "budget_select")}
+    missing = {st: [k for k in ks if not launches[st][k] > 0] for st, ks in need.items()}
+    if any(missing.values()):
+        raise AssertionError(f"kernels not launched in their stages: {missing}")
+    _emit(phase="trained_fidelity_gates", train_val_miou=stages["train"]["val_miou"],
+          int8_agreement=int8, gt_miou_range=[min(mious), max(mious)], card=smi)
+    total = {k: sum(launches[st][k] for st in launches) for k in counters}
+    return {"stages": stages, "launches": launches, "total": total}
+
+
+def _remat_mem(smi) -> dict:
+    """Phase 35: ``python -m tpuseg_torch.tools.remat_mem --cases seg``
+    (DRN-D-22, 768x768, batch 4, bf16): its lines, and remat's temp_ratio < 1."""
+    from tpuseg_torch.tools import remat_mem
+
+    (res,), text = _quiet(remat_mem.main, ["--cases", "seg"])
+    lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+    _emit(phase="remat_mem", command="python -m tpuseg_torch.tools.remat_mem --cases seg",
+          lines=lines, card=smi)
+    if not res.get("temp_ratio", 1.0) < 1.0:
+        raise AssertionError(f"remat_mem: temp_ratio {res.get('temp_ratio')} not below 1")
+    return res
+
+
+def _pretrained_serving(torch, np, dev, ckpt, workdir, smi) -> dict:
+    """Phase 36: ``seg_video --pretrained <phase 34's checkpoint> --video
+    shapes:2 --size 128x256`` (normalized with the shapes world's stats) in
+    this process: its ids equal a ``VideoSegmenter`` built here from the same
+    npz on the same frames, differ from the random-weights run, and score
+    GT mIoU >= FIDELITY_TRAIN_MIN against the video's labels; then the host
+    decoders this machine has and, where one is, a written video served with
+    ``--video <file> --pretrained``."""
+    from tpuseg_torch.cli import seg_video
+    from tpuseg_torch.data.shapes import shapes_video
+    from tpuseg_torch.metrics.seg import fast_hist, miou_from_hist
+    from tpuseg_torch.models.drn import build_drn_spec
+    from tpuseg_torch.tools.trained_fidelity import _shapes_stats
+    from tpuseg_torch.train import load_checkpoint
+    from tpuseg_torch.video.native_source import available
+    from tpuseg_torch.video.pipeline import FrameSource, VideoSegmenter
+
+    h, w = PRETRAINED_SIZE
+    mean, std = (",".join(f"{v:.9g}" for v in a) for a in _shapes_stats())
+    base = ["--size", f"{h}x{w}", "--frames", "24", "--batch", "8", "--mean", mean, "--std", std]
+    (line, res), _ = _quiet(seg_video.main, ["--video", "shapes:2", "--pretrained", ckpt] + base)
+    (_, rand), _ = _quiet(seg_video.main, ["--video", "shapes:2"] + base)
+    params, state, _m, _o, _meta = load_checkpoint(ckpt)
+    frames, labels = shapes_video(24, (h, w), seed=2)
+    seg = VideoSegmenter(params, state, build_drn_spec(ARCH, num_classes=0, naming="seg"),
+                         [float(v) for v in mean.split(",")], [float(v) for v in std.split(",")],
+                         device=dev, compute_dtype=torch.bfloat16, batch=8, target_size=(h, w),
+                         ids_bits=5)
+    ids = seg.run(list(frames), need_color=False)["ids"]
+    hist = sum(fast_hist(a.ravel(), b.ravel().astype(np.int32), 6)
+               for a, b in zip(res["ids"], labels))
+    gt = miou_from_hist(hist)
+    same = bool(np.array_equal(res["ids"], ids))
+    differ = not np.array_equal(res["ids"], rand["ids"])
+    _emit(phase="pretrained_serving", command="seg_video --video shapes:2 --pretrained "
+          f"{os.path.basename(ckpt)} " + " ".join(base), result=line,
+          equals_in_process=same, differs_from_random=differ, gt_miou=gt,
+          max_id=int(res["ids"].max()), card=smi)
+    if not (same and differ and gt >= FIDELITY_TRAIN_MIN and int(res["ids"].max()) < 6):
+        raise AssertionError(f"--pretrained: equal {same}, differs {differ}, GT mIoU {gt}")
+    # host decode: what this machine has (no device path)
+    have = {"native": available()}
+    for mod in ("cv2", "imageio"):
+        try:
+            __import__(mod)
+            have[mod] = True
+        except ImportError:
+            have[mod] = False
+    out = {"decoders": have, "decoder": None}
+    if have["cv2"]:
+        import cv2
+
+        path = os.path.join(workdir, "pretrained.mp4")
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10, (w, h))
+        for f in frames[:12]:
+            writer.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+        writer.release()
+        src = FrameSource(path)
+        n = sum(1 for _ in src)
+        (fline, fres), _ = _quiet(seg_video.main, ["--video", path, "--pretrained", ckpt,
+                                                   *base[:2], "--frames", "12", "--batch", "4",
+                                                   *base[6:]])
+        out.update(decoder=src.decoder, frames=n, result=fline)
+        if not (n == 12 and fline["frames"] == 12 and fres["ids"].shape == (12, h, w)):
+            raise AssertionError(f"--video file: {n} frames decoded, {fline}")
+    _emit(phase="host_decode", **out, card=smi)
+    return out
+
+
+def main() -> int:
+    import torch
 def main() -> int:
     import torch
 
@@ -2697,7 +2910,7 @@ def main() -> int:
 
 
 def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
-    """Phases 2-33 and the closing lines (``main`` builds, then runs these
+    """Phases 2-36 and the closing lines (``main`` builds, then runs these
     with the worker process that makes phase 23's and 27's inputs)."""
     from tpuseg_torch.data.shapes import shapes_video
     from tpuseg_torch.models.drnseg import bilinear_upsample_kernel, init_drnseg
@@ -3089,6 +3302,14 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
         _dense_training(torch, np, dev, workdir, smi)
         train_sparse = _sparse_training(torch, np, dev, workdir, smi)
+        torch.cuda.empty_cache()
+        # 34-36. the trained-weights fidelity tool, remat_mem, and seg_video
+        # serving the tool's checkpoint
+        fidelity = _trained_fidelity(torch, f"{workdir}/fidelity", smi)
+        torch.cuda.empty_cache()
+        _remat_mem(smi)
+        torch.cuda.empty_cache()
+        _pretrained_serving(torch, np, dev, f"{workdir}/fidelity/{ARCH}_shapes.npz", workdir, smi)
 
     _emit(phase="total", seconds=round(time.perf_counter() - t_start, 1))
     sc_src, b2_src = "tpuseg/ops/sparse_conv.py", "tpuseg_torch/csrc/sparse_conv.cu"
@@ -3111,6 +3332,12 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
     # the budgeted run
     b3_launches += stem_full["launches"]["b3"] + budget["launches"]["fused_sparse_conv_apply_q"]
     q_launches += stem_full["launches"]["quantize"] + budget["launches"]["quantize_activation"]
+    # and phase 34's stages (read around each stage)
+    fid = fidelity["total"]
+    launches += fid["upsample_argmax"]
+    b2_launches += fid["fused_sparse_conv_apply"]
+    b3_launches += fid["fused_sparse_conv_apply_q"]
+    q_launches += fid["quantize_activation"]
     stem_conv1 = stem_k["convs"][1]  # the stem route's main shape: the 256->256 conv
 
     kernels = [
@@ -3131,13 +3358,16 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
     ] + [s4(name, b2_src, f"{sc_src}:{line}", b7_err[name])
          for name, (_, _, line) in B7_ENTRIES.items()] + [
         timed("sparse_conv_q_stem", "tpuseg_torch/csrc/sparse_conv_q.cu",
-              "tpuseg/ops/polyphase.py:349-359", stem_full["launches"]["b3_stem"], stem_conv1),
+              "tpuseg/ops/polyphase.py:349-359",
+              stem_full["launches"]["b3_stem"] + fid["fused_sparse_conv_q_bias_relu"], stem_conv1),
         timed("frame_deltas", "tpuseg_torch/csrc/temporal.cu", "tpuseg/video/pipeline.py:670-678",
-              budget["launches"]["frame_deltas"], temporal_k["frame_deltas"]),
+              budget["launches"]["frame_deltas"] + fid["frame_deltas"],
+              temporal_k["frame_deltas"]),
         timed("budget_select", "tpuseg_torch/csrc/temporal.cu",
-              "tpuseg/video/pipeline.py:680-704", budget["launches"]["budget_select"],
+              "tpuseg/video/pipeline.py:680-704",
+              budget["launches"]["budget_select"] + fid["budget_select"],
               temporal_k["budget_select"]),
-    ] + [timed(name, source, replaces, launched, new_k[name])
+    ] + [timed(name, source, replaces, launched + fid[name], new_k[name])
          for name, launched in (
              ("keyframe_select", sequential["launches"]["keyframe_select"]),
              ("estimate_block_shifts", interval_warp["launches"]["estimate_block_shifts"]
@@ -3146,8 +3376,9 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
               + budget_warp["launches"]["warp_ids"]),
              ("i420_to_rgb_flat", transport["launches"]["i420_to_rgb_flat"]))
          for _, source, replaces in [FLOW_ENTRIES[name]]] + [
-        entry(name, b2_src, f"{sc_src}:270", train_sparse["launches"][name], t["max_abs_err"],
-              t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]), t["library_ms"])
+        entry(name, b2_src, f"{sc_src}:270", train_sparse["launches"][name] + fid[name],
+              t["max_abs_err"], t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]),
+              t["library_ms"])
         for name, t in train_k.items()]
     bad = [k["name"] for k in kernels if not k["launches"] > 0]
     if bad:

@@ -14,6 +14,9 @@ paths and names so every function has an obvious counterpart:
 - ``tpuseg_torch.cli``     — ``python -m tpuseg_torch.cli.seg_video``
 - ``tpuseg_torch.bench_sparse`` — the sparse-conv lowerings timed per conv
   on the card
+- ``tpuseg_torch.train``   — segmentation training (``cli.semantic_seg``)
+- ``tpuseg_torch.tools``   — the trained-weights fidelity harness
+  (``tools.trained_fidelity``) and ``tools.remat_mem``
 
 Conventions: public functions keep ``tpuseg``'s layouts (flat ``(B, H, W*3)``
 uint8 frames, ``(N, h, w, C)`` logits, ``(N, H, W)`` uint8 ids); convs run

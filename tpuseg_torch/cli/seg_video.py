@@ -1,10 +1,14 @@
 """Video segmentation CLI of the port (counterpart of ``tpuseg/cli/seg_video.py``).
 
-Runs DRNSeg with random weights from seed 0 over a generated video, batch by
-batch, and prints one JSON line with the end-to-end rate (and, with
-``--device-fps``, the device rate timed with CUDA events).  It takes
-``tpuseg``'s flags except ``--video <file>``, ``--pretrained``,
-``--mesh-devices`` and ``--profile-dir``:
+Runs DRNSeg over a video file (decoded by ``video.pipeline.FrameSource``)
+or a generated video, batch by batch, and prints one JSON line with the
+end-to-end rate (and, with ``--device-fps``, the device rate timed with CUDA
+events).  It takes ``tpuseg``'s flags except ``--mesh-devices`` and
+``--profile-dir``:
+- the weights: random from seed 0 by default, or ``--pretrained x.npz``
+  (a checkpoint of either package's trainer, e.g. the
+  ``<arch>_shapes.npz`` of ``tools/trained_fidelity``; the classes are the
+  checkpoint head's); ``.pth`` files wait for ROADMAP A20;
 - the model: ``--pr-config-path`` (pruned; a ``sparse_plans`` event first),
   ``--quantize`` [``--calibrate N``] [``--quantize-stem``] (int8; an
   ``int8_plans`` event);
@@ -22,6 +26,8 @@ Usage:
       --batch 8 --frames 32 --device-fps
   python -m tpuseg_torch.cli.seg_video --video synthetic --size 64x128 \\
       --frames 4 --batch 2 --device cpu
+  python -m tpuseg_torch.cli.seg_video --video clip.mp4 --size 128x256 \\
+      --pretrained runs/fidelity/drn_d_22_shapes.npz [--device cpu]
   python -m tpuseg_torch.cli.seg_video --video shapes --size 1024x2048 \\
       --batch 8 --frames 32 --device-fps \\
       --pr-config-path optimal_configs/drn_d_22/drn_d_22_block128reg_87.50.json \\
@@ -50,12 +56,16 @@ import torch
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="tpuseg_torch video segmentation demo")
     p.add_argument("--video", required=True,
-                   help="frame source: 'shapes[:seed]' (the moving-shapes "
-                        "world of tpuseg_torch.data.shapes) or "
+                   help="frame source: a video file path, 'shapes[:seed]' (the "
+                        "moving-shapes world of tpuseg_torch.data.shapes) or "
                         "'synthetic[:seed]' (uniform random frames), both "
                         "generated at --size")
     p.add_argument("--arch", default="drn_d_22")
     p.add_argument("--classes", type=int, default=19)
+    p.add_argument("--pretrained", default=None,
+                   help=".npz checkpoint (tpuseg_torch.train.save_checkpoint or "
+                        "tpuseg's); the classes are its head's.  .pth waits for "
+                        "ROADMAP A20")
     p.add_argument("--frames", type=int, default=25,
                    help="number of frames (reference demos use 25)")
     p.add_argument("--batch", type=int, default=8)
@@ -172,21 +182,49 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def open_frames(video: str, n: int, h: int, w: int):
-    """``shapes[:seed]`` or ``synthetic[:seed]`` frames, (h, w, 3) uint8."""
-    kind, _, seed = video.partition(":")
+def _is_generated(video: str) -> bool:
+    return video.partition(":")[0] in ("shapes", "synthetic")
+
+
+def open_frames(args, n: int, h: int, w: int, *, fmt: str = "rgb"):
+    """Frames of ``args.video``: a decoded file (``FrameSource``, resized on
+    the host to (h, w) with ``--host-resize``, as packed I420 planes with
+    ``fmt="i420"``), or ``shapes[:seed]`` / ``synthetic[:seed]`` frames
+    generated at (h, w), (h, w, 3) uint8."""
+    if not _is_generated(args.video):
+        from tpuseg_torch.video.pipeline import FrameSource
+
+        if not os.path.exists(args.video):
+            raise SystemExit(f"error: video file not found: {args.video}")
+        return FrameSource(args.video, size=(h, w) if args.host_resize else None, fmt=fmt)
+    kind, _, seed = args.video.partition(":")
     seed = int(seed) if seed else 0
     if kind == "shapes":
         from tpuseg_torch.data.shapes import shapes_video
 
         return list(shapes_video(max(n, 1), (h, w), seed=seed)[0])
-    if kind == "synthetic":
-        from tpuseg_torch.video.pipeline import SyntheticFrames
+    from tpuseg_torch.video.pipeline import SyntheticFrames
 
-        return SyntheticFrames(max(n, 1), (h, w), seed=seed)
-    raise SystemExit(
-        f"error: --video {video!r}: the port reads 'shapes[:seed]' or "
-        "'synthetic[:seed]' (no video files yet)")
+    return SyntheticFrames(max(n, 1), (h, w), seed=seed)
+
+
+def load_model(args):
+    """(params, state, spec): ``--pretrained``'s npz (``tpuseg``'s rule:
+    the spec has no classes, the head's weights carry them), else random
+    weights from seed 0 with ``--classes``."""
+    from tpuseg_torch.models.drn import build_drn_spec
+    from tpuseg_torch.models.drnseg import init_drnseg
+
+    if args.pretrained and args.pretrained.endswith(".pth"):
+        raise SystemExit("error: --pretrained .pth: importing the reference's PyTorch "
+                         "checkpoints (torch_import) is not ported yet (ROADMAP A20); "
+                         "use an .npz")
+    if args.pretrained:
+        from tpuseg_torch.train import load_checkpoint
+
+        params, state, _masks, _opt, _meta = load_checkpoint(args.pretrained)
+        return params, state, build_drn_spec(args.arch, num_classes=0, naming="seg")
+    return init_drnseg(0, args.arch, args.classes)
 
 
 def _resolve_ids_pack(args, w: int) -> int | None:
@@ -205,10 +243,11 @@ def _resolve_ids_pack(args, w: int) -> int | None:
     return bits
 
 
-def main(argv=None):
+def main(argv=None) -> tuple[dict, dict]:
+    """Runs the CLI; returns the printed result line and ``run()``'s result
+    (the served ids among it)."""
     args = parse_args(argv)
     from tpuseg_torch.device import resolve_device
-    from tpuseg_torch.models.drnseg import init_drnseg
     from tpuseg_torch.video.pipeline import VideoSegmenter
 
     device = resolve_device(args.device)
@@ -219,7 +258,7 @@ def main(argv=None):
     # resolved once, before the other events: the event line must not repeat
     # for autotune's segmenters
     ids_bits = _resolve_ids_pack(args, w)
-    params, state, spec = init_drnseg(0, args.arch, args.classes)
+    params, state, spec = load_model(args)
     exec_plans = None
     if args.pr_config_path:
         from tpuseg_torch.models.sparse_exec import build_sparse_plans
@@ -251,9 +290,10 @@ def main(argv=None):
                          "--temporal-budget")
     # calibration and the autotune prefix take the first frames, served or
     # not: generate enough for all (frame t of either source does not depend
-    # on the count)
+    # on the count); a file decodes from its start on each pass
     prefix = max(args.autotune_frames, args.batch) if autotune else 0
-    frames = open_frames(args.video, max(args.frames, args.calibrate, prefix), h, w)
+    n_frames = max(args.frames, args.calibrate, prefix)
+    frames = open_frames(args, n_frames, h, w)
     calib = None
     if args.quantize and args.calibrate > 0:
         calib = list(itertools.islice(frames, args.calibrate))
@@ -315,10 +355,16 @@ def main(argv=None):
         if args.quantize_stem:
             event["int8_stem"] = True
         print(json.dumps(event))
+    # with the yuv420 transport a file decodes straight to I420 planes (the
+    # native decoder emits them with no RGB detour); generated sources and
+    # runs that save images keep RGB on the host
+    served = frames
+    if args.transport == "yuv420" and not _is_generated(args.video) and not args.save_dir:
+        served = open_frames(args, n_frames, h, w, fmt="i420")
     # color and overlay images are made only when they are saved
-    result = seg.run(frames, max_frames=args.frames, need_color=bool(args.save_dir))
+    result = seg.run(served, max_frames=args.frames, need_color=bool(args.save_dir))
     if result["frames"] == 0:
-        raise SystemExit(f"error: no frames from {args.video}")
+        raise SystemExit(f"error: no frames decoded from {args.video}")
     if args.save_dir:
         from PIL import Image
 
@@ -357,8 +403,7 @@ def main(argv=None):
         if args.temporal_thresh is not None:
             # the adaptive rate depends on the content: measure on the served
             # frames themselves, from a fresh carry
-            served = list(itertools.islice(frames, args.frames))
-            dev = seg.benchmark_adaptive_device_fps(served)
+            dev = seg.benchmark_adaptive_device_fps(list(itertools.islice(frames, args.frames)))
             line["device_fps"] = round(dev["device_fps"], 2)
             line["device_promotion_rate"] = round(dev["promotion_rate"], 4)
         else:
@@ -376,6 +421,7 @@ def main(argv=None):
         if args.device_fps:
             line["full_device_fps"] = round(seg_full.benchmark_device_fps((h, w)), 2)
     print(json.dumps(line))
+    return line, result
 
 
 if __name__ == "__main__":

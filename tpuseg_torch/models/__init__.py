@@ -5,6 +5,7 @@ from tpuseg_torch.models.drn import (  # noqa: F401
     build_drn_spec,
     drn_forward,
     init_drn,
+    jax_key,
 )
 from tpuseg_torch.models.drnseg import (  # noqa: F401
     bilinear_upsample_kernel,

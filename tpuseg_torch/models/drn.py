@@ -358,11 +358,26 @@ def build_drn_spec(
 # --------------------------------------------------------------------------
 
 
-def rng_from_key(key: int) -> np.random.Generator:
-    """Host-side numpy Generator from an int seed (``tpuseg``'s int path)."""
-    if not isinstance(key, (int, np.integer)):
-        raise TypeError(f"the port seeds from an int, got {type(key).__name__}")
-    return np.random.default_rng(int(key))
+def jax_key(seed: int) -> tuple[int, int]:
+    """The key data of ``jax.random.key(seed)`` (threefry: ``[0, seed]``).
+
+    Pass it as the ``key`` of ``init_drn``/``init_drnseg`` to draw the
+    weights ``tpuseg`` draws from ``jax.random.key(seed)``: its
+    ``rng_from_key`` seeds numpy from the key's data,
+    ``SeedSequence([0, seed])``, where an int seed gives
+    ``default_rng(seed)``."""
+    return (0, int(seed))
+
+
+def rng_from_key(key) -> np.random.Generator:
+    """Host-side numpy Generator, as ``tpuseg``'s: an int seed gives
+    ``default_rng(seed)``; a key's data (a sequence of ints, ``jax_key``)
+    gives ``default_rng(SeedSequence(data))``."""
+    if isinstance(key, (int, np.integer)):
+        return np.random.default_rng(int(key))
+    if isinstance(key, (tuple, list)) and all(isinstance(v, (int, np.integer)) for v in key):
+        return np.random.default_rng(np.random.SeedSequence([int(v) for v in key]))
+    raise TypeError(f"the port seeds from an int or a key's data, got {type(key).__name__}")
 
 
 def _he_normal_conv(rng: np.random.Generator, cdef: ConvDef) -> np.ndarray:
@@ -393,10 +408,10 @@ def _init_conv_bn(
         state[f"{bdef.name}.running_var"] = np.ones((bdef.ch,), np.float32)
 
 
-def init_drn(key: int, spec: DrnSpec) -> tuple[Params, State]:
+def init_drn(key, spec: DrnSpec) -> tuple[Params, State]:
     """Initialize a flat param dict + BN state dict for ``spec``.
 
-    ``key`` is an int seed.  The draws are ``tpuseg``'s, in its order and in
+    ``key`` is an int seed or a key's data (``jax_key``).  The draws are ``tpuseg``'s, in its order and in
     its HWIO layout, so both packages build identical bytes from one seed;
     the result is converted to the port's OIHW CPU tensors at the end.
     """

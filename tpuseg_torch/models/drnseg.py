@@ -53,8 +53,9 @@ def build_drnseg_spec(arch: str, classes: int) -> DrnSpec:
     return build_drn_spec(arch, num_classes=0, naming="seg")
 
 
-def init_drnseg(key: int, arch: str, classes: int) -> tuple[Params, State, DrnSpec]:
-    """Backbone + head weights from an int seed, byte-identical to
+def init_drnseg(key, arch: str, classes: int) -> tuple[Params, State, DrnSpec]:
+    """Backbone + head weights from an int seed or a key's data
+    (``models.drn.jax_key``), byte-identical to
     ``tpuseg.models.drnseg.init_drnseg`` (the head draws from its own
     stream, seeded from the backbone's, exactly as there)."""
     spec = build_drnseg_spec(arch, classes)

@@ -1,2 +1,2 @@
 """Video segmentation serving for the port."""
-from tpuseg_torch.video.pipeline import SyntheticFrames, VideoSegmenter  # noqa: F401
+from tpuseg_torch.video.pipeline import FrameSource, SyntheticFrames, VideoSegmenter  # noqa: F401

@@ -12,6 +12,9 @@ uint8 frames go up and uint8 class ids (or images) come down.  By default
 color and overlay are rebuilt on the host from the ids (an integer gather,
 bit-identical to doing it on the device).
 
+``FrameSource`` decodes video files (the native decoder, cv2 or imageio),
+as RGB or as I420 planes for the yuv420 transport.
+
 ``run`` keeps two batches in flight: each batch's ids are copied to pinned
 host memory with ``non_blocking=True`` and a CUDA event marks the copy's
 end, so the fetch overlaps the next batch's upload and compute; ``collect``
@@ -44,6 +47,86 @@ from tpuseg_torch.ops.temporal import budget_select, frame_deltas, keyframe_sele
 from tpuseg_torch.ops.upsample import upsample_argmax
 from tpuseg_torch.video.flow import estimate_block_shifts, pooled_luma, warp_ids
 from tpuseg_torch.video.yuv import i420_geometry, i420_to_rgb_flat, rgb_to_i420
+
+
+class FrameSource:
+    """Decode the frames of a video file, resized to ``size`` (height,
+    width) when given, as (H, W, 3) uint8 RGB or, with ``fmt="i420"``, as
+    packed (H*3/2, W) I420 planes for ``VideoSegmenter``'s yuv420 transport
+    (``tpuseg``'s ``FrameSource``; reference: the FrameCapture decode loop,
+    seg_video.py:113-139).
+
+    The decoders are tried in ``tpuseg``'s order: the native threaded
+    decoder (``video/native_source.py``, which emits I420 itself), then cv2,
+    then imageio with PIL's bilinear resize; the last two make I420 on the
+    host (``video/yuv.py::rgb_to_i420``, after cropping to the packing
+    grid).  Each pass over the source decodes the file from its start;
+    ``decoder`` names the decoder of the latest pass (``"native"``,
+    ``"cv2"`` or ``"imageio"``; None before the first)."""
+
+    def __init__(self, path: str, size: tuple[int, int] | None = None,
+                 native: bool = True, fmt: str = "rgb"):
+        if fmt not in ("rgb", "i420"):
+            raise ValueError(f"fmt must be 'rgb' or 'i420', got {fmt!r}")
+        self.path = path
+        self.size = size  # (height, width)
+        self.native = native
+        self.fmt = fmt
+        self.decoder = None
+
+    def __iter__(self):
+        if self.native:
+            from tpuseg_torch.video.native_source import NativeFrameSource, available
+
+            if available():
+                try:
+                    source = NativeFrameSource(self.path, self.size, fmt=self.fmt)
+                except (RuntimeError, FileNotFoundError):
+                    source = None  # cv2 below, as in tpuseg
+                if source is not None:
+                    self.decoder = "native"
+                    try:
+                        yield from source
+                    finally:
+                        source.close()
+                    return
+        if self.fmt == "i420":
+            rgb = FrameSource(self.path, self.size, native=False)
+            for frame in rgb:
+                self.decoder = rgb.decoder
+                h, w = frame.shape[:2]
+                frame = frame[: h // 4 * 4, : w // 2 * 2]  # the packing grid
+                yield rgb_to_i420(frame)[0]
+            return
+        try:
+            import cv2
+        except ImportError:
+            cv2 = None
+        if cv2 is not None:
+            self.decoder = "cv2"
+            cap = cv2.VideoCapture(self.path)
+            try:
+                while True:
+                    ok, frame = cap.read()
+                    if not ok:
+                        break
+                    frame = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+                    if self.size is not None:
+                        h, w = self.size
+                        frame = cv2.resize(frame, (w, h), interpolation=cv2.INTER_LINEAR)
+                    yield frame
+            finally:
+                cap.release()
+            return
+        import imageio.v3 as iio
+        from PIL import Image
+
+        self.decoder = "imageio"
+        for frame in iio.imiter(self.path):
+            if self.size is not None:
+                h, w = self.size
+                frame = np.asarray(Image.fromarray(frame).resize((w, h), Image.BILINEAR))
+            yield np.asarray(frame, dtype=np.uint8)
 
 
 class SyntheticFrames:
