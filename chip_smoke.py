@@ -6,8 +6,10 @@ dense and pruned, float and int8, with the int8 stem, every temporal mode,
 the yuv420 transport, the device resize, packed ids and device outputs)
 through ``VideoSegmenter`` and the CLI, trains DRNSeg at crop 512 (dense,
 masked, ``--sparse-exec``) through the trainer's CLI, runs the
-trained-weights fidelity tool and serves its checkpoint, and times the
-kernels against their plain versions.
+trained-weights fidelity tool and serves its checkpoint, trains the DRN-D-22
+classifier and runs the classifier CLIs and tools (the CIFAR zoo in int8
+through B3's padded route), and times the kernels against their plain
+versions.
 
     python3 chip_smoke.py        # from the repo root, one CUDA card
 
@@ -198,7 +200,27 @@ Phases (any failed check raises and the exit code is non-zero):
      128x256: ids equal to a ``VideoSegmenter`` built here from the same
      npz, unequal to the random-weights run, GT mIoU >= 60; then the host
      decoders the machine has and, with cv2, a written video served with
-     ``--video <file> --pretrained``.
+     ``--video <file> --pretrained``;
+ 37. the DRN-D-22 classifier (classifier naming, 1000 classes) at 224x224,
+     batch 32, bf16, masked by block128reg_87.50 in classifier naming:
+     masked dense and ``--sparse-exec``, ms a step over 5 steps after 3 of
+     warm-up and the peak memory, B2 launched exactly 2 x 10 times a step
+     and never in masked dense or an evaluation, masked weights exactly 0;
+     in f32 at 64x64 the two trajectories within phase 32's tolerances and
+     one step on the card against the CPU; B2's forward and dgrad against
+     their plain versions on the classifier's maps (32, 28, 28, 512) and
+     (8, 4, 4, 512), d in {1, 2, 4} (R = min(floor(256 / w), h)), timed at
+     (32, 28, 28, 512) d = 4 against cuDNN;
+ 38. the classifier CLIs in this process with their launch counts:
+     ``rmbsnn --dataset synthetic -a drn_d_22 --mc-pruning --pr-static
+     --sparse-exec`` (bf16, 1 epoch), ``rmbsnn -a cifar_resnet20 --evaluate
+     --quantize`` (int8_layers >= 20, B3's padded route 16 times a forward,
+     each padded conv bit-equal to its plain version on the card, timed
+     against cuDNN's bf16 conv), ``rmbsnn -a drn_d_22 --evaluate
+     --quantize``, ``imagenet_train --dataset synthetic`` and ``seg_video
+     --pretrained x.pth`` (ids equal to the same weights' npz);
+ 39. ``trained_fidelity --stage cls`` at its defaults and ``remat_mem
+     --cases cls,kd``.
 The line before the last is the kernels' JSON record (each kernel's time,
 its plain version's, its bound at the card's published peaks and the
 PyTorch call's, at its main shape; B3's time is its served route, the
@@ -539,8 +561,8 @@ def _served_w128_times(torch, dev, x, plan, qplan, bias, smi) -> None:
     }, dict.fromkeys(("b2_route_w256", "b2_route_w128", "b3_served_w256", "b3_served_w128"),
                      10))
     _emit(phase="served_w128_time", conv="layer.6.1.conv2", shape_w256=[sn, sh, sw, sc],
-          shape_w128=list(x128.shape), b2_rows_per_tile={"w256": b2_tile_rows(sw),
-                                                         "w128": b2_tile_rows(sw // 2)},
+          shape_w128=list(x128.shape), b2_rows_per_tile={"w256": b2_tile_rows(sw, sh),
+                                                         "w128": b2_tile_rows(sw // 2, sh // 2)},
           ms=turns, w128_over_w256={k: min(turns[f"{k}_w128"]) / min(turns[f"{k}_w256"])
                                     for k in ("b2_route", "b3_served")}, card=smi)
 
@@ -2154,14 +2176,14 @@ TRAIN_ENTRIES = {  # wrapper -> the role in which tpuseg's trainer launches B2
     "sparse_conv_train_dgrad": "tpuseg/ops/sparse_train.py:239 (dgrad)",
 }
 # phase 31's tile-geometry cases, (n, h, w): B2's bf16 tile is R =
-# floor(256 / w) whole rows when w < 256 (``b2_tile_rows``), else a
-# 256-pixel row segment; each runs at (k, d) in TILE_KD
+# min(floor(256 / w), h) whole rows when w < 256 (``b2_tile_rows``), else
+# a 256-pixel row segment; each runs at (k, d) in TILE_KD
 TILE_CASES = (
     (2, 5, 64),     # h not a multiple of R = 4
     (2, 9, 96),     # w does not divide 256: R = 2, 192 of 256 tile rows
     (2, 7, 112),    # the maps of a crop-896 step
     (2, 6, 128),
-    (1, 4, 8),      # R = 32, past h
+    (1, 4, 8),      # floor(256 / 8) = 32 rows past h = 4: R = 4
     (1, 3, 200),    # R = 1
     (1, 2, 256),    # R = 1, the served width
     (1, 2, 300),    # R = 1, two row segments
@@ -2254,7 +2276,7 @@ def _b2_grid(n, h, w, cout) -> tuple[int, int]:
     output channels, as ``csrc/sparse_conv.cu`` computes them."""
     from tpuseg_torch.ops.sparse_conv import B2_TILE_PIXELS, b2_tile_rows
 
-    r = b2_tile_rows(w)
+    r = b2_tile_rows(w, h)
     return r, n * -(-h // r) * -(-w // B2_TILE_PIXELS) * (cout // 128)
 
 
@@ -2278,7 +2300,7 @@ def _tile_rows_checks(torch, np, plan, x) -> dict:
                                      rows_per_tile=r),
                       want, plan.kernel ** 2 * plan.s * 128, rows_per_tile=r,
                       shape=list(x.shape))
-            for r in range(1, tile // w + 1) if r != tsc.b2_tile_rows(w)}
+            for r in range(1, tile // w + 1) if r != tsc.b2_tile_rows(w, x.shape[1])}
     _emit(phase="b2_rows_per_tile_rejected", w=w, rejected=bad, legal_checked=list(errs))
     return errs
 
@@ -2387,7 +2409,7 @@ def _train_kernels(torch, np, dev, rng, smi) -> dict:
                                            for e in errs.values())}
     _emit(phase="train_kernels", structs=report, cases=len(cases), errors=errs,
           forced_rows_errors=forced, timed=TRAIN_TIMED, shape=[n, h, w, st.cin],
-          rows_per_tile=b2_tile_rows(w), grid_forward=_b2_grid(n, h, w, st.cout)[1], ms=turns,
+          rows_per_tile=b2_tile_rows(w, h), grid_forward=_b2_grid(n, h, w, st.cout)[1], ms=turns,
           bound_ms={r: b[0] for r, b in bounds.items()}, card=smi)
     return out
 
@@ -2865,8 +2887,450 @@ def _pretrained_serving(torch, np, dev, ckpt, workdir, smi) -> dict:
     return out
 
 
-def main() -> int:
-    import torch
+# phases 37-39: the classifier arm (DRN-D-22 classifier training with
+# --sparse-exec at 224x224, the classifier CLIs, the cls tools)
+CLS_CLASSES = 1000
+CLS_CROP = 224
+CLS_BATCH = 32
+CLS_SMALL = 64       # f32 parity input side (maps 8x8 at output stride 8)
+CLS_SMALL_MAPS = ((32, 28, 28), (8, 4, 4))  # B2's classifier maps at 224 and 32 inputs
+CLS_SMALL_DILATIONS = (1, 2, 4)
+CLS_SYNTHETIC_N = 256  # the CLIs' --synthetic-n: 4 batches of 64
+CLS_CLI_BATCH = 64
+R20_PADDED_PER_FORWARD = 16  # cifar_resnet20's int8 plans at stride-1 call sites
+D22_INT8_PER_FORWARD = 13    # drn_d_22's int8 plans (stages 4-8, >= 128 channels)
+CLS_ACC_MIN = 0.5    # cls stage accuracies (chance 0.1)
+
+
+def _cls_config(workdir) -> tuple[dict, str]:
+    """block128reg_87.50's config with its ``layer_set`` in classifier
+    naming (``layer.N.`` -> ``layerN.``), and the path it is written to."""
+    import re
+
+    with open(SERVED_CONFIG) as fh:
+        cfg = json.load(fh)
+    for c in cfg["configs"]:
+        c["layer_set"] = [re.sub(r"^layer\.(\d+)\.", r"layer\1.", n) for n in c["layer_set"]]
+    path = os.path.join(workdir, "drn_d_22_cls_block128reg_87.50.json")
+    with open(path, "w") as fh:
+        json.dump(cfg, fh)
+    return cfg, path
+
+
+def _cls_trainer(torch, dev, params, state, spec, masks=None, sparse=False, dtype=None,
+                 lr=0.01):
+    """(train state on ``dev``, cls train step, cls eval step) of the
+    port's classifier trainer (``dtype`` None: f32)."""
+    from tpuseg_torch.ops.sparse_train import build_sparse_train_structs
+    from tpuseg_torch.train import (create_train_state, make_cls_train_step, make_eval_step,
+                                    make_sgd)
+
+    def on(tensors):
+        return {k: v.to(dev) for k, v in tensors.items()}
+
+    plans = ({k: st.to(dev) for k, st in build_sparse_train_structs(masks, spec)[0].items()}
+             if sparse else None)
+    tx = make_sgd(lambda _: lr, 0.9, 1e-4)
+    ts = create_train_state(on(params), on(state), tx, on(masks) if masks else None)
+    return (ts, make_cls_train_step(spec, tx, compute_dtype=dtype, sparse_plans=plans),
+            make_eval_step(spec, "cls", compute_dtype=dtype))
+
+
+def _cls_batch(torch, np, dev, n, size, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.normal(size=(n, size, size, 3)).astype(np.float32)).to(dev),
+            torch.from_numpy(rng.integers(0, CLS_CLASSES, n).astype(np.int32)).to(dev))
+
+
+def _cls_small_maps(torch, np, dev, rng, smi) -> dict:
+    """B2's forward and dgrad on the classifier's maps against their plain
+    versions (``_train_case``: within 2*K*eps, and against cuDNN's f64 conv
+    and dgrad): (32, 28, 28, 512), R = 9 with a last band of one real row,
+    and (8, 4, 4, 512), where floor(256 / 4) = 64 rows would pass h = 4;
+    d in {1, 2, 4}; R and the grid on a line before each; then the forward
+    and the dgrad at (32, 28, 28, 512), d = 4 timed against their plain
+    versions and cuDNN's dense conv and dgrad."""
+    import torch.nn.functional as F
+
+    from tpuseg_torch.ops import sparse_train as tst
+    from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_reference
+
+    g = torch.Generator(device=dev).manual_seed(37)
+    errs, kept = {}, None
+    for n, h, w in CLS_SMALL_MAPS:
+        for d in CLS_SMALL_DILATIONS:
+            m = _b2_mask(rng, 3, 512, 512, 2)
+            st = tst.plan_sparse_conv_train(m.transpose(2, 3, 1, 0), dilation=d)
+            name = f"cls_{n}x{h}x{w}_d{d}"
+            r, fwd_ctas = _b2_grid(n, h, w, st.cout)
+            _emit(phase="b2_tile_geometry", case=name, shape=[n, h, w], rows_per_tile=r,
+                  grid_forward=fwd_ctas, grid_dgrad=_b2_grid(n, h, w, st.cin)[1])
+            plan, mask = st.to(dev), torch.from_numpy(m).to(dev)
+            wt = torch.randn((512, 512, 3, 3), generator=g, device=dev)
+            wt = wt * (2.0 / (9 * 512)) ** 0.5 * mask
+            x = torch.randn((n, h, w, 512), generator=g, device=dev).to(torch.bfloat16)
+            dy = torch.randn((n, h, w, 512), generator=g, device=dev)
+            errs[name] = _train_case(torch, np, name, plan, wt, mask, x, dy)
+            if (n, h, w, d) == (*CLS_SMALL_MAPS[0], 4):
+                kept = (plan, wt, x, dy)
+    plan, wt, x, dy = kept
+    st = plan.struct
+    vals = tst.pack_vals(wt, plan, torch.bfloat16)
+    vals_t = tst._transpose_vals(vals, plan)
+    dyc = dy.to(torch.bfloat16)
+    fplan, bplan = tst._fwd_plan(vals, plan), tst._bwd_plan(vals_t, plan)
+    w_b = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    x_nchw, dy_nchw = x.permute(0, 3, 1, 2), dyc.permute(0, 3, 1, 2)
+    turns = _time_turns(torch, {
+        "forward": lambda: tst.sparse_conv_train_forward(x, vals, plan),
+        "forward_plain": lambda: fused_sparse_conv_reference(x, fplan),
+        "forward_cudnn": lambda: F.conv2d(x_nchw, w_b, None, 1, st.dilation, st.dilation),
+        "dgrad": lambda: tst.sparse_conv_train_dgrad(dyc, vals_t, plan),
+        "dgrad_plain": lambda: fused_sparse_conv_reference(dyc, bplan),
+        "dgrad_cudnn": lambda: torch.nn.grad.conv2d_input(
+            tuple(x_nchw.shape), w_b, dy_nchw, 1, st.dilation, st.dilation),
+    }, {"forward": 20, "forward_plain": 3, "forward_cudnn": 20, "dgrad": 20, "dgrad_plain": 3,
+        "dgrad_cudnn": 20})
+    pixels = x.shape[0] * x.shape[1] * x.shape[2]
+    bounds = {"forward": _b2_bound(pixels, vals, plan.rows, st.cout),
+              "dgrad": _b2_bound(pixels, vals_t, plan.rows_t, st.cin)}
+    _emit(phase="cls_b2_small_maps", cases=len(errs), errors=errs, timed_shape=list(x.shape),
+          dilation=st.dilation, rows_per_tile=_b2_grid(*x.shape[:3], st.cout)[0], ms=turns,
+          bound_ms={r: b[0] for r, b in bounds.items()}, card=smi)
+    return {"errors": errs, "ms": turns, "bounds": bounds}
+
+
+def _cls_training(torch, np, dev, rng, workdir, smi) -> dict:
+    """Phase 37: the DRN-D-22 classifier (classifier naming, 1000 classes)
+    at 224x224, batch 32, bf16, masked by block128reg_87.50 (its config
+    rewritten to classifier naming): masked dense and ``--sparse-exec``, 3
+    warm-up steps and 5 timed (CUDA events), with the peak memory; B2
+    launched exactly twice per eligible conv in each timed ``--sparse-exec``
+    step (forward and dgrad) and never in masked dense or in an evaluation;
+    masked weights exactly 0.  f32 at 64x64: the two trajectories over two
+    steps within phase 32's tolerances, and one ``--sparse-exec`` step on
+    the card against the CPU.  Then B2 on the classifier's small maps
+    (``_cls_small_maps``)."""
+    from tpuseg_torch.models.drn import build_drn_spec, init_drn
+    from tpuseg_torch.ops import sparse_train as tst
+    from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_apply
+    from tpuseg_torch.sparsity import create_masker
+
+    fwd, dgrad = tst.sparse_conv_train_forward, tst.sparse_conv_train_dgrad
+    spec = build_drn_spec(ARCH, num_classes=CLS_CLASSES, naming="cls")
+    params, state = init_drn(0, spec)
+    cfg, _ = _cls_config(workdir)
+    masks = create_masker(cfg, seed=0).generate_masks(params)
+    structs, report = tst.build_sparse_train_structs(masks, spec)
+    if len(structs) != TRAIN_STRUCTS or any(k.startswith("layer.") for k in structs):
+        raise AssertionError(f"{len(structs)} sparse-train structs in classifier naming, want "
+                             f"{TRAIN_STRUCTS}: {report}")
+    masks_dev = {k: v.to(dev) for k, v in masks.items()}
+    batch = _cls_batch(torch, np, dev, CLS_BATCH, CLS_CROP, 37)
+    timed, launches = {}, {}
+    for sparse in (False, True):
+        ts, step, eval_step = _cls_trainer(torch, dev, params, state, spec, masks, sparse,
+                                           dtype=torch.bfloat16)
+        r = _timed_steps(torch, dev, ts, step, batch, masks_dev)
+        per = (r["b2_forward"], r["b2_dgrad"])
+        if per != ((TRAIN_STRUCTS * 5,) * 2 if sparse else (0, 0)):
+            raise AssertionError(f"classifier sparse={sparse}: B2 launched {per} in 5 steps")
+        if not math.isfinite(r["loss"]):
+            raise AssertionError(f"classifier sparse={sparse}: loss {r['loss']}")
+        if sparse:
+            launches = {"sparse_conv_train_forward": per[0], "sparse_conv_train_dgrad": per[1]}
+        _zero_counts(torch, fwd, dgrad, fused_sparse_conv_apply)
+        eval_step(r["ts"].params, r["ts"].bn_state, *batch)
+        torch.cuda.synchronize()
+        if fwd.launches or dgrad.launches or fused_sparse_conv_apply.launches:
+            raise AssertionError("the classifier's evaluation launched B2")
+        timed["sparse_exec" if sparse else "masked_dense"] = {
+            k: v for k, v in r.items() if k != "ts"}
+        del ts, step, r
+        torch.cuda.empty_cache()
+    # f32 at 64x64: the two trajectories, then the card against the CPU
+    small = [_cls_batch(torch, np, dev, 2, CLS_SMALL, 40 + i) for i in range(2)]
+    traj = {}
+    for sparse in (False, True):
+        ts, step, _ = _cls_trainer(torch, dev, params, state, spec, masks, sparse, lr=0.005)
+        losses = []
+        for b in small:
+            ts, m = step(ts, *b)
+            losses.append(float(m["loss"]))
+            if not _masks_zero(torch, ts, masks_dev):
+                raise AssertionError("a masked weight moved off 0")
+        traj[sparse] = (ts, losses)
+    np.testing.assert_allclose(traj[True][1], traj[False][1], rtol=1e-4)
+    _close_states(torch, np, "classifier f32 --sparse-exec vs masked dense", traj[True][0],
+                  traj[False][0])
+    runs = {}
+    for name in ("cuda", "cpu"):
+        d = dev if name == "cuda" else torch.device("cpu")
+        ts, step, _ = _cls_trainer(torch, d, params, state, spec, masks, True, lr=0.005)
+        runs[name] = step(ts, *(t.to(d) for t in small[0]))
+    loss_c, loss_h = float(runs["cuda"][1]["loss"]), float(runs["cpu"][1]["loss"])
+    if not abs(loss_c - loss_h) <= 1e-4 * abs(loss_h):
+        raise AssertionError(f"classifier f32 step loss on the card {loss_c}, on the CPU {loss_h}")
+    _close_states(torch, np, "classifier f32 card vs CPU", runs["cuda"][0], runs["cpu"][0])
+    _emit(phase="cls_train", arch=ARCH, naming="cls", classes=CLS_CLASSES,
+          shape=[CLS_BATCH, CLS_CROP, CLS_CROP, 3], dtype="bfloat16", sparse_exec=report,
+          steps=timed, launches=launches,
+          f32_losses={"masked_dense": traj[False][1], "sparse_exec": traj[True][1]},
+          f32_card_vs_cpu={"loss_cuda": loss_c, "loss_cpu": loss_h,
+                           "size": [2, CLS_SMALL, CLS_SMALL]}, card=smi)
+    small_maps = _cls_small_maps(torch, np, dev, rng, smi)
+    return {"launches": launches, "steps": timed, "small_maps": small_maps}
+
+
+def _cls_cli(torch, label, fn, argv, counters, smi) -> tuple:
+    """``fn(argv)`` (a CLI's ``main``) in this process with every counter in
+    ``counters`` and B3's padded-route count (``quant_conv_apply.
+    padded_launches``, read as ``padded_b3``) zeroed just before and read
+    just after: (its result, its JSON lines, the counts)."""
+    from tpuseg_torch.ops.quant import quant_conv_apply
+
+    _zero_counts(torch, *counters)
+    quant_conv_apply.padded_launches = 0
+    t0 = time.perf_counter()
+    out, text = _quiet(fn, argv)
+    torch.cuda.synchronize()
+    counts = {f.__name__: f.launches for f in counters}
+    counts["padded_b3"] = quant_conv_apply.padded_launches
+    lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+    _emit(phase="cls_cli", run=label, argv=argv, seconds=round(time.perf_counter() - t0, 1),
+          lines=lines[-3:], progress=[ln for ln in text.splitlines() if "\t" in ln][-2:],
+          launches=counts, card=smi)
+    return out, lines, counts
+
+
+def _recording_quant_convs(run):
+    """``run()`` with every ``QuantConv`` dispatch recorded, routed as it
+    would be: (its result, [(plan, bf16 route, copy of x, bias), ...])."""
+    from tpuseg_torch.ops.quant import QuantConv
+
+    recorded = []
+    apply, apply_bias = QuantConv.apply, QuantConv.apply_bias_bf16
+
+    def rec(plan, x):
+        recorded.append((plan, False, x.clone(), None))
+        return apply(plan, x)
+
+    def rec_bias(plan, x, bias):
+        recorded.append((plan, True, x.clone(), bias))
+        return apply_bias(plan, x, bias)
+
+    QuantConv.apply, QuantConv.apply_bias_bf16 = rec, rec_bias
+    try:
+        return run(), recorded
+    finally:
+        QuantConv.apply, QuantConv.apply_bias_bf16 = apply, apply_bias
+
+
+def _quant_convs_bit_equal(torch, label, recorded, plans, smi) -> int:
+    """Every recorded ``QuantConv`` dispatch run again on the card
+    (``QuantConv.apply`` or ``apply_bias_bf16``: kernel B3) and by its plain
+    version (``quant_conv_reference``, then ``cast_bias_bf16`` on the bf16
+    route) on the same input, bit for bit.  Fails on any mismatch, or
+    unless each of the ``plans`` int8 convs was checked on both f32 and
+    bf16 inputs.  Returns the number checked."""
+    from tpuseg_torch.ops.quant import quant_conv_reference
+    from tpuseg_torch.ops.sparse_conv import cast_bias_bf16
+
+    mismatched, seen = [], {torch.float32: set(), torch.bfloat16: set()}
+    for plan, bf16_route, x, bias in recorded:
+        want = quant_conv_reference(x, plan)
+        if bf16_route:
+            want = cast_bias_bf16(want, bias)
+            got = plan.apply_bias_bf16(x, bias)
+        else:
+            got = plan.apply(x)
+        seen.setdefault(x.dtype, set()).add(id(plan))
+        if not (got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want)):
+            mismatched.append([list(plan.w_q.shape), plan.dilation, list(x.shape), str(x.dtype)])
+    torch.cuda.synchronize()
+    per_dtype = {str(k): len(v) for k, v in seen.items()}
+    _emit(phase="cls_b3_bit_equal", run=label, checked=len(recorded), plans=per_dtype,
+          mismatched=mismatched[:8], card=smi)
+    if mismatched or set(per_dtype.values()) != {plans} or len(per_dtype) != 2:
+        raise AssertionError(f"{label}: B3 against its plain version, {len(mismatched)} of "
+                             f"{len(recorded)} mismatched {mismatched[:4]}; plans checked "
+                             f"{per_dtype}, want {plans} on f32 and bf16 inputs")
+    return len(recorded)
+
+
+def _padded_b3_time(torch, recorded, smi) -> dict:
+    """B3's padded route (``quant_conv_apply`` on cifar_resnet20's 16
+    channel layer1 conv, padded to 128) timed at its recorded f32 input
+    (64, 32, 32, 16) against its plain version and cuDNN's bf16 conv of the
+    same shape."""
+    import torch.nn.functional as F
+
+    from tpuseg_torch.ops.quant import quant_conv_apply, quant_conv_reference
+
+    plan, _, xin, _ = next(r for r in recorded if r[2].dtype == torch.float32
+                           and tuple(r[2].shape) == (CLS_CLI_BATCH, 32, 32, 16)
+                           and tuple(r[0].w_q.shape) == (3, 3, 16, 16))
+    w_b = plan.w_q.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    x_b = xin.to(torch.bfloat16).permute(0, 3, 1, 2)
+    turns = _time_turns(torch, {
+        "padded_route": lambda: quant_conv_apply(xin, plan),
+        "plain": lambda: quant_conv_reference(xin, plan),
+        "cudnn_bf16": lambda: F.conv2d(x_b, w_b, None, 1, 1),
+    }, {"padded_route": 20, "plain": 3, "cudnn_bf16": 20})
+    n, h, w, c = xin.shape
+    cout = plan.w_q.shape[3]
+    pixels = n * h * w
+    # the function: f32 x read once, the int8 weight and scales, f32 y
+    # written once; 9 * cin * cout int8 products a pixel
+    bound = _bound(xin.numel() * 4 + plan.w_q.numel() + cout * 4 + pixels * cout * 4,
+                   2 * pixels * 9 * c * cout, "int8")
+    _emit(phase="cls_b3_padded", conv="layer1 3x3 16->16", shape=[n, h, w, c], cout=cout,
+          packed=[plan.packed.cin, plan.packed.cout], ms=turns, bound_ms=bound[0],
+          bound_by=bound[1], card=smi)
+    return {"ms": min(turns["padded_route"]), "plain_ms": min(turns["plain"]),
+            "library_ms": min(turns["cudnn_bf16"]), "bound_ms": bound[0],
+            "bound_by": bound[1], "max_abs_err": 0.0}
+
+
+def _cls_clis(torch, np, workdir, smi) -> dict:
+    """Phase 38: the classifier CLIs on the card, in this process, every
+    launch count zeroed just before each run and read just after:
+    ``rmbsnn -a drn_d_22 --sparse-exec`` on the classifier config (bf16, 1
+    epoch of 4 steps: B2 twice per eligible conv a step, never served); ``-a
+    cifar_resnet20 --evaluate --quantize`` in f32 and in bf16 (int8_layers
+    >= 20, the padded B3 route launched 16 times a forward, B3 and the
+    quantize pass once per padded launch); ``-a drn_d_22 --evaluate
+    --quantize`` in f32 and in bf16 (13 int8 plans at the classifier's
+    4x4-2x2 maps, d = 2 and 4: B3 13 times a forward, unpadded).  Every
+    ``QuantConv`` dispatch of those four runs is recorded and held bit-equal
+    to its plain version on the card (``_quant_convs_bit_equal``), and the
+    padded route is timed (``_padded_b3_time``); ``imagenet_train
+    --dataset synthetic``;
+    ``seg_video --pretrained x.pth`` on a reference-layout ``.pth`` this
+    phase writes: ids equal to the same weights' npz, unequal to the random
+    weights'."""
+    from tpuseg_torch.cli import imagenet_train, rmbsnn, seg_video
+    from tpuseg_torch.models.drn import jax_key
+    from tpuseg_torch.models.drnseg import init_drnseg
+    from tpuseg_torch.ops import sparse_train as tst
+    from tpuseg_torch.ops.sparse_conv import (fused_sparse_conv_apply, fused_sparse_conv_apply_q,
+                                              quantize_activation)
+    from tpuseg_torch.train import save_checkpoint
+
+    counters = (tst.sparse_conv_train_forward, tst.sparse_conv_train_dgrad,
+                fused_sparse_conv_apply, fused_sparse_conv_apply_q, quantize_activation)
+    _, cfg_path = _cls_config(workdir)
+    total = Counter()
+    synthetic = ["--dataset", "synthetic", "--synthetic-n", str(CLS_SYNTHETIC_N), "-b",
+                 str(CLS_CLI_BATCH)]
+    steps = CLS_SYNTHETIC_N // CLS_CLI_BATCH  # drop_last in training
+    val_batches = -(-CLS_SYNTHETIC_N // CLS_CLI_BATCH)
+    # rmbsnn --sparse-exec on DRN-D-22 (classifier naming), 32x32 synthetic
+    _, lines, c = _cls_cli(torch, "rmbsnn_drn_sparse_exec", rmbsnn.main, synthetic + [
+        "-a", ARCH, "--epochs", "1", "--dtype", "bfloat16", "--mc-pruning", "--pr-static",
+        "--pr-config-path", cfg_path, "--sparse-exec", "--save-dir", f"{workdir}/cls_sparse"],
+        counters, smi)
+    report = next(ln["sparse_exec"] for ln in lines if "sparse_exec" in ln)
+    eligible = sum(v.startswith("sparse-train") for v in report.values())
+    want = TRAIN_STRUCTS * steps
+    if (eligible, c["sparse_conv_train_forward"], c["sparse_conv_train_dgrad"],
+            c["fused_sparse_conv_apply"]) != (TRAIN_STRUCTS, want, want, 0):
+        raise AssertionError(f"rmbsnn --sparse-exec: {eligible} eligible, launches {c}")
+    if not math.isfinite(lines[-1]["train_loss"]):
+        raise AssertionError(f"rmbsnn --sparse-exec epoch line {lines[-1]}")
+    total.update(c)
+    # rmbsnn --evaluate --quantize in f32 and bf16: the zoo's padded route,
+    # then DRN-D-22's, every QuantConv dispatch recorded
+    recorded = {"r20": [], "d22": []}
+    res, res_d = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        (res[dtype], _, c), rec = _recording_quant_convs(lambda: _cls_cli(
+            torch, f"rmbsnn_r20_int8_{dtype}", rmbsnn.main, synthetic + [
+                "-a", "cifar_resnet20", "--evaluate", "--quantize", "--dtype", dtype],
+            counters, smi))
+        recorded["r20"] += rec
+        padded = R20_PADDED_PER_FORWARD * val_batches
+        if not (res[dtype]["int8_layers"] >= 20 and c["padded_b3"] == padded
+                and c["fused_sparse_conv_apply_q"] == c["quantize_activation"] == padded):
+            raise AssertionError(f"rmbsnn cifar_resnet20 --quantize --dtype {dtype}: "
+                                 f"{res[dtype]}, launches {c}")
+        total.update(c)
+        (res_d[dtype], _, c), rec = _recording_quant_convs(lambda: _cls_cli(
+            torch, f"rmbsnn_d22_int8_{dtype}", rmbsnn.main, synthetic + [
+                "-a", ARCH, "--evaluate", "--quantize", "--dtype", dtype], counters, smi))
+        recorded["d22"] += rec
+        b3 = D22_INT8_PER_FORWARD * val_batches
+        if not (res_d[dtype]["int8_layers"] == D22_INT8_PER_FORWARD
+                and c["fused_sparse_conv_apply_q"] == b3 and c["padded_b3"] == 0):
+            raise AssertionError(f"rmbsnn drn_d_22 --quantize --dtype {dtype}: "
+                                 f"{res_d[dtype]}, launches {c}")
+        total.update(c)
+    checked = {"r20": _quant_convs_bit_equal(torch, "cifar_resnet20", recorded["r20"],
+                                             R20_PADDED_PER_FORWARD, smi),
+               "d22": _quant_convs_bit_equal(torch, ARCH, recorded["d22"],
+                                             D22_INT8_PER_FORWARD, smi)}
+    padded_t = _padded_b3_time(torch, recorded["r20"], smi)
+    del recorded
+    # imagenet_train, 1 epoch
+    line, _, c = _cls_cli(torch, "imagenet_train", imagenet_train.main, synthetic + [
+        "--epochs", "1", "-p", "1", "--save-dir", f"{workdir}/imagenet"], counters, smi)
+    if not (line and line["epoch"] == 0 and 0 <= line["acc1"] <= 100):
+        raise AssertionError(f"imagenet_train: {line}")
+    # seg_video --pretrained x.pth
+    params, state, _ = init_drnseg(jax_key(1), ARCH, CLASSES)
+    sd = {("module.base." + k[len("layer."):] if k.startswith("layer.") else "module." + k): v
+          for k, v in {**params, **state}.items()}
+    sd["module.up.weight"] = params["up.weight"].expand(CLASSES, 1, 16, 16).clone()
+    pth, npz = f"{workdir}/drnseg.pth", f"{workdir}/drnseg.npz"
+    torch.save({"state_dict": sd, "epoch": 1}, pth)
+    save_checkpoint(npz, params, state)
+    base = ["--video", "shapes:2", "--size", "128x256", "--frames", "8", "--batch", "4"]
+    (line_p, from_pth), _ = _quiet(seg_video.main, base + ["--pretrained", pth])
+    (_, from_npz), _ = _quiet(seg_video.main, base + ["--pretrained", npz])
+    (_, rand), _ = _quiet(seg_video.main, base)
+    same = bool(np.array_equal(from_pth["ids"], from_npz["ids"]))
+    differ = not np.array_equal(from_pth["ids"], rand["ids"])
+    _emit(phase="cls_cli", run="seg_video_pretrained_pth", result=line_p, equals_npz=same,
+          differs_from_random=differ, card=smi)
+    if not (same and differ):
+        raise AssertionError(f"seg_video --pretrained .pth: equal {same}, differs {differ}")
+    return {"launches": dict(total), "padded": padded_t, "r20_int8": res, "d22_int8": res_d,
+            "bit_equal_checked": checked}
+
+
+def _cls_tools(torch, out_dir, smi) -> dict:
+    """Phase 39: ``trained_fidelity --stage cls`` at its defaults (a
+    cifar_resnet20 teacher of 500 steps at batch 128 on the classification
+    proxy, RBGP 50 % masks, 300 recovery steps plain and with KD, bf16) with
+    its report row and seconds (accuracies in [0, 1], the teacher's and
+    the retrained ones >= CLS_ACC_MIN); then ``remat_mem --cases cls,kd``
+    (temp_ratio < 1 in both)."""
+    from tpuseg_torch.tools import remat_mem, trained_fidelity
+
+    t0 = time.perf_counter()
+    _, text = _quiet(trained_fidelity.main, ["--stage", "cls", "--out", out_dir])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with open(f"{out_dir}/report.json") as fh:
+        row = next(r for r in json.load(fh) if r["stage"] == "cls")
+    accs = {k: row[k] for k in ("teacher_acc", "acc_at_mask_50pct", "retrain_plain_acc",
+                                "retrain_kd_acc")}
+    _emit(phase="cls_fidelity", seconds=round(seconds, 1), row=row,
+          log=[ln for ln in text.splitlines() if not ln.startswith("{")][-6:], card=smi)
+    if not (all(0 <= v <= 1 for v in accs.values())
+            and min(accs["teacher_acc"], accs["retrain_plain_acc"],
+                    accs["retrain_kd_acc"]) >= CLS_ACC_MIN):
+        raise AssertionError(f"cls stage accuracies {accs}")
+    res, text = _quiet(remat_mem.main, ["--cases", "cls,kd"])
+    lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+    _emit(phase="remat_mem", command="python -m tpuseg_torch.tools.remat_mem --cases cls,kd",
+          lines=lines, card=smi)
+    if not all(r.get("temp_ratio", 1.0) < 1.0 for r in res):
+        raise AssertionError(f"remat_mem cls/kd: {[r.get('temp_ratio') for r in res]}")
+    return {"row": row, "seconds": seconds, "remat": res}
+
+
 def main() -> int:
     import torch
 
@@ -2910,7 +3374,7 @@ def main() -> int:
 
 
 def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
-    """Phases 2-36 and the closing lines (``main`` builds, then runs these
+    """Phases 2-39 and the closing lines (``main`` builds, then runs these
     with the worker process that makes phase 23's and 27's inputs)."""
     from tpuseg_torch.data.shapes import shapes_video
     from tpuseg_torch.models.drnseg import bilinear_upsample_kernel, init_drnseg
@@ -3310,6 +3774,15 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
         _remat_mem(smi)
         torch.cuda.empty_cache()
         _pretrained_serving(torch, np, dev, f"{workdir}/fidelity/{ARCH}_shapes.npz", workdir, smi)
+        torch.cuda.empty_cache()
+        # 37-39. the classifier arm: DRN-D-22 classifier training with
+        # --sparse-exec at 224x224 and B2 on the classifier's small maps, the
+        # classifier CLIs (B3's padded route), the cls tools
+        cls_train = _cls_training(torch, np, dev, rng, workdir, smi)
+        torch.cuda.empty_cache()
+        cls_clis = _cls_clis(torch, np, workdir, smi)
+        torch.cuda.empty_cache()
+        _cls_tools(torch, f"{workdir}/fidelity_cls", smi)
 
     _emit(phase="total", seconds=round(time.perf_counter() - t_start, 1))
     sc_src, b2_src = "tpuseg/ops/sparse_conv.py", "tpuseg_torch/csrc/sparse_conv.cu"
@@ -3338,6 +3811,9 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
     b2_launches += fid["fused_sparse_conv_apply"]
     b3_launches += fid["fused_sparse_conv_apply_q"]
     q_launches += fid["quantize_activation"]
+    # and phase 38's classifier CLIs
+    b3_launches += cls_clis["launches"]["fused_sparse_conv_apply_q"]
+    q_launches += cls_clis["launches"]["quantize_activation"]
     stem_conv1 = stem_k["convs"][1]  # the stem route's main shape: the 256->256 conv
 
     kernels = [
@@ -3376,10 +3852,13 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
               + budget_warp["launches"]["warp_ids"]),
              ("i420_to_rgb_flat", transport["launches"]["i420_to_rgb_flat"]))
          for _, source, replaces in [FLOW_ENTRIES[name]]] + [
-        entry(name, b2_src, f"{sc_src}:270", train_sparse["launches"][name] + fid[name],
+        entry(name, b2_src, f"{sc_src}:270", train_sparse["launches"][name] + fid[name]
+              + cls_train["launches"][name] + cls_clis["launches"][name],
               t["max_abs_err"], t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]),
               t["library_ms"])
-        for name, t in train_k.items()]
+        for name, t in train_k.items()] + [
+        timed("sparse_conv_q_padded", "tpuseg_torch/csrc/sparse_conv_q.cu", f"{sc_src}:1294",
+              cls_clis["launches"]["padded_b3"], cls_clis["padded"])]
     bad = [k["name"] for k in kernels if not k["launches"] > 0]
     if bad:
         raise AssertionError(f"kernels never launched on their path: {bad}")

@@ -121,7 +121,17 @@ def test_drnseg_forward_matches_jax_f32(arch, upsample):
 
 
 def test_drn_forward_rejects_classifier_heads():
-    spec = tdrn.build_drn_spec("drn_d_22", num_classes=10)
+    """Classifier heads were refused before the classifier arm; a head now
+    runs, with bf16 logits of the DRN-A Linear head and f32 logits of the
+    1x1-conv head under bf16 compute (``tpuseg``'s dtypes), and a headless
+    spec still returns its NHWC feature map."""
+    x = torch.zeros((1, 32, 32, 3))
+    for arch, dtype in (("drn_a_50", torch.bfloat16), ("drn_d_22", torch.float32)):
+        spec = tdrn.build_drn_spec(arch, num_classes=10)
+        params, state = tdrn.init_drn(0, spec)
+        out, _ = tdrn.drn_forward(params, state, x, spec, compute_dtype=torch.bfloat16)
+        assert out.shape == (1, 10) and out.dtype == dtype
+    spec = tdrn.build_drn_spec("drn_d_22", num_classes=0)
     params, state = tdrn.init_drn(0, spec)
-    with pytest.raises(ValueError, match="classifier"):
-        tdrn.drn_forward(params, state, torch.zeros((1, 32, 32, 3)), spec)
+    feats, _ = tdrn.drn_forward(params, state, x, spec)
+    assert feats.shape == (1, 4, 4, 512)

@@ -1,6 +1,8 @@
 """The tile geometry of kernel B2's bf16 path (``csrc/sparse_conv.cu``), on
-the CPU: a tile is R = ``b2_tile_rows(w)`` whole image rows of a narrow map
-(R = floor(256 / w) when w < 256), else a 256-pixel segment of one row.
+the CPU: a tile is R = ``b2_tile_rows(w, h)`` whole image rows of a narrow
+map (R = min(floor(256 / w), h) when w < 256), else a 256-pixel segment of
+one row.  The walk is also held at the most rows the C entry point accepts,
+floor(256 / w), which passes h on short maps (``_max_rows``).
 
 The kernel cannot run here, so its tile walk is transcribed in numpy, with
 the grid, the tile's first pixel (``i0``, ``j0``), ``pix0``, ``valid`` and
@@ -59,6 +61,12 @@ def _tiles(n, h, w, nmb, rows):
         yield jb, img, i0, j0, pix0, valid
 
 
+def _max_rows(w):
+    """The most rows a tile may take on a map w wide (the C entry point
+    rejects R > 1 with R * w > 256), whatever the map's height."""
+    return max(1, TILE // w)
+
+
 def _box_w(w, rows):
     return w if rows > 1 else TILE
 
@@ -79,7 +87,7 @@ def test_tile_rows_is_one_from_256(w):
     """R = 1 for every w >= 256, so the served (w = 256), B4 (one row of
     2**20 pixels) and B7 shapes keep their 256-pixel row segments and the
     (64, 256, 1, 1) box."""
-    assert b2_tile_rows(w) == 1
+    assert b2_tile_rows(w, 1) == b2_tile_rows(w, 64) == 1
     assert _box_w(w, 1) == TILE
 
 
@@ -88,7 +96,7 @@ def test_tile_rows_fill_the_tile(w):
     """R = floor(256 / w): whole rows, as many as fit, so R * w <= 256 <
     (R + 1) * w; the C entry point's limit (R * w <= 256 when R > 1)
     holds."""
-    r = b2_tile_rows(w)
+    r = b2_tile_rows(w, TILE)
     assert r == TILE // w and r * w <= TILE < (r + 1) * w
     assert r >= 1 and (r == 1 or r * w <= TILE)
 
@@ -96,7 +104,25 @@ def test_tile_rows_fill_the_tile(w):
 def test_tile_rows_rejects_empty_maps():
     for w in (0, -3):
         with pytest.raises(ValueError):
-            b2_tile_rows(w)
+            b2_tile_rows(w, 4)
+    with pytest.raises(ValueError):
+        b2_tile_rows(4, 0)
+
+
+# classifier maps: 224 input -> 28x28 (R = 9, four bands, the last holding
+# one real row); 32 input -> 4x4 (floor(256 / 4) = 64 > H = 4)
+@pytest.mark.parametrize("w,h,want", [(28, 28, 9), (4, 4, 4), (8, 8, 8), (16, 3, 3),
+                                      (64, 64, 4), (256, 1, 1), (100, 1, 1), (1, 300, 256)])
+def test_tile_rows_never_pass_the_map(w, h, want):
+    """With the map's height, R = min(floor(256 / w), h): no x box reaches
+    rows past the map, and the walk still covers each pixel once."""
+    rows = b2_tile_rows(w, h)
+    assert rows == want and rows <= h and rows == min(_max_rows(w), h)
+    hits = np.zeros((1, 2 * h * w), np.int32)
+    for jb, _img, i0, _j0, pix0, valid in _tiles(2, h, w, 1, rows):
+        assert i0 + min(rows, h - i0) <= h
+        hits[jb, pix0:pix0 + valid] += 1
+    assert (hits == 1).all()
 
 
 @pytest.mark.parametrize("h", HEIGHTS)
@@ -107,7 +133,7 @@ def test_tile_walk_covers_each_pixel_once(w, h):
     (i0 + (j0 + m) / w, (j0 + m) % w) of its image: R whole rows are one
     run of NHWC pixels."""
     n, nmb = 2, 2
-    rows = b2_tile_rows(w)
+    rows = _max_rows(w)
     hits = np.zeros((nmb, n * h * w), np.int32)
     ctas = 0
     for jb, img, i0, j0, pix0, valid in _tiles(n, h, w, nmb, rows):
@@ -128,7 +154,7 @@ def test_skip_rule_is_exactly_all_padding(w, k, d):
     """A (tile, step) pair is skipped exactly when the step's x box (R rows
     of box_w pixels at (ii, jj)) holds no pixel of the image; d = 12 on
     w = 8 puts whole boxes past the row's ends."""
-    rows = b2_tile_rows(w)
+    rows = _max_rows(w)
     for h in HEIGHTS:
         for _, _, i0, j0, _, _ in _tiles(1, h, w, 1, rows):
             for t in range(k * k):
@@ -153,8 +179,8 @@ def _mask(rng, k, cin, cout):
     return m
 
 
-def _kernel_walk(x, plan):
-    """B2's bf16 path transcribed: every CTA of the grid, its live steps
+def _kernel_walk(x, plan, rows):
+    """B2's bf16 path at R = ``rows`` transcribed: every CTA of the grid, its live steps
     (``steps[:nsteps]``, skipped by ``step_box``), each step's A tile the x
     box with TMA's zero fill and NaN in the rows past R * box_w (stale
     shared memory), one 256 x 128 accumulator in f64, then the store of
@@ -162,7 +188,6 @@ def _kernel_walk(x, plan):
     n, h, w, _ = x.shape
     k, d, S = plan.kernel, plan.dilation, plan.s
     nmb = plan.cout // 128
-    rows = b2_tile_rows(w)
     box_w = _box_w(w, rows)
     xs = x.double().numpy()
     vals = plan.vals.double().numpy()
@@ -192,7 +217,8 @@ def _kernel_walk(x, plan):
 @pytest.mark.parametrize("shape", [(2, 5, 64), (2, 9, 96), (2, 7, 112), (2, 6, 128),
                                    (1, 4, 8), (1, 3, 200), (1, 2, 300)])
 def test_kernel_walk_computes_b2(shape, k, d):
-    """The transcribed walk gives B2's function: every output pixel stored
+    """The transcribed walk, at the wrapper's R and at the most rows the C
+    entry point accepts, gives B2's function: every output pixel stored
     (no NaN: no stale row reaches a stored pixel), within 1e-10 * max|ref|
     of the dense f64 conv of the masked weight (two f64 sums of the same
     products in other orders), and within 2*K*eps (f32) of the plain
@@ -203,15 +229,17 @@ def test_kernel_walk_computes_b2(shape, k, d):
     m = _mask(rng, k, cin, cout)
     plan = plan_fused_sparse_conv(w, m, dilation=d, dtype=torch.float32)
     x = torch.from_numpy(rng.normal(size=shape + (cin,)).astype(np.float32))
-    got = _kernel_walk(x, plan)
-    assert not np.isnan(got).any()
     want = F.conv2d(x.double().permute(0, 3, 1, 2), torch.from_numpy(w * m).double(), None, 1,
                     d * (k - 1) // 2, d).permute(0, 2, 3, 1).numpy()
-    assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
     plain = fused_sparse_conv_reference(x, plan).double().numpy()
     k_len = k * k * plan.s * 128
-    assert np.abs(got - plain).max() <= 2 * k_len * np.finfo(np.float32).eps * np.abs(want).max()
-    assert (got[..., -128:] == 0).all()  # the out-block with no live step
+    for rows in sorted({b2_tile_rows(shape[2], shape[1]), _max_rows(shape[2])}):
+        got = _kernel_walk(x, plan, rows)
+        assert not np.isnan(got).any(), rows
+        assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max(), rows
+        assert (np.abs(got - plain).max()
+                <= 2 * k_len * np.finfo(np.float32).eps * np.abs(want).max()), rows
+        assert (got[..., -128:] == 0).all()  # the out-block with no live step
 
 
 @pytest.mark.parametrize("shape", [(2, 5, 64), (2, 9, 96)])

@@ -206,10 +206,52 @@ def test_device_defaults_to_cuda():
 
 @pytest.mark.parametrize("flags,item", [
     (["--mesh-devices", "2"], "A21"), (["--num-processes", "2"], "A21"),
-    (["--profile-dir", "p"], "A23"), (["--ckpt-format", "orbax"], "A21"),
-    (["--pretrained", "w.pth"], "A20"), (["--pretrained-backbone", "w.pth"], "A20")])
+    (["--profile-dir", "p"], "A23"), (["--ckpt-format", "orbax"], "A21")])
 def test_later_slices_flags_refused(flags, item):
     from tpuseg_torch.cli.semantic_seg import main
 
     with pytest.raises(SystemExit, match=item):
         main(BASE + ["--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flag", ["--pretrained", "--pretrained-backbone"])
+def test_pretrained_pth_matches_tpuseg(tmp_path, flag):
+    """``--pretrained x.pth`` and ``--pretrained-backbone <local .pth>``
+    load the reference's torch checkpoints as ``tpuseg``'s ``load_weights``
+    does: a DRNSeg ``.pth`` (``module.``/``base.`` keys, a (C, 1, 16, 16)
+    ``up.weight``) or a DRN-D-22 classifier ``.pth`` whose backbone fills
+    the seg model, the head kept at its init."""
+    import argparse
+
+    from tpuseg.cli import semantic_seg as jseg
+    from tpuseg_torch.cli import semantic_seg as tseg
+    from tpuseg_torch.models import to_jax_params
+    from tpuseg_torch.models.drn import build_drn_spec, init_drn
+    from tpuseg_torch.models.drnseg import init_drnseg
+
+    if flag == "--pretrained":
+        params, state, _ = init_drnseg(3, "drn_d_22", 19)
+        sd = {("module.base." + k[len("layer."):] if k.startswith("layer.") else k): v
+              for k, v in {**params, **state}.items()}
+        sd["up.weight"] = params["up.weight"].expand(19, 1, 16, 16).clone()
+        sd["module.base.0.1.num_batches_tracked"] = torch.tensor(7)
+    else:
+        spec = build_drn_spec("drn_d_22", num_classes=1000, naming="cls")
+        params, state = init_drn(5, spec)
+        sd = {**params, **state}
+    path = str(tmp_path / "w.pth")
+    torch.save({"state_dict": sd, "epoch": 3}, path)
+    args = argparse.Namespace(seed=0, arch="drn_d_22", pretrained=None,
+                              pretrained_backbone=None)
+    setattr(args, flag[2:].replace("-", "_"), path)
+    tp, ts, _ = tseg.load_weights(args, 19)
+    jp, js, _ = jseg.load_weights(args, 19)
+    bp, bs = to_jax_params(tp, ts)
+    assert sorted(bp) == sorted(jp) and sorted(bs) == sorted(js)
+    for k in jp:
+        np.testing.assert_array_equal(bp[k], np.asarray(jp[k]), err_msg=k)
+    for k in js:
+        np.testing.assert_array_equal(bs[k], np.asarray(js[k]), err_msg=k)
+    # the loaded tensors are the checkpoint's, not the seed's
+    src = params["layer.5.0.conv1.weight" if flag == "--pretrained" else "layer5.0.conv1.weight"]
+    assert torch.equal(tp["layer.5.0.conv1.weight"], src)

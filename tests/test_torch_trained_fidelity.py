@@ -8,7 +8,8 @@ the data streams are held bit-equal; the stages' numbers within stated
 tolerances (the tool computes in bf16, and the two frameworks round bf16 at
 different points); the train step in f32 within float tolerances.  The
 int8 modes, the warp modes and the compose stage are in
-``test_torch_trained_fidelity_modes.py``."""
+``test_torch_trained_fidelity_modes.py``; the cls stage in
+``test_torch_trained_fidelity_cls.py``."""
 
 import contextlib
 import io
@@ -328,8 +329,6 @@ def test_budget_curve_stage(runs):
 
 
 def test_refusals(tmp_path):
-    with pytest.raises(SystemExit, match="A20"):
-        ttool.main(["--stage", "cls", "--device", "cpu", "--out", str(tmp_path / "cls")])
     with pytest.raises(SystemExit, match="run --stage train first"):
         ttool.main(["--stage", "fidelity", "--device", "cpu", "--out", str(tmp_path / "empty")])
     if not torch.cuda.is_available():
@@ -339,14 +338,15 @@ def test_refusals(tmp_path):
 
 def test_stage_all_loads_no_jax(tmp_path):
     """``--stage all`` at a tiny size in a fresh interpreter: train,
-    fidelity, compress and compose rows, the event that ``cls`` waits for
-    A20, and no jax, jaxlib or tpuseg module loaded."""
+    fidelity, compress, compose and cls rows, no skipped stage, and no jax,
+    jaxlib or tpuseg module loaded."""
     code = (
         "import json, sys\n"
         "from tpuseg_torch.tools import trained_fidelity\n"
         f"trained_fidelity.main(['--device', 'cpu', '--stage', 'all', '--out', {str(tmp_path)!r},"
         " '--train-size', '16', '--batch', '2', '--steps', '1', '--recover-steps', '1',"
-        " '--eval-every', '1', '--video-frames', '2', '--serve-batch', '2'])\n"
+        " '--cls-steps', '1', '--eval-every', '1', '--video-frames', '2',"
+        " '--serve-batch', '2'])\n"
         "print('@@loaded ' + json.dumps(sorted(m for m in sys.modules\n"
         "      if m.split('.')[0] in ('jax', 'jaxlib', 'tpuseg'))))\n"
     )
@@ -355,6 +355,8 @@ def test_stage_all_loads_no_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout.split("@@loaded ")[1]) == []
     events = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith('{"event"')]
-    assert events == [{"event": "stage_skipped", "stage": "cls",
-                       "reason": "the classifier arm is not ported yet (ROADMAP A20)"}]
-    assert list(_rows(tmp_path)) == ["train", "fidelity", "compress", "compose"]
+    assert events == []
+    assert list(_rows(tmp_path)) == ["train", "fidelity", "compress", "compose", "cls"]
+    cls = _rows(tmp_path)["cls"]
+    assert set(cls) == {"stage", "arch", "weights", "teacher_acc", "acc_at_mask_50pct",
+                        "retrain_plain_acc", "retrain_kd_acc"}

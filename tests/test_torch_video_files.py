@@ -5,7 +5,8 @@ the same file and checkpoint, on the CPU.
 
 The file is a 6-frame 128x256 shapes video that cv2 writes as mp4v: lossy,
 so the port's frames are compared with ``tpuseg``'s decode of the file, not
-with the frames written."""
+with the frames written.  ``tpuseg``'s side decodes with the port's keyed
+build of the same decoder source (``reference_decoder``)."""
 
 import json
 import os
@@ -53,10 +54,43 @@ def video(tmp_path_factory):
     return path, ckpt
 
 
+@pytest.fixture
+def reference_decoder(monkeypatch):
+    """Point ``tpuseg``'s decoder binding at the port's keyed build of the
+    same ``native/videodec.cpp`` by the same command.  ``tpuseg`` loads
+    ``native/libtpuseg_videodec.so``, which ``tests/test_native.py``'s
+    fixture may be rewriting in place (``g++ -o``) on another worker; a
+    probe during that write caches "no decoder" for the worker, and the
+    reference then decodes with cv2 and converts RGB to I420 on the host,
+    whose planes differ from the decoder's.  The keyed build is written to
+    a temporary name and moved into place, so nothing rewrites it.
+
+    Yields ``tpuseg``'s ``native_source`` module, or None when the native
+    decoder cannot be built here (both packages then decode with cv2)."""
+    from tpuseg.video import native_source as jnative
+    from tpuseg_torch.native_build import videodec_library
+
+    path, _reason = videodec_library()
+    if path is None:
+        yield None
+        return
+    jnative._CACHE.clear()
+    monkeypatch.setattr(jnative, "_SO", path)
+    yield jnative
+    jnative._CACHE.clear()
+
+
+def _assert_reference_native(jnative):
+    """The reference decoded with the native decoder: a silent cv2
+    fallback fails here."""
+    if jnative is not None:
+        assert jnative.available(), f"tpuseg could not load {jnative._SO}"
+
+
 @pytest.mark.parametrize("native", [True, False])
 @pytest.mark.parametrize("fmt", ["rgb", "i420"])
 @pytest.mark.parametrize("size", [None, (64, 128)])
-def test_frame_source_matches_tpuseg(video, native, fmt, size):
+def test_frame_source_matches_tpuseg(video, reference_decoder, native, fmt, size):
     path, _ = video
     if native:
         from tpuseg_torch.video.native_source import available
@@ -77,6 +111,8 @@ def test_frame_source_matches_tpuseg(video, native, fmt, size):
         np.testing.assert_array_equal(a, b)
     # a second pass decodes the file again from its start
     np.testing.assert_array_equal(next(iter(src)), got[0])
+    if native:
+        _assert_reference_native(reference_decoder)
 
 
 def test_frame_source_cv2_i420_crops_to_packing_grid(video):
@@ -111,7 +147,8 @@ def _argv(path, ckpt, flags):
 
 
 @pytest.mark.parametrize("name", list(CLI_CASES))
-def test_cli_file_pretrained_matches_tpuseg(video, monkeypatch, capsys, name):
+def test_cli_file_pretrained_matches_tpuseg(video, reference_decoder, monkeypatch, capsys,
+                                            name):
     """The port's CLI serves the decoded file with the checkpoint's weights
     (6 classes: ids < 6) at the ids of ``tpuseg``'s CLI (>= the bf16
     floor), frames shipped at decode size and resized on the device, resized
@@ -130,6 +167,7 @@ def test_cli_file_pretrained_matches_tpuseg(video, monkeypatch, capsys, name):
     t_lines = _lines(capsys.readouterr().out)
     jcli.main(_argv(path, ckpt, flags))
     j_lines = _lines(capsys.readouterr().out)
+    _assert_reference_native(reference_decoder)
     assert t_lines[-1] == line
     # the ids_pack_auto event: --classes' 19 (5 bits) hold the checkpoint's 6
     assert t_lines[:-1] == j_lines[:-1] == [
@@ -151,12 +189,37 @@ def test_cli_file_pretrained_matches_tpuseg(video, monkeypatch, capsys, name):
 def test_cli_refusals(video, tmp_path):
     from tpuseg_torch.cli import seg_video as tcli
 
-    path, ckpt = video
     with pytest.raises(SystemExit, match="video file not found"):
         tcli.main(["--device", "cpu", "--video", str(tmp_path / "missing.mp4")])
-    with pytest.raises(SystemExit, match="A20"):
-        tcli.main(["--device", "cpu", "--video", path, "--pretrained",
-                   str(tmp_path / "model.pth")])
+
+
+def test_cli_pretrained_pth(video, reference_decoder, monkeypatch, capsys, tmp_path):
+    """``--pretrained x.pth``: the checkpoint's weights written as a
+    reference DRNSeg ``.pth`` (``module.base.`` keys, a (C, 1, 16, 16)
+    ``up.weight``) serve the same ids as the npz, and ``tpuseg``'s CLI on
+    the same ``.pth`` agrees to the bf16 floor."""
+    from tpuseg.cli import seg_video as jcli
+    from tpuseg.video.pipeline import VideoSegmenter as JSeg
+    from tpuseg_torch.cli import seg_video as tcli
+    from tpuseg_torch.train import load_checkpoint
+
+    path, ckpt = video
+    params, state, _, _, _ = load_checkpoint(ckpt)
+    sd = {("module.base." + k[len("layer."):] if k.startswith("layer.") else
+           "module." + k): v for k, v in {**params, **state}.items()}
+    sd["module.up.weight"] = params["up.weight"].expand(6, 1, 16, 16).clone()
+    pth = str(tmp_path / "drn_d_22_shapes.pth")
+    torch.save({"state_dict": sd, "epoch": 1}, pth)
+    want = {}
+    _capture_run(monkeypatch, JSeg, want)
+    _, from_pth = tcli.main(["--device", "cpu"] + _argv(path, pth, []))
+    _, from_npz = tcli.main(["--device", "cpu"] + _argv(path, ckpt, []))
+    np.testing.assert_array_equal(from_pth["ids"], from_npz["ids"])
+    assert int(from_pth["ids"].max()) < 6
+    jcli.main(_argv(path, pth, []))
+    capsys.readouterr()
+    _assert_reference_native(reference_decoder)
+    assert float((from_pth["ids"] == want["ids"]).mean()) >= BF16_AGREEMENT_MIN
 
 
 def test_cli_file_loads_no_jax(video):

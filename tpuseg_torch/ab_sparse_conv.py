@@ -139,7 +139,8 @@ def old_b2(fn, newer: int):
                           dtype=torch.bfloat16 if bf16_out else torch.float32)
         dt = sc._DTYPE_CODE[p.vals.dtype]
         if newer:
-            rows = ([sc.b2_tile_rows(w) if rows_per_tile is None else rows_per_tile]
+            # the old build's rule: floor(256 / w) rows, not clamped to h
+            rows = ([max(1, sc.B2_TILE_PIXELS // w) if rows_per_tile is None else rows_per_tile]
                     if newer == 2 else [])
             err = fn(x.data_ptr(), p.vals.data_ptr(), p.rows.data_ptr(), p.steps.data_ptr(),
                      p.nsteps.data_ptr(), None if bias is None else bias.data_ptr(),
@@ -345,7 +346,7 @@ def _train_turns(kernels: Kernels, params, spec, gen, dev) -> dict:
                          "dgrad": lambda: tst.sparse_conv_train_dgrad(dyt, vals_t, plan)},
                iters=50, rounds=4)
     return {"shape": list(TRAIN_SHAPE) + [st.cin], "dilation": st.dilation,
-            "rows_per_tile": sc.b2_tile_rows(TRAIN_SHAPE[2]), "turns": turns,
+            "rows_per_tile": sc.b2_tile_rows(TRAIN_SHAPE[2], TRAIN_SHAPE[1]), "turns": turns,
             "new_over_old": _median_ratios(turns)}
 
 
@@ -428,7 +429,8 @@ def main(argv=None) -> int:
                    iters=30, rounds=4)
         _emit(phase="b2", conv="layer.6.1.conv2", shape=list(BATCH32), s=plan.s,
               shape_w128=list(BATCH32_HALF), rows_per_tile={
-                  "w256": sc.b2_tile_rows(BATCH32[2]), "w128": sc.b2_tile_rows(BATCH32_HALF[2])},
+                  "w256": sc.b2_tile_rows(BATCH32[2], BATCH32[1]),
+                  "w128": sc.b2_tile_rows(BATCH32_HALF[2], BATCH32_HALF[1])},
               turns=turns, new_over_old=_median_ratios(turns), card=smi)
         del x128
         # B2's training forward and dgrad at the same conv's crop-512 shape

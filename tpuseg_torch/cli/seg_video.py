@@ -5,10 +5,10 @@ or a generated video, batch by batch, and prints one JSON line with the
 end-to-end rate (and, with ``--device-fps``, the device rate timed with CUDA
 events).  It takes ``tpuseg``'s flags except ``--mesh-devices`` and
 ``--profile-dir``:
-- the weights: random from seed 0 by default, or ``--pretrained x.npz``
-  (a checkpoint of either package's trainer, e.g. the
-  ``<arch>_shapes.npz`` of ``tools/trained_fidelity``; the classes are the
-  checkpoint head's); ``.pth`` files wait for ROADMAP A20;
+- the weights: random from seed 0 by default, or ``--pretrained`` (an
+  npz checkpoint of either package's trainer, e.g. the
+  ``<arch>_shapes.npz`` of ``tools/trained_fidelity``, or a reference
+  ``.pth``; the classes are the checkpoint head's);
 - the model: ``--pr-config-path`` (pruned; a ``sparse_plans`` event first),
   ``--quantize`` [``--calibrate N``] [``--quantize-stem``] (int8; an
   ``int8_plans`` event);
@@ -64,8 +64,7 @@ def parse_args(argv=None):
     p.add_argument("--classes", type=int, default=19)
     p.add_argument("--pretrained", default=None,
                    help=".npz checkpoint (tpuseg_torch.train.save_checkpoint or "
-                        "tpuseg's); the classes are its head's.  .pth waits for "
-                        "ROADMAP A20")
+                        "tpuseg's) or a reference .pth; the classes are its head's")
     p.add_argument("--frames", type=int, default=25,
                    help="number of frames (reference demos use 25)")
     p.add_argument("--batch", type=int, default=8)
@@ -209,16 +208,19 @@ def open_frames(args, n: int, h: int, w: int, *, fmt: str = "rgb"):
 
 
 def load_model(args):
-    """(params, state, spec): ``--pretrained``'s npz (``tpuseg``'s rule:
-    the spec has no classes, the head's weights carry them), else random
-    weights from seed 0 with ``--classes``."""
+    """(params, state, spec): ``--pretrained``'s weights, a reference
+    ``.pth`` (``models.torch_import.load_pth``) or an npz checkpoint of
+    either package (``tpuseg``'s rule: the spec has no classes, the head's
+    weights carry them), else random weights from seed 0 with
+    ``--classes``."""
     from tpuseg_torch.models.drn import build_drn_spec
     from tpuseg_torch.models.drnseg import init_drnseg
 
     if args.pretrained and args.pretrained.endswith(".pth"):
-        raise SystemExit("error: --pretrained .pth: importing the reference's PyTorch "
-                         "checkpoints (torch_import) is not ported yet (ROADMAP A20); "
-                         "use an .npz")
+        from tpuseg_torch.models.torch_import import load_pth
+
+        params, state, _meta = load_pth(args.pretrained)
+        return params, state, build_drn_spec(args.arch, num_classes=0, naming="seg")
     if args.pretrained:
         from tpuseg_torch.train import load_checkpoint
 

@@ -26,10 +26,15 @@ checkpointed.  It prints ``tpuseg``'s lines.
     python -m tpuseg_torch.cli.semantic_seg train --device cpu --synthetic 4 \\
         -s 64 --batch-size 2 --epochs 1 --dtype float32
 
+``--pretrained`` takes a reference ``.pth`` or an npz checkpoint;
+``--pretrained-backbone`` fills the backbone from an ImageNet DRN
+classifier ``.pth`` (a local path, an http(s) URL resolved through the
+cache, or ``auto``: the arch's published URL).
+
 Not ported yet, and refused with a message naming the ROADMAP item: more
 than one device or process (``--mesh-devices``/``--num-processes``/
 ``--num-shards`` > 1, A21), ``--profile-dir`` (A23), ``--ckpt-format
-orbax`` (A21), ``--pretrained x.pth`` and ``--pretrained-backbone`` (A20).
+orbax`` (A21).
 """
 
 from __future__ import annotations
@@ -61,9 +66,12 @@ def parse_args(argv=None):
     p.add_argument("--random-scale", type=float, default=0)
     p.add_argument("--random-rotate", type=int, default=0)
     p.add_argument("--pretrained", default=None,
-                   help=".npz weights (a checkpoint of either package)")
+                   help=".pth or .npz weights (an npz checkpoint of either package)")
     p.add_argument("--pretrained-backbone", default=None,
-                   help="not ported yet (ROADMAP A20)")
+                   help="ImageNet-pretrained DRN classifier to bootstrap the backbone "
+                        "from (seg head stays at init): a local .pth, an http(s) URL "
+                        "(cached) or 'auto' (the arch's published checkpoint) - the "
+                        "reference's pretrained=True contract (drn.py:15-24)")
     p.add_argument("--resume", default=None, help="checkpoint to resume from")
     p.add_argument("--save-dir", default="runs/seg")
     p.add_argument("--ckpt-format", default="npz", choices=["npz", "orbax"],
@@ -120,11 +128,6 @@ def _refuse_unported(args) -> None:
          "ported yet (ROADMAP A21)"),
         (args.profile_dir is not None, "--profile-dir: not ported yet (ROADMAP A23)"),
         (args.ckpt_format == "orbax", "--ckpt-format orbax: not ported yet (ROADMAP A21)"),
-        (args.pretrained is not None and args.pretrained.endswith(".pth"),
-         "--pretrained x.pth: the .pth import is not ported yet (ROADMAP A20); an .npz "
-         "checkpoint works"),
-        (args.pretrained_backbone is not None,
-         "--pretrained-backbone: not ported yet (ROADMAP A20)"),
     ]
     for refused, message in refusals:
         if refused:
@@ -178,15 +181,27 @@ def build_dataset(args, phase, out_name=False):
 
 
 def load_weights(args, classes):
-    """Weights from the seed, then ``--pretrained x.npz`` over them (CPU
-    tensors, OIHW)."""
+    """Weights from the seed, then ``--pretrained-backbone``'s backbone and
+    ``--pretrained``'s weights (``.pth`` or npz) over them (CPU tensors,
+    OIHW)."""
     from tpuseg_torch.models.drnseg import init_drnseg
 
     params, state, spec = init_drnseg(args.seed, args.arch, classes)
-    if args.pretrained:
-        from tpuseg_torch.train.checkpoint import load_checkpoint
+    if args.pretrained_backbone:
+        from tpuseg_torch.models.torch_import import load_pretrained_backbone
 
-        p, s, _, _, _ = load_checkpoint(args.pretrained)
+        params, state, n = load_pretrained_backbone(args.arch, args.pretrained_backbone,
+                                                    params, state)
+        print(json.dumps({"pretrained_backbone": args.pretrained_backbone, "tensors": n}))
+    if args.pretrained:
+        if args.pretrained.endswith(".pth"):
+            from tpuseg_torch.models.torch_import import load_pth
+
+            p, s, _ = load_pth(args.pretrained)
+        else:
+            from tpuseg_torch.train.checkpoint import load_checkpoint
+
+            p, s, _, _, _ = load_checkpoint(args.pretrained)
         params.update(p)
         state.update(s)
     return params, state, spec

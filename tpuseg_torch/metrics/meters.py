@@ -34,6 +34,27 @@ class AverageMeter:
         return fmtstr.format(**self.__dict__)
 
 
+class ProgressMeter:
+    """One tab-separated line of batch counter and meters
+    (``ProgressMeter`` of the stock ImageNet example)."""
+
+    def __init__(self, num_batches: int, meters, prefix: str = ""):
+        self.batch_fmtstr = self._fmtstr(num_batches)
+        self.meters = meters
+        self.prefix = prefix
+
+    def display(self, batch: int):
+        entries = [self.prefix + self.batch_fmtstr.format(batch)]
+        entries += [str(m) for m in self.meters]
+        print("\t".join(entries))
+
+    @staticmethod
+    def _fmtstr(num_batches: int) -> str:
+        num_digits = len(str(num_batches // 1))
+        fmt = "{:" + str(num_digits) + "d}"
+        return "[" + fmt + "/" + fmt.format(num_batches) + "]"
+
+
 class FpsMeter:
     """Exponential-moving-average fps counter (plot_pyqt.py:329-339)."""
 

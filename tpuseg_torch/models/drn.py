@@ -459,6 +459,7 @@ def conv2d(
     padding: int = 0,
     compute_dtype: torch.dtype | None = None,
     bias: torch.Tensor | None = None,
+    groups: int = 1,
 ) -> torch.Tensor:
     """NCHW x OIHW conv; both operands are cast to ``compute_dtype`` first
     (``tpuseg``'s policy: the output dtype follows the operands)."""
@@ -467,7 +468,7 @@ def conv2d(
         w = w.to(compute_dtype)
     if bias is not None:
         bias = bias.to(x.dtype)
-    return F.conv2d(x, w, bias, stride, padding, dilation)
+    return F.conv2d(x, w, bias, stride, padding, dilation, groups)
 
 
 def batch_norm(
@@ -705,20 +706,20 @@ def drn_forward(
     instead of keeping its activations, so a stage's kernels launch twice
     per step.
 
-    Only backbones without a classifier head (the DRNSeg backbone, and
-    classification specs built with ``num_classes=0``) are run here.
+    A classifier spec (``fc_name`` set, ``tpuseg`` drn.py:684-730) returns
+    ``(logits (N, num_classes), bn_updates)`` instead of the feature map:
+    DRN-A max-pools the stem's output (3x3, stride 2, padding 1) and ends in
+    an average pool of ``min(pool_size, H, W)`` at stride 1 and its Linear
+    ``fc``; DRN-C/D end in an average pool of that window at its own stride
+    and the 1x1-conv ``fc``.  The window is clamped to the map, so an input
+    smaller than the designed 224 still gives logits.
     """
-    if spec.fc_name is not None or spec.stem_maxpool:
-        raise ValueError(
-            f"{spec.arch}: the port's drn_forward serves headless DRN-C/D "
-            "backbones (DRNSeg); classifier heads are not ported"
-        )
     updates: State = {}
     if compute_dtype is not None and stem_fn is None:
         # a stem_fn owns its own input handling (the polyphase frontend
         # space-to-depths RAW uint8 frames before any float math)
         x = x.to(compute_dtype)
-    for stage_index, (_, stage) in enumerate(spec.stages):
+    for stage_index, (stage_name, stage) in enumerate(spec.stages):
         if stem_fn is not None and stage_index < stem_stages:
             if stage_index == 0:
                 x = nhwc_to_nchw(stem_fn(x))
@@ -737,4 +738,28 @@ def drn_forward(
             x, stage_updates = _stage_and_updates(x, params, state, stage, compute_dtype,
                                                   sparse_plans, train)
         updates.update(stage_updates)
-    return nchw_to_nhwc(x), updates
+        if stage_name == "stem" and spec.stem_maxpool:
+            x = F.max_pool2d(x, 3, 2, 1)
+    if spec.fc_name is None:
+        return nchw_to_nhwc(x), updates
+    return _classifier_head(x, params, spec, compute_dtype), updates
+
+
+def _classifier_head(x: torch.Tensor, params: Params, spec: DrnSpec,
+                     compute_dtype: torch.dtype | None) -> torch.Tensor:
+    """NCHW features -> (N, num_classes) logits, ``tpuseg``'s head: the
+    average pool in f32 (window ``min(pool_size, H, W)``; stride 1 before
+    DRN-A's Linear, the window itself before the 1x1 conv), cast to the
+    compute dtype, flattened in NHWC order."""
+    p = min(spec.pool_size, x.shape[2], x.shape[3])
+    x = F.avg_pool2d(x.float(), p, 1 if spec.linear_fc else p)
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    w, b = params[f"{spec.fc_name}.weight"], params[f"{spec.fc_name}.bias"]
+    if spec.linear_fc:
+        x = nchw_to_nhwc(x).reshape(x.shape[0], -1)
+        return x @ w.to(x.dtype).T + b.to(x.dtype)
+    # the conv's output in the compute dtype plus the f32 bias: f32 logits
+    # under bf16, as in tpuseg
+    x = conv2d(x, w, compute_dtype=compute_dtype) + b.view(1, -1, 1, 1)
+    return nchw_to_nhwc(x).reshape(x.shape[0], -1)

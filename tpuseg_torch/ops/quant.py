@@ -8,13 +8,17 @@ and the epilogue ``float(acc) * (x_scale[n] * w_scale[o])``.  Bias, ReLU and
 the residual run unquantized, as for float plans.
 
 ``build_quant_plans`` returns ``{conv_name: QuantConv}`` for the
-``sparse_plans`` dispatch of ``tpuseg_torch.models.drn``.  PyTorch has no
-eager int8 conv on CUDA, so a ``QuantConv`` carries, besides ``tpuseg``'s
-``w_q``/``w_scale``, its full-support packing for kernel B3
-(``tpuseg_torch.ops.sparse_conv.fused_sparse_conv_apply_q``): every input
-block in ``rows``, S = Cin/128.  A CUDA tensor runs B3 on it; a CPU tensor
-runs ``quant_conv_reference``.  Build the plans from the f32 BN-folded
-weights: ``w_q`` is then ``tpuseg``'s bit for bit.
+``sparse_plans`` dispatch of ``tpuseg_torch.models.drn``, and
+``build_cls_quant_plans`` the classifier zoo's for ``cifar_forward(...,
+plans=...)``.  PyTorch has no eager int8 conv on CUDA, so a ``QuantConv``
+carries, besides ``tpuseg``'s ``w_q``/``w_scale``, its full-support packing
+for kernel B3 (``tpuseg_torch.ops.sparse_conv.fused_sparse_conv_apply_q``):
+every input block in ``rows``, S = ceil(Cin/128).  A conv whose channels do
+not divide by 128 (the zoo's 16-64 wide convs) is padded to 128 (``
+int8_packing``): its input through the quantize pass's channel map, its
+output with zero weight columns that are sliced off.  A CUDA tensor runs B3
+on the packing; a CPU tensor runs ``quant_conv_reference``.  Build the plans
+from the f32 (BN-folded) weights: ``w_q`` is then ``tpuseg``'s bit for bit.
 """
 
 from __future__ import annotations
@@ -53,26 +57,56 @@ class QuantConv:
     padding: int
     x_scale: float | None = None  # static activation scale; None = per frame
     packed: FusedSparseConvQ | None = None  # full-support packing: B3's operand
+    chan: torch.Tensor | None = None  # int32 input channel map of a padded packing
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC float x -> f32 NHWC: the plain version on a CPU tensor,
-        kernel B3 on a CUDA tensor (which raises on anything else)."""
+        kernel B3 on a CUDA tensor (``quant_conv_apply``, which raises on
+        anything else)."""
         if x.device.type == "cpu":
             return quant_conv_reference(x, self)
-        return fused_sparse_conv_apply_q(x, self.packed)
+        return quant_conv_apply(x, self)
 
     def apply_bias_bf16(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
         """The served bf16 route: ``bf16(float(bf16(y)) + float(bias))``, the
         cast and bias passes on a CPU tensor, one B3 launch writing it on a
-        CUDA tensor (``fused_sparse_conv_q_bias_bf16``)."""
+        CUDA tensor (``quant_conv_apply``)."""
         if x.device.type == "cpu":
             return cast_bias_bf16(quant_conv_reference(x, self), bias)
-        return fused_sparse_conv_q_bias_bf16(x, self.packed, bias)
+        return quant_conv_apply(x, self, bias, bf16_bias=True)
 
     def to(self, device) -> "QuantConv":
-        return dataclasses.replace(self, w_q=self.w_q.to(device),
-                                   w_scale=self.w_scale.to(device),
-                                   packed=self.packed.to(device))
+        return dataclasses.replace(
+            self, w_q=self.w_q.to(device), w_scale=self.w_scale.to(device),
+            packed=self.packed.to(device),
+            chan=None if self.chan is None else self.chan.to(device))
+
+
+def quant_conv_apply(x: torch.Tensor, plan: QuantConv, bias: torch.Tensor | None = None,
+                     bf16_bias: bool = False) -> torch.Tensor:
+    """One B3 launch on the plan's packing (``int8_packing``) for NHWC x:
+    x quantized through the plan's channel map (its -1 entries read as 0,
+    so the scale and every integer sum are the unpadded conv's), then any
+    padded output channels sliced off.  f32 out, or with ``bf16_bias`` the
+    served bf16 route with ``bias`` padded by zeros.  Launches count in
+    ``fused_sparse_conv_apply_q.launches``; those on a padded packing also
+    in ``quant_conv_apply.padded_launches``.  On a CPU tensor the B3
+    wrappers run their plain version, which equals
+    ``quant_conv_reference``."""
+    cout = plan.w_q.shape[3]
+    pad = plan.packed.cout - cout
+    if bf16_bias:
+        if bias is not None and pad:
+            bias = F.pad(bias.to(device=x.device, dtype=torch.float32), (0, pad))
+        y = fused_sparse_conv_q_bias_bf16(x, plan.packed, bias, plan.chan)
+    else:
+        y = fused_sparse_conv_apply_q(x, plan.packed, plan.chan)
+    if x.device.type == "cuda" and (pad or plan.chan is not None):
+        quant_conv_apply.padded_launches += 1
+    return y[..., :cout].contiguous() if pad else y
+
+
+quant_conv_apply.padded_launches = 0
 
 
 def quant_conv_reference(x: torch.Tensor, plan: QuantConv) -> torch.Tensor:
@@ -115,6 +149,36 @@ def full_support_packing(name: str, w_q: np.ndarray, w_scale: np.ndarray, dilati
         taps=taps, s=S, bk=BK, bm=BM, kernel=kh, dilation=dilation, cin=cin, cout=cout,
         block_density=1.0, x_scale=x_scale,
     )
+
+
+def int8_packing(name: str, w_q: np.ndarray, w_scale: np.ndarray, dilation: int,
+                 padding: int, x_scale: float | None = None
+                 ) -> tuple[FusedSparseConvQ, torch.Tensor | None]:
+    """B3's packing of a dense stride-1 'same' int8 conv (HWIO ``w_q``) and
+    the channel map its quantize pass takes (None when x needs none).  A
+    conv whose channels divide by 128 gets ``full_support_packing``; one
+    that does not is padded, as ``stem_packing`` pads the stem's conv0:
+
+    - input channels: zero weight rows, and the map ``[0..cin-1] + [-1] *
+      pad`` makes the quantize pass write the padded int8 operand (the
+      absmax and every integer sum are unchanged);
+    - output channels: zero weight columns with scale 1, whose outputs
+      ``quant_conv_apply`` slices off.
+
+    Raises ``ValueError``, naming the conv, on a conv B3 cannot take (an
+    even or non-square kernel, or padding other than 'same')."""
+    kh, kw, cin, cout = w_q.shape
+    cin_p, cout_p = -(-cin // BK) * BK, -(-cout // BM) * BM
+    chan = None
+    if (cin_p, cout_p) != (cin, cout):
+        w = np.zeros((kh, kw, cin_p, cout_p), np.int8)
+        w[:, :, :cin, :cout] = w_q
+        w_scale = np.concatenate([w_scale, np.ones(cout_p - cout, np.float32)])
+        w_q = w
+        if cin_p != cin:
+            chan = torch.cat([torch.arange(cin, dtype=torch.int32),
+                              torch.full((cin_p - cin,), -1, dtype=torch.int32)])
+    return full_support_packing(name, w_q, w_scale, dilation, padding, x_scale), chan
 
 
 def stem_packing(name: str, w_q: np.ndarray, w_scale: np.ndarray, pad_lo: int, pad_hi: int,
@@ -180,17 +244,8 @@ def build_quant_plans(
         w = oihw_to_hwio_np(wt)
         if w.shape[2] < MIN_CHANNELS or w.shape[3] < MIN_CHANNELS:
             return
-        wq, ws = quantize_weight(w)
-        xs = (x_scales or {}).get(cdef.name)
-        plans[cdef.name] = QuantConv(
-            w_q=torch.from_numpy(wq),
-            w_scale=torch.from_numpy(ws),
-            stride=cdef.stride,
-            dilation=cdef.dilation,
-            padding=cdef.padding,
-            x_scale=xs,
-            packed=full_support_packing(cdef.name, wq, ws, cdef.dilation, cdef.padding, xs),
-        )
+        plans[cdef.name] = _quant_conv(cdef.name, w, cdef.stride, cdef.dilation,
+                                       cdef.padding, (x_scales or {}).get(cdef.name))
 
     for key, sdef in spec.stages:
         m = re.search(r"(\d+)$", key)  # seg "layer.5" or cls "layer5"
@@ -201,6 +256,51 @@ def build_quant_plans(
         for blk in sdef.blocks:
             for cdef in blk.convs:
                 consider(cdef)
+    return plans
+
+
+def _quant_conv(name: str, w: np.ndarray, stride: int, dilation: int, padding: int,
+                x_scale: float | None) -> QuantConv:
+    """The ``QuantConv`` of one f32 HWIO weight, with its B3 packing."""
+    wq, ws = quantize_weight(w)
+    packed, chan = int8_packing(name, wq, ws, dilation, padding, x_scale)
+    return QuantConv(w_q=torch.from_numpy(wq), w_scale=torch.from_numpy(ws), stride=stride,
+                     dilation=dilation, padding=padding, x_scale=x_scale, packed=packed,
+                     chan=chan)
+
+
+def build_cls_quant_plans(
+    params,
+    *,
+    min_channels: int = 16,
+    x_scales: dict[str, float] | None = None,
+    groups: int = 1,
+) -> dict[str, QuantConv]:
+    """Quantize the eligible convs of a CLASSIFIER param dict (the CIFAR
+    zoo; OIHW f32 tensors) for ``cifar_forward(..., plans=...)``:
+    ``tpuseg``'s rule, square 1x1/3x3 conv weights with >= ``min_channels``
+    in and out channels, padding ``(k - 1) // 2``, dilation 1 and stride
+    baked as 1 (the forward applies a plan only at stride-1, ungrouped call
+    sites).  The 3-channel stem falls under the channel floor.  Pass the
+    spec's ``groups`` for resnext archs: their grouped 3x3 convs (cin =
+    cout / groups) never dispatch and get no plan.  Convs of 16-64 channels
+    get B3's padded packing (``int8_packing``)."""
+    plans: dict[str, QuantConv] = {}
+    for key, wt in params.items():
+        if not key.endswith(".weight") or wt.dim() != 4:
+            continue
+        if wt.dtype != torch.float32:
+            raise ValueError(f"{key}: build int8 plans from the f32 weights, got {wt.dtype}")
+        w = oihw_to_hwio_np(wt)
+        if w.shape[0] != w.shape[1] or w.shape[0] not in (1, 3):
+            continue
+        if w.shape[2] < min_channels or w.shape[3] < min_channels:
+            continue
+        if groups > 1 and w.shape[0] == 3 and w.shape[2] * groups == w.shape[3]:
+            continue  # grouped bottleneck conv2: never dispatched
+        name = key[: -len(".weight")]
+        plans[name] = _quant_conv(name, w, 1, 1, (w.shape[0] - 1) // 2,
+                                  (x_scales or {}).get(name))
     return plans
 
 

@@ -30,8 +30,8 @@ T*S) int32, each out-block's step ids t*S + s of nonzero tiles, and
   (the port of ``tpuseg.ops.sparse_conv.fused_sparse_conv_apply``); on a
   CPU tensor it runs the plain version.
 - ``b2_tile_rows``: the image rows R of one tile of the kernel's bf16 path,
-  floor(256 / W) on maps narrower than 256 pixels, else 1 (a 256-pixel row
-  segment); the wrapper passes it and the kernel checks it.
+  min(floor(256 / W), H) on maps narrower than 256 pixels, else 1 (a
+  256-pixel row segment); the wrapper passes it and the kernel checks it.
 - ``fused_sparse_conv_bias_bf16``: the route bf16 serving takes
   (``models/drn.py``): one launch of the same kernel writes
   ``bf16(float(bf16(y)) + float(bias))``, the bits of ``tpuseg``'s
@@ -253,13 +253,15 @@ def _check_packing(p, nmb: int, T: int, device) -> None:
 B2_TILE_PIXELS = 256  # output pixels of one tile of B2's bf16 path (kTileM)
 
 
-def b2_tile_rows(w: int) -> int:
-    """Image rows R of one tile of B2's bf16 path on a map ``w`` pixels wide:
-    1 when w >= 256 (a tile is a 256-pixel segment of one row), else
-    floor(256 / w) whole rows, so a narrow map fills the tile."""
-    if w < 1:
-        raise ValueError(f"map width must be positive, got {w}")
-    return max(1, B2_TILE_PIXELS // w)
+def b2_tile_rows(w: int, h: int) -> int:
+    """Image rows R of one tile of B2's bf16 path on a map ``w`` pixels wide
+    and ``h`` rows high: 1 when w >= 256 (a tile is a 256-pixel segment of
+    one row), else floor(256 / w) whole rows, so a narrow map fills the
+    tile, and never more rows than the map has (a classifier's 4x4 map
+    takes R = 4, not 64: no x box reaches past the map's last row)."""
+    if w < 1 or h < 1:
+        raise ValueError(f"map sides must be positive, got w={w}, h={h}")
+    return min(max(1, B2_TILE_PIXELS // w), h)
 
 
 def _launch_b2(x: torch.Tensor, p, kernel: int, dilation: int, cout: int,
@@ -271,7 +273,7 @@ def _launch_b2(x: torch.Tensor, p, kernel: int, dilation: int, cout: int,
     the vals dtype, launches on the current stream and raises if the launch
     fails.  Returns the f32 (N, H, W, cout) output, or with ``bf16_out``
     (bf16 plans) the bf16 ``bf16(float(bf16(y)) + float(bias))``.  The
-    tile's rows are ``b2_tile_rows(W)`` unless ``rows_per_tile`` names
+    tile's rows are ``b2_tile_rows(W, H)`` unless ``rows_per_tile`` names
     them; the kernel rejects R < 1, or R > 1 with R * W > 256, and this
     raises."""
     if x.device.type != "cuda":
@@ -289,7 +291,8 @@ def _launch_b2(x: torch.Tensor, p, kernel: int, dilation: int, cout: int,
             x.data_ptr(), p.vals.data_ptr(), p.rows.data_ptr(), p.steps.data_ptr(),
             p.nsteps.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
             n, h, w, cin, cout, p.s, kernel, dilation, _DTYPE_CODE[p.vals.dtype],
-            int(bf16_out), b2_tile_rows(w) if rows_per_tile is None else rows_per_tile, stream,
+            int(bf16_out), b2_tile_rows(w, h) if rows_per_tile is None else rows_per_tile,
+            stream,
         )
     _raise_on(lib, "sparse_conv", err)
     return out
@@ -945,7 +948,8 @@ def fused_sparse_conv_apply_q(x: torch.Tensor, plan: FusedSparseConvQ,
                               chan: torch.Tensor | None = None) -> torch.Tensor:
     """Int8 stride-1 'same' block-sparse conv of NHWC-contiguous float ``x``
     -> f32 (N, H, W, Cout); with ``chan`` (int32) the conv of
-    ``x.index_select(3, chan)``, quantized over those channels.
+    ``select_channels(x, chan)`` (a -1 entry reads zeros), quantized over
+    those channels.
 
     On a CUDA tensor this quantizes x (``quantize_activation``'s kernels),
     launches B3 on the current stream, counts the launch in
@@ -954,8 +958,7 @@ def fused_sparse_conv_apply_q(x: torch.Tensor, plan: FusedSparseConvQ,
     back: A/B checks call the plain version by name."""
     _check_q(x, plan, chan)
     if x.device.type == "cpu":
-        return fused_sparse_conv_q_reference(x if chan is None else x.index_select(3, chan),
-                                             plan)
+        return fused_sparse_conv_q_reference(select_channels(x, chan), plan)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     out = _b3_cuda(x, plan, chan, None, False)
@@ -990,8 +993,7 @@ def fused_sparse_conv_q_bias_bf16(x: torch.Tensor, plan: FusedSparseConvQ,
     if bias is not None and (bias.dim() != 1 or bias.shape[0] != plan.cout):
         raise ValueError(f"bias must be ({plan.cout},), got {tuple(bias.shape)}")
     if x.device.type == "cpu":
-        return fused_sparse_conv_q_bias_bf16_reference(
-            x if chan is None else x.index_select(3, chan), plan, bias)
+        return fused_sparse_conv_q_bias_bf16_reference(select_channels(x, chan), plan, bias)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     b = None if bias is None else bias.to(device=x.device, dtype=torch.bfloat16).contiguous()

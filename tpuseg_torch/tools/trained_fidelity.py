@@ -30,9 +30,11 @@ partial fidelity runs merge into the mode matrix):
 - ``budget_curve`` (not part of ``all``) GT mIoU against the refresh
                budget K of budgeted temporal reuse, at each drift speed
 
-``--stage all`` runs train, fidelity, compress and compose, then prints one
-event saying that ``cls`` (the rmbsnn classifier arm) waits for ROADMAP
-A20; ``--stage cls`` raises ``SystemExit``.
+- ``cls``      the rmbsnn pruning-recovery loop on a classification proxy:
+               a cifar_resnet20 teacher, RBGP 50 % masks, retrained plain
+               and with knowledge distillation
+
+``--stage all`` runs train, fidelity, compress, compose and cls.
 
 One device (``--device``, ``cuda`` by default, raising without a card; the
 CPU only when asked).  The int8 modes run on the card; on the CPU they are
@@ -578,8 +580,77 @@ def stage_budget_curve(args) -> None:
 
 
 def stage_cls(args) -> None:
-    raise SystemExit("--stage cls: the classifier arm (cifar_resnet20 teacher, RBGP "
-                     "student, knowledge distillation) is not ported yet (ROADMAP A20)")
+    """The rmbsnn pruning-recovery loop on the classification proxy
+    (``shapes.sample_cls_batch``): train a cifar_resnet20 teacher, prune it
+    to RBGP 50 % (``generate_rbgp_config``, oblock 16x16, cblock 8x8, inner
+    sparsity 0.5, masks from the weights' magnitudes), then retrain the
+    pruned net plain and with knowledge distillation from the teacher.  bf16
+    compute, SGD lr 0.1; ``tpuseg``'s seeds and streams."""
+    from tpuseg_torch.cli.expander_batch import generate_rbgp_config
+    from tpuseg_torch.models.drn import jax_key
+    from tpuseg_torch.models.factory import create_model
+    from tpuseg_torch.sparsity import apply_masks, create_masker
+    from tpuseg_torch.train import (
+        classifier_forward,
+        create_train_state,
+        make_cls_train_step,
+        make_sgd,
+    )
+
+    device = args.device
+    arch = "cifar_resnet20"
+    params, state, spec, _kw = create_model(jax_key(args.seed), "cifar10", arch)
+    params = {k: v.to(device) for k, v in params.items()}
+    state = {k: v.to(device) for k, v in state.items()}
+    tx = make_sgd(0.1, momentum=0.9, weight_decay=1e-4)
+    rng = np.random.default_rng(args.seed + 10)
+    val_rng = np.random.default_rng(args.seed + 11)
+    val_x, val_y = shapes.sample_cls_batch(val_rng, 1024)
+    fwd = classifier_forward(spec, torch.bfloat16)
+
+    @torch.inference_mode()
+    def accuracy(p, bn) -> float:
+        correct = 0
+        for i in range(0, len(val_x), 256):
+            x = torch.from_numpy(val_x[i:i + 256]).to(device)
+            logits = fwd(p, bn, x, train=False)[0]
+            correct += int((logits.argmax(-1).cpu().numpy() == val_y[i:i + 256]).sum())
+        return correct / len(val_x)
+
+    def train(p, bn, *, masks, steps, teacher, log_prefix):
+        step_fn = make_cls_train_step(spec, tx, teacher=teacher)
+        st = create_train_state(p, bn, tx, masks=masks)
+        for step in range(1, steps + 1):
+            x, y = shapes.sample_cls_batch(rng, 128)
+            st, m = step_fn(st, torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+            if step % args.eval_every == 0 or step == steps:
+                print(f"{log_prefix} step {step}: loss={float(m['loss']):.3f} "
+                      f"batch_acc={float(m['acc']):.3f}")
+        return st.params, st.bn_state
+
+    t_params, t_bn = train(params, state, masks=None, steps=args.cls_steps, teacher=None,
+                           log_prefix="teacher")
+    teacher_acc = accuracy(t_params, t_bn)
+    cfg = generate_rbgp_config(t_params, arch, oblock=(16, 16), cblock=(8, 8),
+                               iblock=(1, 1), osp=0.0, isp=0.5)
+    # tpuseg's generate_masks default: masks from the weights' magnitudes
+    masks = create_masker(cfg, seed=args.seed).generate_masks(
+        {k: v.cpu() for k, v in t_params.items()}, is_static=False)
+    masks = {k: v.to(device) for k, v in masks.items()}
+    pruned = apply_masks(t_params, masks)
+    acc_at_mask = accuracy(pruned, t_bn)
+
+    def t_forward(tp, tbn, images):
+        return fwd(tp, tbn, images, train=False)[0]
+
+    results = {"teacher_acc": round(teacher_acc, 4), "acc_at_mask_50pct": round(acc_at_mask, 4)}
+    for name, teacher in (("retrain_plain", None), ("retrain_kd", (t_forward, t_params, t_bn))):
+        p2, bn2 = train(pruned, t_bn, masks=masks, steps=args.recover_steps, teacher=teacher,
+                        log_prefix=name)
+        results[name + "_acc"] = round(accuracy(p2, bn2), 4)
+        print(f"cls {name}: {results[name + '_acc']}")
+    _append_report(args.out, {"stage": "cls", "arch": arch, "weights": "trained-on-shapes-cls",
+                              **results})
 
 
 STAGES = {"train": stage_train, "fidelity": stage_fidelity, "compress": stage_compress,
@@ -597,7 +668,7 @@ def parse_args(argv=None):
     p.add_argument("--steps", type=int, default=800)
     p.add_argument("--recover-steps", type=int, default=300)
     p.add_argument("--cls-steps", type=int, default=500,
-                   help="the cls stage's steps (the stage waits for ROADMAP A20)")
+                   help="cls stage: the teacher's train steps")
     p.add_argument("--eval-every", type=int, default=50)
     p.add_argument("--target-miou", type=float, default=93.0,
                    help="early-stop val mIoU, in PERCENT (miou_from_hist)")
@@ -634,12 +705,10 @@ def main(argv=None):
     args = parse_args(argv)
     args.device = resolve_device(args.device)
     os.makedirs(args.out, exist_ok=True)
-    stages = ["train", "fidelity", "compress", "compose"] if args.stage == "all" else [args.stage]
+    stages = (["train", "fidelity", "compress", "compose", "cls"] if args.stage == "all"
+              else [args.stage])
     for s in stages:
         STAGES[s](args)
-    if args.stage == "all":
-        print(json.dumps({"event": "stage_skipped", "stage": "cls",
-                          "reason": "the classifier arm is not ported yet (ROADMAP A20)"}))
 
 
 if __name__ == "__main__":
