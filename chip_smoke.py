@@ -8,7 +8,8 @@ through ``VideoSegmenter`` and the CLI, trains DRNSeg at crop 512 (dense,
 masked, ``--sparse-exec``) through the trainer's CLI, runs the
 trained-weights fidelity tool and serves its checkpoint, trains the DRN-D-22
 classifier and runs the classifier CLIs and tools (the CIFAR zoo in int8
-through B3's padded route), and times the kernels against their plain
+through B3's padded route), runs every mode of the sparse-conv bench and
+both CLIs' ``--profile-dir``, and times the kernels against their plain
 versions.
 
     python3 chip_smoke.py        # from the repo root, one CUDA card
@@ -220,7 +221,24 @@ Phases (any failed check raises and the exit code is non-zero):
      --quantize``, ``imagenet_train --dataset synthetic`` and ``seg_video
      --pretrained x.pth`` (ids equal to the same weights' npz);
  39. ``trained_fidelity --stage cls`` at its defaults and ``remat_mem
-     --cases cls,kd``.
+     --cases cls,kd``;
+ 40. ``python -m tpuseg_torch.bench_sparse --fused-appendix --rmcdb --layout
+     --model --sweep --frontend --train --conv1split --trainer`` through its
+     ``main`` in this process, each mode's loop timed once after its
+     untimed loop (INNER unchanged), every launch count zeroed just before
+     each mode and read just after: each line parsed, its metric names,
+     exact counts (B1 once a frame of --model, with B2, B3 and the
+     quantize pass in its rows; B3's stem route 3 and its padded route 5
+     times a frame of --frontend's int8 rows; B2's forward once a step of
+     --train (w's gradient only: no dgrad) and its training roles 2 x 10
+     a step of --trainer; B2, B3, B7a-f in the fused mode), the conv1split
+     gate; ``rmcdb_roll_matmul`` against the masked
+     dense matmul at the bench's four geometries in f32; the native
+     sparsity library built here and one rmb mask equal to the numpy path;
+ 41. ``seg_video --profile-dir`` (8 synthetic 1024x2048 frames) and
+     ``semantic_seg train --profile-dir`` (2 steps at crop 512, batch 4):
+     each trace holds CUDA kernel events, the serving one B1's kernel; the
+     seconds of phases 40 and 41.
 The line before the last is the kernels' JSON record (each kernel's time,
 its plain version's, its bound at the card's published peaks and the
 PyTorch call's, at its main shape; B3's time is its served route, the
@@ -3126,17 +3144,19 @@ def _recording_quant_convs(run):
         QuantConv.apply, QuantConv.apply_bias_bf16 = apply, apply_bias
 
 
-def _quant_convs_bit_equal(torch, label, recorded, plans, smi) -> int:
+def _quant_convs_bit_equal(torch, label, recorded, plans, smi, dtypes=None) -> int:
     """Every recorded ``QuantConv`` dispatch run again on the card
     (``QuantConv.apply`` or ``apply_bias_bf16``: kernel B3) and by its plain
     version (``quant_conv_reference``, then ``cast_bias_bf16`` on the bf16
     route) on the same input, bit for bit.  Fails on any mismatch, or
-    unless each of the ``plans`` int8 convs was checked on both f32 and
-    bf16 inputs.  Returns the number checked."""
+    unless each of the ``plans`` int8 convs was checked on inputs of each
+    of ``dtypes`` (f32 and bf16 by default) and of no other.  Returns the
+    number checked."""
     from tpuseg_torch.ops.quant import quant_conv_reference
     from tpuseg_torch.ops.sparse_conv import cast_bias_bf16
 
-    mismatched, seen = [], {torch.float32: set(), torch.bfloat16: set()}
+    dtypes = dtypes or (torch.float32, torch.bfloat16)
+    mismatched, seen = [], {d: set() for d in dtypes}
     for plan, bf16_route, x, bias in recorded:
         want = quant_conv_reference(x, plan)
         if bf16_route:
@@ -3151,10 +3171,11 @@ def _quant_convs_bit_equal(torch, label, recorded, plans, smi) -> int:
     per_dtype = {str(k): len(v) for k, v in seen.items()}
     _emit(phase="cls_b3_bit_equal", run=label, checked=len(recorded), plans=per_dtype,
           mismatched=mismatched[:8], card=smi)
-    if mismatched or set(per_dtype.values()) != {plans} or len(per_dtype) != 2:
+    if mismatched or set(per_dtype.values()) != {plans} or len(per_dtype) != len(dtypes):
         raise AssertionError(f"{label}: B3 against its plain version, {len(mismatched)} of "
                              f"{len(recorded)} mismatched {mismatched[:4]}; plans checked "
-                             f"{per_dtype}, want {plans} on f32 and bf16 inputs")
+                             f"{per_dtype}, want {plans} on {[str(d) for d in dtypes]} "
+                             f"inputs")
     return len(recorded)
 
 
@@ -3331,6 +3352,353 @@ def _cls_tools(torch, out_dir, smi) -> dict:
     return {"row": row, "seconds": seconds, "remat": res}
 
 
+# phase 40: the rest of bench_sparse, its modes called in this process
+BENCH_MODES = ("fused", "frontend", "rmcdb", "layout", "model", "train", "trainer",
+               "conv1split")
+BENCH_METRICS = {  # mode -> the metric names it prints, in order (bench_sparse.py's)
+    "fused": ["fused/dense_conv3x3_ms"] + [f"fused_sparse_conv_{p}pct"
+                                          for p in ("50.0", "75.0", "87.5")]
+    + ["phase_kernel_density_1.0"],
+    "frontend": ["frontend/bf16_ms", "frontend/int8_stem_ms", "frontend/int8_stem_stage3_ms"],
+    "rmcdb": ["rmcdb/dense_matmul_ms", "rmcdb_roll_bh64_b8_c2", "rmcdb_roll_bh64_b16_c1",
+              "rmcdb_roll_bh64_b4_c2", "rmcdb_roll_bh128_b16_c2"],
+    "layout": ["layout/nhwc_nchw_roundtrip_ms", "layout/nhwc_nwhc_roundtrip_ms",
+               "layout/copy_ms"],
+    "model": ["model_dense_fps"] + [f"model_{k}_87.5pct_fps" for k in (
+        "sparse", "gathered", "gathered_exact", "sparse_int8", "gathered_int8",
+        "gathered_exact_int8")] + [f"model_{k}_{p}pct_fps" for p in ("75.0", "50.0")
+                                   for k in ("gathered", "gathered_exact")],
+    "train": ["train_step_sparse_87.5pct"],
+    "trainer": ["trainer_step_sparse_exec_block128reg_87.5"],
+    "conv1split": ["conv1split/split1d_numerics_ok", "conv1split/split2d_numerics_ok",
+                   "conv1split_ms"],
+}
+FRONTEND_STEM_CONVS = 3  # B3's stem route in both int8 rows
+FRONTEND_STAGE3_CONVS = 5  # B3's padded route in int8_stem_stage3
+TRAINER_B2_CONVS = 10
+BENCH_LOOPS = 2  # each time_loop: the untimed loop and one timed
+
+
+def _bench_counters():
+    """{name: (wrapper, attribute)} of every launch count phase 40 reads."""
+    from tpuseg_torch.ops import sparse_conv as sc
+    from tpuseg_torch.ops import sparse_train as tst
+    from tpuseg_torch.ops.quant import quant_conv_apply
+    from tpuseg_torch.ops.upsample import upsample_argmax
+
+    out = {f.__name__: (f, "launches") for f in (
+        upsample_argmax, sc.fused_sparse_conv_apply, sc.fused_sparse_conv_apply_q,
+        sc.fused_sparse_conv_q_bias_relu, sc.quantize_activation, tst.sparse_conv_train_forward,
+        tst.sparse_conv_train_dgrad, sc.bsr_matmul_xw,
+        *(getattr(sc, name) for name in B7_ENTRIES))}
+    out["absmax"] = (sc.quantize_activation, "absmax_launches")
+    out["padded_b3"] = (quant_conv_apply, "padded_launches")
+    return out
+
+
+def _plan_launches(plans) -> Counter:
+    """The launches of one forward through the plan dict ``plans``, each
+    plan run once a forward: B2 once for a ``FusedSparseConv`` or
+    ``CompactSparse``; B3 and its quantize pass once for each int8 plan
+    (``QuantConv``, ``FusedSparseConvQ``, ``CompactSparseQ``,
+    ``GatheredGroupConvQ``), the absmax pass too where its scale is per
+    frame, and ``padded_b3`` for a ``QuantConv`` on a padded packing; none
+    for the float gathered and RBGP plans, which run cuDNN's and cuBLAS's."""
+    from tpuseg_torch.models.sparse_exec import CompactSparse, CompactSparseQ
+    from tpuseg_torch.ops.gathered_conv import GatheredGroupConvQ
+    from tpuseg_torch.ops.quant import QuantConv
+    from tpuseg_torch.ops.sparse_conv import FusedSparseConv, FusedSparseConvQ
+
+    out = Counter()
+    for p in (plans or {}).values():
+        if isinstance(p, (FusedSparseConv, CompactSparse)):
+            out["fused_sparse_conv_apply"] += 1
+            continue
+        if isinstance(p, (QuantConv, GatheredGroupConvQ)):
+            packed = p.packed
+        elif isinstance(p, CompactSparseQ):
+            packed = p.inner
+        elif isinstance(p, FusedSparseConvQ):
+            packed = p
+        else:
+            continue
+        out["fused_sparse_conv_apply_q"] += 1
+        out["quantize_activation"] += 1
+        out["absmax"] += packed.x_scale is None
+        out["padded_b3"] += isinstance(p, QuantConv) and (
+            packed.cout != p.w_q.shape[3] or p.chan is not None)
+    return out
+
+
+def _check_loops(label, loops, wants) -> None:
+    """Each timed loop's launches (every counter of ``_bench_counters``)
+    equal to its row's ``wants`` entry, counters it omits 0."""
+    if len(loops) != len(wants):
+        raise AssertionError(f"bench_sparse {label}: {len(loops)} timed loops, want "
+                             f"{len(wants)}")
+    for i, (got, want) in enumerate(zip(loops, wants)):
+        wrong = {k: (v, want.get(k, 0)) for k, v in got.items() if v != want.get(k, 0)}
+        if wrong:
+            raise AssertionError(f"bench_sparse {label} loop {i}: launches (got, want) {wrong}")
+
+
+def _frontend_stage3_bit_equal(torch, np, dev, smi) -> int:
+    """Phase 40: one forward of ``--frontend``'s ``int8_stem_stage3`` row on
+    the bench's first frame, every input of its five stage-3 int8 convs
+    recorded (block 0's 2x2 conv1 embedded in a 3x3 kernel and its 1x1
+    downsample, 128 -> 64; the three 3x3 64 -> 64 convs; all on padded B3
+    packings), then each conv's ``quant_conv_apply`` on the card (kernel
+    B3) held bit-equal to ``quant_conv_reference`` on the same bf16 input."""
+    from tpuseg_torch import bench_sparse as bs
+    from tpuseg_torch.models.drnseg import init_drnseg
+    from tpuseg_torch.ops.fold_bn import fold_bn
+
+    recorded = []
+
+    class Recording(bs.Int8Frontend):
+        def _iconv(self, x, name):
+            recorded.append((self.plans[name][0], False, x.clone(), None))
+            return super()._iconv(x, name)
+
+    params, state, spec = init_drnseg(0, bs.ARCH, bs.CLASSES)
+    fe = Recording(fold_bn(params, state, spec), dev, stage3=True)
+    h, w = bs.MODEL_HW
+    frames = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 255, size=(1, h, w * 3), dtype=np.uint8)).to(dev)
+    with torch.inference_mode():
+        fe(frames)
+    shapes = sorted((tuple(p.w_q.shape), tuple(x.shape)) for p, _, x, _ in recorded)
+    _emit(phase="frontend_stage3_convs", convs=[[list(a), list(b)] for a, b in shapes],
+          card=smi)
+    return _quant_convs_bit_equal(torch, "frontend int8_stem_stage3", recorded,
+                                  FRONTEND_STAGE3_CONVS, smi, dtypes=(torch.bfloat16,))
+
+
+def _bench_modes(torch, np, dev, smi) -> dict:
+    """Phase 40: every mode of this slice of ``python -m
+    tpuseg_torch.bench_sparse`` (``BENCH_MODES``; ``--model`` with
+    ``--sweep``) called in this process on one ``Bench`` that times each
+    loop once after its untimed loop (``time_loop`` with one repetition;
+    INNER unchanged) and records each loop's launches; every launch count
+    zeroed just before each mode and read just after.  Checks: each mode's
+    metric names and keys, finite values; each loop's launches exactly
+    (--model: B1 once a frame, B2, B3, the quantize and absmax passes as
+    ``_plan_launches`` counts each row's plans; --frontend: B3's stem route
+    3 times a frame in both int8 rows and its padded route 5 times in
+    int8_stem_stage3, static scales; --train: B2's forward once a step of
+    the sparse loop, no dgrad, its gradient being w's alone; --trainer:
+    B2's two training roles 10 times a step of the sparse loop; --rmcdb,
+    --layout, --conv1split: none), and the mode's totals (--fused: B2, B3,
+    B7a-f as phase 17 counts them); the conv1split gate (it raises).
+    -> {"rows", "launches", "seconds"}."""
+    from tpuseg_torch import bench_sparse as bs
+
+    counters = _bench_counters()
+
+    def counts():
+        return {k: getattr(f, attr) for k, (f, attr) in counters.items()}
+
+    class OnceBench(bs.Bench):
+        """The bench timing each loop once, keeping its rows and the
+        launches of each ``time_loop``."""
+
+        def __init__(self, card):
+            super().__init__(dev, card)
+            self.rows, self.loops = [], []
+
+        def emit(self, **kw):
+            super().emit(**kw)
+            self.rows.append(json.loads(json.dumps({**kw, "card": self.card})))
+
+        def time_loop(self, step, carry, reps=3, inner=None):
+            torch.cuda.synchronize()
+            before = counts()
+            t = super().time_loop(step, carry, reps=1, inner=inner)
+            torch.cuda.synchronize()
+            self.loops.append({k: v - before[k] for k, v in counts().items()})
+            return t
+
+    card = bs.card_label()
+    if card != smi:
+        raise AssertionError(f"bench_sparse.card_label() {card!r}, nvidia-smi {smi!r}")
+    modes = {"fused": bs.bench_fused, "frontend": bs.bench_frontend, "rmcdb": bs.bench_rmcdb,
+             "layout": bs.bench_layout, "model": lambda b: bs.bench_model(b, sweep=True),
+             "train": bs.bench_train, "trainer": bs.bench_trainer,
+             "conv1split": bs.bench_conv1split}
+    benches, results, launches, seconds = {}, {}, {}, {}
+    for m in BENCH_MODES:
+        benches[m] = b = OnceBench(card)
+        torch.cuda.synchronize()
+        for f, attr in counters.values():
+            setattr(f, attr, 0)
+        t0 = time.perf_counter()
+        results[m] = modes[m](b)
+        torch.cuda.synchronize()
+        seconds[m] = time.perf_counter() - t0
+        launches[m] = counts()
+        names = [r["metric"] for r in b.rows]
+        if names != BENCH_METRICS[m]:
+            raise AssertionError(f"bench_sparse {m}: metrics {names}, want {BENCH_METRICS[m]}")
+        bad = [r for r in b.rows for k, v in r.items()
+               if isinstance(v, float) and not math.isfinite(v)]
+        if bad or not all(r["card"] == smi for r in b.rows):
+            raise AssertionError(f"bench_sparse {m}: rows {b.rows}")
+        _emit(phase="bench_sparse_mode", mode=m, seconds=round(seconds[m], 3),
+              launches={k: v for k, v in launches[m].items() if v},
+              loops=[{k: v for k, v in lp.items() if v} for lp in b.loops], rows=b.rows)
+        if launches[m]["quantize_activation"] != launches[m]["fused_sparse_conv_apply_q"]:
+            raise AssertionError(f"bench_sparse {m}: quantize {launches[m]} != B3")
+    # each loop's launches, from the rows' plans where the row has any
+    frame = BENCH_LOOPS * bs.MODEL_INNER  # frames through one model / frontend loop
+    plan_rows = results["model"]
+    if [name for name, _ in plan_rows] != BENCH_METRICS["model"]:
+        raise AssertionError(f"bench_sparse model: rows {[n for n, _ in plan_rows]}")
+    _check_loops("model", benches["model"].loops, [
+        {"upsample_argmax": frame, **{k: frame * v for k, v in _plan_launches(plans).items()}}
+        for _, plans in plan_rows])
+    stem = {"fused_sparse_conv_q_bias_relu": frame * FRONTEND_STEM_CONVS}
+    b3_stage3 = frame * (FRONTEND_STEM_CONVS + FRONTEND_STAGE3_CONVS)
+    _check_loops("frontend", benches["frontend"].loops, [
+        {}, {**stem, "fused_sparse_conv_apply_q": frame * FRONTEND_STEM_CONVS,
+             "quantize_activation": frame * FRONTEND_STEM_CONVS},
+        {**stem, "fused_sparse_conv_apply_q": b3_stage3, "quantize_activation": b3_stage3,
+         "padded_b3": frame * FRONTEND_STAGE3_CONVS}])
+    train = BENCH_LOOPS * bs.TRAIN_INNER
+    _check_loops("train", benches["train"].loops, [{}, {"sparse_conv_train_forward": train}])
+    trainer = BENCH_LOOPS * bs.TRAINER_INNER * TRAINER_B2_CONVS
+    _check_loops("trainer", benches["trainer"].loops, [
+        {}, {"sparse_conv_train_forward": trainer, "sparse_conv_train_dgrad": trainer}])
+    for m in ("rmcdb", "layout", "conv1split"):
+        _check_loops(m, benches[m].loops, [{}] * len(benches[m].loops))
+    # every mode's totals: its loops' sum (nothing launched outside them),
+    # and the fused mode's as phase 17 counts them
+    for m in BENCH_MODES:
+        total = Counter()
+        for lp in benches[m].loops:
+            total.update(lp)
+        if any(launches[m][k] != total[k] for k in launches[m]):
+            raise AssertionError(f"bench_sparse {m}: launches {launches[m]} outside its loops "
+                                 f"{dict(total)}")
+    want = {k: BENCH_LOOPS * bs.INNER * len(bs.SPARSITIES) for k in (
+        "fused_sparse_conv_apply", "fused_sparse_conv_apply_q", "quantize_activation",
+        *B7_ENTRIES)}
+    want["phase_sparse_conv_apply"] += BENCH_LOOPS * bs.INNER  # density 1.0
+    wrong = {k: (launches["fused"][k], v) for k, v in want.items() if launches["fused"][k] != v}
+    if wrong or launches["fused"]["absmax"]:
+        raise AssertionError(f"bench_sparse fused: launches (got, want) {wrong}, absmax "
+                             f"{launches['fused']['absmax']}")
+    rows = {m: benches[m].rows for m in BENCH_MODES}
+    return {"rows": rows, "launches": launches, "seconds": seconds}
+
+
+def _rmcdb_vs_dense(torch, np, dev, smi) -> float:
+    """Phase 40: ``rmcdb_roll_matmul`` at the bench's four geometries (P =
+    32768, 512x512, f32 plans and x, TF32 off) against the masked dense
+    matmul on the card, within 2*K*eps (K = 512)."""
+    from tpuseg_torch import bench_sparse as bs
+    from tpuseg_torch.ops.rmcdb_lowering import detect_rmcdb_rolls, rmcdb_roll_matmul
+    from tpuseg_torch.sparsity.rmcdb import BlockletType, RmcdbConfig, prune_as_rmcdb
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as set before phase 3
+    rng = np.random.default_rng(0)
+    w = rng.normal(size=(bs.RMCDB_ROWS, bs.RMCDB_COLS)).astype(np.float32) * 0.05
+    x = torch.from_numpy(rng.normal(size=(bs.RMCDB_P, bs.RMCDB_COLS)).astype(np.float32)).to(dev)
+    err = 0.0
+    for bh, b, count in bs.RMCDB_GEOMETRIES:
+        mask, _ = prune_as_rmcdb(w, RmcdbConfig(bh=bh, bw=bh, spo=0.0,
+                                                bl_types=[BlockletType(b, b)],
+                                                bl_counts=[count]))
+        mask = mask.astype(np.float32)
+        plan = detect_rmcdb_rolls(w, mask, bh, bh, b, dtype=torch.float32).to(dev)
+        want = x @ torch.from_numpy(w * mask).to(dev).t()
+        err = max(err, _close(torch, np, "rmcdb_roll_vs_masked_dense",
+                              rmcdb_roll_matmul(x, plan), want, bs.RMCDB_COLS,
+                              geometry=[bh, b, count], density=plan.density, card=smi))
+    return err
+
+
+def _native_sparsity(np, smi) -> dict:
+    """Phase 40: the port's native sparsity library built on this machine
+    (``g++`` into ``tpuseg_torch/_build/``) and one rmb mask, a 512x4608
+    layer (DRN-D-22's layer.6 3x3 convs' matrix) at 64x64 blocks, 50 % outer
+    sparsity, 8 2x2 blocklets, equal to the numpy path; build and mask
+    seconds."""
+    from tpuseg_torch import native, native_build
+    from tpuseg_torch.sparsity.rmb import BlockletType, RmbConfig, prune_as_rmb
+
+    t0 = time.perf_counter()
+    path = native_build.build_sparsity()
+    build_s = time.perf_counter() - t0
+    mat = np.random.default_rng(5).normal(size=(512, 4608)).astype(np.float32)
+    cfg = RmbConfig(64, 64, 0.5, [BlockletType(2, 2)], [8])
+    native.lib()
+    t0 = time.perf_counter()
+    got = native.rmb_prune(mat, 64, 64, 0.5, cfg.bl_types, cfg.bl_counts)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want, _ = prune_as_rmb(mat.astype(np.float64), cfg)
+    numpy_s = time.perf_counter() - t0
+    equal = bool(np.array_equal(got, want.astype(np.float32)))
+    row = {"library": os.path.relpath(path), "build_s": build_s, "rmb_native_s": native_s,
+           "rmb_numpy_s": numpy_s, "mask_equal": equal, "density": float(got.mean())}
+    _emit(phase="native_sparsity", **row, card=smi)
+    if not equal or os.path.dirname(os.path.realpath(path)) != os.path.realpath(
+            native_build.BUILD_DIR):
+        raise AssertionError(f"native sparsity: {row}")
+    return row
+
+
+PROFILE_SEG_VIDEO = ["--video", "synthetic", "--size", "1024x2048", "--frames", "8",
+                     "--batch", "8"]
+PROFILE_SEG_VIDEO_FORWARDS = 2  # run()'s warm-up forward and one batch of 8
+PROFILE_TRAIN = ["train", "--synthetic", "8", "-s", "512", "--batch-size", "4", "--epochs", "1",
+                 "--eval-every", "1"]
+
+
+def _trace_events(logdir) -> tuple[list, str, int]:
+    import glob
+
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"{logdir}: want one trace file, found {files}")
+    with open(files[0]) as fh:
+        return json.load(fh)["traceEvents"], files[0], os.path.getsize(files[0])
+
+
+def _profile_dirs(torch, workdir, smi) -> dict:
+    """Phase 41: ``seg_video --profile-dir`` (8 synthetic 1024x2048 frames,
+    batch 8) and ``semantic_seg train --profile-dir`` (2 steps of crop 512,
+    batch 4): each writes one Chrome trace holding CUDA kernel events, the
+    serving one B1's kernel; the trace sizes and event counts."""
+    from tpuseg_torch.cli import semantic_seg, seg_video
+
+    from tpuseg_torch.ops.upsample import upsample_argmax
+
+    out = {}
+    for name, fn, argv in (("seg_video", seg_video.main, PROFILE_SEG_VIDEO),
+                           ("semantic_seg", semantic_seg.main,
+                            PROFILE_TRAIN + ["--save-dir", f"{workdir}/prof_train_run"])):
+        logdir = f"{workdir}/prof_{name}"
+        _zero_counts(torch, upsample_argmax)
+        t0 = time.perf_counter()
+        _quiet(fn, argv + ["--profile-dir", logdir])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        b1 = upsample_argmax.launches
+        events, path, size = _trace_events(logdir)
+        kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        row = {"seconds": seconds, "b1_launches": b1, "trace_bytes": size, "events": len(events),
+               "kernel_events": len(kernels),
+               "b1_kernel_events": sum("upsample_argmax_kernel" in k for k in kernels),
+               "cpu_op_events": sum(e.get("cat") == "cpu_op" for e in events)}
+        _emit(phase="profile_dir", command=name, argv=argv, **row, card=smi)
+        if not kernels or (name == "seg_video" and not (
+                row["b1_kernel_events"] and b1 == PROFILE_SEG_VIDEO_FORWARDS)):
+            raise AssertionError(f"{name} --profile-dir: {row}")
+        out[name] = row
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3374,7 +3742,7 @@ def main() -> int:
 
 
 def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
-    """Phases 2-39 and the closing lines (``main`` builds, then runs these
+    """Phases 2-41 and the closing lines (``main`` builds, then runs these
     with the worker process that makes phase 23's and 27's inputs)."""
     from tpuseg_torch.data.shapes import shapes_video
     from tpuseg_torch.models.drnseg import bilinear_upsample_kernel, init_drnseg
@@ -3783,6 +4151,22 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
         cls_clis = _cls_clis(torch, np, workdir, smi)
         torch.cuda.empty_cache()
         _cls_tools(torch, f"{workdir}/fidelity_cls", smi)
+        torch.cuda.empty_cache()
+        # 40-41. the rest of bench_sparse (every mode of this slice), the
+        # frontend's stage-3 int8 convs bit-equal to their plain version,
+        # the RMCDB roll lowering against the masked dense matmul, the
+        # native sparsity library; --profile-dir in both CLIs
+        t40 = time.perf_counter()
+        bench = _bench_modes(torch, np, dev, smi)["launches"]
+        torch.cuda.empty_cache()
+        _frontend_stage3_bit_equal(torch, np, dev, smi)
+        _rmcdb_vs_dense(torch, np, dev, smi)
+        _native_sparsity(np, smi)
+        torch.cuda.empty_cache()
+        t41 = time.perf_counter()
+        profiles = _profile_dirs(torch, workdir, smi)
+        _emit(phase="phase_seconds", phase_40=round(t41 - t40, 1),
+              phase_41=round(time.perf_counter() - t41, 1))
 
     _emit(phase="total", seconds=round(time.perf_counter() - t_start, 1))
     sc_src, b2_src = "tpuseg/ops/sparse_conv.py", "tpuseg_torch/csrc/sparse_conv.cu"
@@ -3814,6 +4198,14 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
     # and phase 38's classifier CLIs
     b3_launches += cls_clis["launches"]["fused_sparse_conv_apply_q"]
     q_launches += cls_clis["launches"]["quantize_activation"]
+    # and phase 40's bench modes (read around each mode) and phase 41's run
+    launches += bench["model"]["upsample_argmax"] + profiles["seg_video"]["b1_launches"]
+    for mode in ("fused", "model", "frontend"):
+        b2_launches += bench[mode]["fused_sparse_conv_apply"]
+        b3_launches += bench[mode]["fused_sparse_conv_apply_q"]
+        q_launches += bench[mode]["quantize_activation"]
+    for name in B7_ENTRIES:
+        s4_launches[name] += bench["fused"][name]
     stem_conv1 = stem_k["convs"][1]  # the stem route's main shape: the 256->256 conv
 
     kernels = [
@@ -3835,7 +4227,8 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
          for name, (_, _, line) in B7_ENTRIES.items()] + [
         timed("sparse_conv_q_stem", "tpuseg_torch/csrc/sparse_conv_q.cu",
               "tpuseg/ops/polyphase.py:349-359",
-              stem_full["launches"]["b3_stem"] + fid["fused_sparse_conv_q_bias_relu"], stem_conv1),
+              stem_full["launches"]["b3_stem"] + fid["fused_sparse_conv_q_bias_relu"]
+              + bench["frontend"]["fused_sparse_conv_q_bias_relu"], stem_conv1),
         timed("frame_deltas", "tpuseg_torch/csrc/temporal.cu", "tpuseg/video/pipeline.py:670-678",
               budget["launches"]["frame_deltas"] + fid["frame_deltas"],
               temporal_k["frame_deltas"]),
@@ -3853,12 +4246,14 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
              ("i420_to_rgb_flat", transport["launches"]["i420_to_rgb_flat"]))
          for _, source, replaces in [FLOW_ENTRIES[name]]] + [
         entry(name, b2_src, f"{sc_src}:270", train_sparse["launches"][name] + fid[name]
-              + cls_train["launches"][name] + cls_clis["launches"][name],
+              + cls_train["launches"][name] + cls_clis["launches"][name]
+              + bench["train"][name] + bench["trainer"][name],
               t["max_abs_err"], t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]),
               t["library_ms"])
         for name, t in train_k.items()] + [
         timed("sparse_conv_q_padded", "tpuseg_torch/csrc/sparse_conv_q.cu", f"{sc_src}:1294",
-              cls_clis["launches"]["padded_b3"], cls_clis["padded"])]
+              cls_clis["launches"]["padded_b3"] + bench["frontend"]["padded_b3"],
+              cls_clis["padded"])]
     bad = [k["name"] for k in kernels if not k["launches"] > 0]
     if bad:
         raise AssertionError(f"kernels never launched on their path: {bad}")

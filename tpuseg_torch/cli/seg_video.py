@@ -3,8 +3,7 @@
 Runs DRNSeg over a video file (decoded by ``video.pipeline.FrameSource``)
 or a generated video, batch by batch, and prints one JSON line with the
 end-to-end rate (and, with ``--device-fps``, the device rate timed with CUDA
-events).  It takes ``tpuseg``'s flags except ``--mesh-devices`` and
-``--profile-dir``:
+events).  It takes ``tpuseg``'s flags except ``--mesh-devices``:
 - the weights: random from seed 0 by default, or ``--pretrained`` (an
   npz checkpoint of either package's trainer, e.g. the
   ``<arch>_shapes.npz`` of ``tools/trained_fidelity``, or a reference
@@ -19,7 +18,9 @@ events).  It takes ``tpuseg``'s flags except ``--mesh-devices`` and
   the exact run);
 - transport and outputs: ``--transport yuv420``, ``--host-resize``,
   ``--ids-pack BITS`` (auto by default, with an ``ids_pack_auto`` event),
-  ``--device-outputs``, ``--overlay``, ``--save-dir``.
+  ``--device-outputs``, ``--overlay``, ``--save-dir``;
+- ``--profile-dir DIR``: a ``torch.profiler`` trace of the run
+  (``tpuseg_torch.metrics.profiling.trace``, Chrome JSON).
 
 Usage:
   python -m tpuseg_torch.cli.seg_video --video shapes --size 1024x2048 \\
@@ -71,6 +72,9 @@ def parse_args(argv=None):
     p.add_argument("--size", default="300x300",
                    help="HxW, e.g. 300x300 (reference) or 1024x2048")
     p.add_argument("--save-dir", default=None, help="save pred_i.png color or overlay images")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace (Chrome JSON) of the run into this "
+                        "directory")
     p.add_argument("--overlay", action="store_true",
                    help="blend the prediction over the frame (frame//2 + color//2)")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
@@ -363,8 +367,11 @@ def main(argv=None) -> tuple[dict, dict]:
     served = frames
     if args.transport == "yuv420" and not _is_generated(args.video) and not args.save_dir:
         served = open_frames(args, n_frames, h, w, fmt="i420")
+    from tpuseg_torch.metrics.profiling import trace
+
     # color and overlay images are made only when they are saved
-    result = seg.run(served, max_frames=args.frames, need_color=bool(args.save_dir))
+    with trace(args.profile_dir):
+        result = seg.run(served, max_frames=args.frames, need_color=bool(args.save_dir))
     if result["frames"] == 0:
         raise SystemExit(f"error: no frames decoded from {args.video}")
     if args.save_dir:

@@ -29,12 +29,13 @@ checkpointed.  It prints ``tpuseg``'s lines.
 ``--pretrained`` takes a reference ``.pth`` or an npz checkpoint;
 ``--pretrained-backbone`` fills the backbone from an ImageNet DRN
 classifier ``.pth`` (a local path, an http(s) URL resolved through the
-cache, or ``auto``: the arch's published URL).
+cache, or ``auto``: the arch's published URL).  ``--profile-dir DIR``
+writes a ``torch.profiler`` trace of the first trained epoch
+(``tpuseg_torch.metrics.profiling.trace``).
 
 Not ported yet, and refused with a message naming the ROADMAP item: more
 than one device or process (``--mesh-devices``/``--num-processes``/
-``--num-shards`` > 1, A21), ``--profile-dir`` (A23), ``--ckpt-format
-orbax`` (A21).
+``--num-shards`` > 1, A21), ``--ckpt-format orbax`` (A21).
 """
 
 from __future__ import annotations
@@ -77,7 +78,9 @@ def parse_args(argv=None):
     p.add_argument("--ckpt-format", default="npz", choices=["npz", "orbax"],
                    help="checkpoint envelope: single-file npz (atomic tmp+rename); "
                         "orbax is not ported yet (ROADMAP A21)")
-    p.add_argument("--profile-dir", default=None, help="not ported yet (ROADMAP A23)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace (Chrome JSON) of the first trained "
+                        "epoch into this directory")
     p.add_argument("--ms", action="store_true", help="multi-scale test")
     p.add_argument("--scales", default="0.5,0.75,1.25,1.5,1.75")
     p.add_argument("--save-vis", action="store_true",
@@ -126,7 +129,6 @@ def _refuse_unported(args) -> None:
          or args.num_shards > 1,
          "--mesh-devices/--num-processes/--num-shards > 1: multi-device training is not "
          "ported yet (ROADMAP A21)"),
-        (args.profile_dir is not None, "--profile-dir: not ported yet (ROADMAP A23)"),
         (args.ckpt_format == "orbax", "--ckpt-format orbax: not ported yet (ROADMAP A21)"),
     ]
     for refused, message in refusals:
@@ -323,6 +325,7 @@ def cmd_train(args):
     os.makedirs(args.save_dir, exist_ok=True)
     # persistent run logging: JSONL + TensorBoard event files with a
     # hyperparameter-carrying run record (ref semantic_seg.py:1010-1024)
+    from tpuseg_torch.metrics.profiling import trace
     from tpuseg_torch.metrics.runlog import RunLogger
 
     runlog = RunLogger(
@@ -341,9 +344,11 @@ def cmd_train(args):
             t_epoch = time.time()
             it = batch_iterator(train_ds, args.batch_size, shuffle=True, drop_last=True,
                                 epoch=epoch)
-            for images, labels in prefetch_to_device(it, device):
-                ts, m = step_fn(ts, images, labels)
-                losses.update(float(m["loss"]), len(images))
+            # a device trace of the first trained epoch, when asked
+            with trace(args.profile_dir if epoch == start_epoch else None):
+                for images, labels in prefetch_to_device(it, device):
+                    ts, m = step_fn(ts, images, labels)
+                    losses.update(float(m["loss"]), len(images))
             line = {
                 "epoch": epoch,
                 "train_loss": round(losses.avg, 4),

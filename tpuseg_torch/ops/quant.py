@@ -181,6 +181,27 @@ def int8_packing(name: str, w_q: np.ndarray, w_scale: np.ndarray, dilation: int,
     return full_support_packing(name, w_q, w_scale, dilation, padding, x_scale), chan
 
 
+def embed_same(w: np.ndarray, pad_lo: int, pad_hi: int) -> tuple[np.ndarray, int]:
+    """A stride-1 HWIO conv with padding ``(pad_lo, pad_hi)`` on both axes
+    that keeps the grid (``pad_lo + pad_hi = kernel - 1``) as the same
+    function in the odd "same" kernel of ``max(pad_lo, pad_hi)`` padding:
+    ``(w_same, padding)``.  The taps it adds are zero, so their tiles are
+    not live steps of a B3 packing (``FusedSparseConvQ`` takes its steps
+    from the nonzero tiles, ``full_support_packing``'s too): B3 walks the
+    kernel's own kh * kw taps.  Raises ``ValueError`` otherwise."""
+    kh, kw = w.shape[:2]
+    if kh != kw or pad_lo + pad_hi != kh - 1 or min(pad_lo, pad_hi) < 0:
+        raise ValueError(f"a {kh}x{kw} conv with padding ({pad_lo}, {pad_hi}) does not keep "
+                         f"the grid")
+    pad = max(pad_lo, pad_hi)
+    if pad_lo == pad_hi:
+        return w, pad
+    out = np.zeros((2 * pad + 1, 2 * pad + 1) + w.shape[2:], w.dtype)
+    off = pad - pad_lo  # tap p of the conv sits at tap p + off of the "same" kernel
+    out[off:off + kh, off:off + kw] = w
+    return out, pad
+
+
 def stem_packing(name: str, w_q: np.ndarray, w_scale: np.ndarray, pad_lo: int, pad_hi: int,
                  x_scale: float | None = None) -> tuple[FusedSparseConvQ, torch.Tensor | None]:
     """B3's packing of a folded int8 stem conv (HWIO ``w_q``, stride 1,
@@ -192,8 +213,9 @@ def stem_packing(name: str, w_q: np.ndarray, w_scale: np.ndarray, pad_lo: int, p
       pass write the padded int8 operand (the integer sum is unchanged);
     - a kernel that keeps the grid but is even or padded asymmetrically
       (conv2: 2x2, pad (1, 0)) is embedded in the odd "same" kernel of
-      ``max(pad_lo, pad_hi)`` padding; the taps it adds are zero, so their
-      tiles are not live steps and B3 never walks them.
+      ``max(pad_lo, pad_hi)`` padding (``embed_same``); the taps it adds
+      are zero, so their tiles are not live steps (the packing's steps come
+      from its nonzero tiles) and B3 walks conv2's 4 taps of the 9.
 
     Quantization is untouched (zeros change no absmax).  Raises
     ``ValueError``, naming the conv, on a shape B3 cannot take this way."""
@@ -203,11 +225,10 @@ def stem_packing(name: str, w_q: np.ndarray, w_scale: np.ndarray, pad_lo: int, p
             f"{name}: int8 stem conv {kh}x{kw} {cin}->{cout} with padding ({pad_lo}, "
             f"{pad_hi}) does not fit kernel B3: it needs a square kernel that keeps the grid "
             f"(pad_lo + pad_hi = kernel - 1) and output channels divisible by {BM}")
-    pad = max(pad_lo, pad_hi)
+    w_same, pad = embed_same(w_q, pad_lo, pad_hi)
     cin_p = -(-cin // BK) * BK
-    w = np.zeros((2 * pad + 1, 2 * pad + 1, cin_p, cout), np.int8)
-    off = pad - pad_lo  # tap p of the conv sits at tap p + off of the "same" kernel
-    w[off:off + kh, off:off + kw, :cin] = w_q
+    w = np.zeros(w_same.shape[:2] + (cin_p, cout), np.int8)
+    w[:, :, :cin] = w_same
     chan = None
     if cin_p != cin:
         chan = torch.cat([torch.arange(cin, dtype=torch.int32),

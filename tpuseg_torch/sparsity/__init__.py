@@ -18,11 +18,13 @@ from typing import Mapping
 
 import torch
 
-# every masker module registers its pruner type with base's registry
+# every masker module registers its pruner type with base's registry;
+# ``formats`` holds the reference's sparse text formats
 from tpuseg_torch.sparsity import (  # noqa: F401
     base,
     block,
     block_regular,
+    formats,
     grouping,
     hb,
     rmb,

@@ -12,6 +12,10 @@ Two phases per layer:
 
 Also records the blocklet choices so a BSR text writer can serialize
 the 9-array RMB sparse format bit-compatibly.
+
+``RmbMasker.use_native`` (True, as in ``tpuseg``) computes the mask in the
+native library (``tpuseg_torch.native.rmb_prune``, built at first use; a
+failed build raises); False keeps the numpy path.
 """
 
 from __future__ import annotations
@@ -118,6 +122,8 @@ def prune_as_rmb(
 
 @register_masker("rmb")
 class RmbMasker(Masker):
+    use_native = True  # the C++ path of native/sparsity.cpp (tpuseg/sparsity/rmb.py:121)
+
     def parse_layer_config(self, ls_config: Mapping[str, Any]) -> RmbConfig:
         bl_types = [BlockletType(b["bh"], b["bw"]) for b in ls_config["blocklets"]]
         bl_counts = [b["count"] for b in ls_config["blocklets"]]
@@ -130,5 +136,11 @@ class RmbMasker(Masker):
         )
 
     def generate_mask(self, tensor, cfg, rng, is_static):
+        if self.use_native:
+            from tpuseg_torch import native
+
+            mat = tensor.reshape(tensor.shape[0], -1)
+            mask = native.rmb_prune(mat, cfg.bh, cfg.bw, cfg.spo, cfg.bl_types, cfg.bl_counts)
+            return mask.reshape(tensor.shape)
         mask, _ = prune_as_rmb(tensor, cfg)
         return mask
