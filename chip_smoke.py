@@ -237,8 +237,27 @@ Phases (any failed check raises and the exit code is non-zero):
      sparsity library built here and one rmb mask equal to the numpy path;
  41. ``seg_video --profile-dir`` (8 synthetic 1024x2048 frames) and
      ``semantic_seg train --profile-dir`` (2 steps at crop 512, batch 4):
-     each trace holds CUDA kernel events, the serving one B1's kernel; the
-     seconds of phases 40 and 41.
+     each trace holds CUDA kernel events, the serving one B1's kernel;
+ 42. data-parallel training (``tpuseg_torch.parallel``): a one-rank NCCL
+     group runs an all_reduce and a step through ``shard_train_step``; two
+     gloo ranks sharing cuda:0 (NCCL refuses two ranks on one GPU) train
+     DRN-D-22 at crop 512, global batch 8, f32, ``--sparse-exec`` on
+     block128reg_87.50, 2 steps: replicas bit-equal after each step, the
+     first step within phase 32's f32 tolerance of one process's 8-batch
+     step, each rank's B2 forward and dgrad launches equal to its; the step
+     ms of both and the flat all-reduce's ms;
+ 43. ``VideoSegmenter(mesh=make_mesh(data=2, devices=[cuda:0, cuda:0]))``
+     at 1024x2048, batch 8: f32 ids bit-equal to one device at the
+     replicas' batch, int8 ids >= 0.99 of one device's at batch 8, B1, B3
+     and the quantize pass launched exactly once a replica forward, a
+     Pallas-lowered plan refused;
+ 44. ``spatial_forward`` of full-width DRN-D-22 on one 1024x2048 f32 frame
+     over two gloo ranks sharing cuda:0: the logits within 2e-4 of the
+     unsharded forward, both timed;
+ 45. the directory envelope of a full-width train state: a blocking save,
+     an async save overlapping a train step, ``wait_for_saves``, both
+     loaded equal; the ``.new``/``.old`` recovery cases; the seconds of
+     phases 40-45.
 The line before the last is the kernels' JSON record (each kernel's time,
 its plain version's, its bound at the card's published peaks and the
 PyTorch call's, at its main shape; B3's time is its served route, the
@@ -3699,6 +3718,429 @@ def _profile_dirs(torch, workdir, smi) -> dict:
     return out
 
 
+# phases 42-45: data-parallel training, serving over a mesh, spatial
+# H-sharding and the directory envelope (tpuseg_torch.parallel,
+# tpuseg_torch.train.orbax_ckpt).  The script needs one card, so the
+# multi-rank paths run as two gloo ranks sharing cuda:0 (NCCL refuses two
+# ranks on one GPU); NCCL itself runs a one-rank group.
+DP_CROP = 512
+DP_BATCH = 8  # global: 4 a rank
+DP_STEPS = 2
+MESH_BATCH = 8
+SPATIAL_RANKS = 2
+
+
+def _f32_card(device):
+    """torch with TF32 off (phase 3's setting), this rank's device, and a
+    synchronize for it."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":  # the device the rank joined its group on
+        dev = torch.device("cuda", torch.cuda.current_device())
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    return torch, dev, sync
+
+
+def _params_digest(ts) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for part in (ts.params, ts.bn_state):
+        for k in sorted(part):
+            h.update(part[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_setup(torch, np, dev, batch, crop):
+    """(train state, step, batch) of phase 42's run: DRN-D-22, f32,
+    --sparse-exec on block128reg_87.50's static masks, lr 0.01."""
+    from tpuseg_torch.models.drnseg import init_drnseg
+    from tpuseg_torch.sparsity import create_masker
+
+    params, state, spec = init_drnseg(0, ARCH, CLASSES)
+    masks = create_masker(SERVED_CONFIG, seed=0).generate_masks(params, is_static=True)
+    ts, step, _ = _trainer(torch, dev, params, state, spec, masks=masks, sparse=True)
+    return ts, step, _train_batch(torch, np, dev, batch, crop, 42)
+
+
+def _rank_nccl_one(init, device) -> dict:
+    """Phase 42 (a), in a process of its own: a one-rank NCCL group on
+    cuda:0, one all_reduce, and one step through ``shard_train_step`` (and
+    the same step with its collectives driven over NCCL)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from tpuseg_torch.parallel import make_mesh, shard_train_step
+    from tpuseg_torch.parallel.mesh import Ranks
+
+    torch, dev, sync = _f32_card(device)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method=init,
+                            world_size=1, rank=0)
+    t = torch.arange(8, dtype=torch.float32, device=dev)
+    dist.all_reduce(t)
+    sync()
+    if not torch.equal(t, torch.arange(8, dtype=torch.float32, device=dev)):
+        raise AssertionError(f"one-rank NCCL all_reduce changed the tensor: {t}")
+    ts, step, batch = _dp_setup(torch, np, dev, 2, 64)
+    mesh = make_mesh(data=1, devices=[dev])
+    _, m = shard_train_step(step, mesh)(ts, *batch)
+    _, m_nccl = step(ts, *batch, ranks=Ranks(group=None, size=1, rank=0))
+    return {"backend": dist.get_backend(), "loss": float(m["loss"]),
+            "loss_nccl_collectives": float(m_nccl["loss"])}
+
+
+def _rank_dp_train(device, crop, batch, steps) -> dict:
+    """Phase 42 (b), in each of two gloo ranks on cuda:0: DP_STEPS steps of
+    the global batch's half; per step the replica digest, B2's launches
+    and the ms of the step; then the ms of one flat all-reduce of every
+    gradient (the step's own collective)."""
+    import numpy as np
+
+    from tpuseg_torch.ops import sparse_train as tst
+    from tpuseg_torch.parallel import make_mesh, shard_batch, shard_train_step
+
+    torch, dev, sync = _f32_card(device)
+    mesh = make_mesh(data=2, devices=[dev, dev])
+    ts, step, (images, labels) = _dp_setup(torch, np, dev, batch, crop)
+    step = shard_train_step(step, mesh)
+    x, y = shard_batch(mesh, [images, labels])
+    out = {"digests": [], "b2": [], "ms": [], "loss": []}
+    for _ in range(steps):
+        sync()
+        tst.sparse_conv_train_forward.launches = tst.sparse_conv_train_dgrad.launches = 0
+        t0 = time.perf_counter()
+        ts, m = step(ts, x, y)
+        sync()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["b2"].append((tst.sparse_conv_train_forward.launches,
+                          tst.sparse_conv_train_dgrad.launches))
+        out["digests"].append(_params_digest(ts))
+        out["loss"].append(float(m["loss"]))
+        if mesh.rank == 0 and len(out["loss"]) == 1:  # the state the reference checks
+            out["params"] = {k: v.cpu() for k, v in ts.params.items()}
+            out["bn_state"] = {k: v.cpu() for k, v in ts.bn_state.items()}
+    ranks = mesh.ranks()
+    grads = {k: torch.zeros_like(v) for k, v in ts.params.items()}
+    ranks.sum_grads(grads)
+    sync()
+    t0 = time.perf_counter()
+    ranks.sum_grads(grads)
+    sync()
+    out["allreduce_ms"] = (time.perf_counter() - t0) * 1e3
+    out["allreduce_bytes"] = sum(v.numel() * 4 for v in grads.values())
+    return out
+
+
+def _data_parallel_training(torch, np, dev, smi) -> dict:
+    """Phase 42: (a) a one-rank NCCL group; (b) two gloo ranks sharing
+    cuda:0 train DRN-D-22 at crop 512, global batch 8, f32, --sparse-exec
+    on block128reg_87.50 masks, for DP_STEPS steps: the replicas bit-equal
+    after each step, the parameters and running stats within phase 32's
+    f32 tolerance of one process's 8-batch steps, and each rank's B2
+    forward and dgrad launches equal to that step's."""
+    import tempfile
+
+    from tpuseg_torch.ops import sparse_train as tst
+    from tpuseg_torch.parallel.mesh import spawn_ranks
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        nccl = spawn_ranks(_rank_nccl_one, 1, dev.type, args=(f"file://{tmp}/store", dev.type),
+                           timeout=300)[0]
+    if nccl["backend"] != ("nccl" if dev.type == "cuda" else "gloo") or not abs(nccl["loss"] - nccl["loss_nccl_collectives"]) <= \
+            1e-5 * abs(nccl["loss"]):
+        raise AssertionError(f"one-rank NCCL step: {nccl}")
+    nccl_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_rank_dp_train, 2, dev.type, args=(dev.type, DP_CROP, DP_BATCH, DP_STEPS),
+                        backend="gloo", timeout=600)
+    ranks_s = time.perf_counter() - t0
+    for i in range(DP_STEPS):
+        if ranks[0]["digests"][i] != ranks[1]["digests"][i]:
+            raise AssertionError(f"replicas differ after step {i + 1}")
+    # one process, the whole batch: the reference and the 1-rank step time
+    ts, step, batch = _dp_setup(torch, np, dev, DP_BATCH, DP_CROP)
+    one = {"b2": [], "ms": [], "loss": []}
+    first = None
+    for _ in range(DP_STEPS):
+        _zero_counts(torch, tst.sparse_conv_train_forward, tst.sparse_conv_train_dgrad)
+        t1 = time.perf_counter()
+        ts, m = step(ts, *batch)
+        torch.cuda.synchronize()
+        one["ms"].append((time.perf_counter() - t1) * 1e3)
+        one["b2"].append((tst.sparse_conv_train_forward.launches,
+                          tst.sparse_conv_train_dgrad.launches))
+        one["loss"].append(float(m["loss"]))
+        first = first or ts
+    for r in ranks:
+        if [tuple(b) for b in r["b2"]] != one["b2"]:
+            raise AssertionError(f"B2 launches a rank {r['b2']}, one process {one['b2']}")
+    # the first step against one process's (the trajectories of masked
+    # steps drift apart at float rounding after it: on the CPU at crop 64
+    # rounding-level input changes move the second step's loss past 1e-4)
+    if not abs(ranks[0]["loss"][0] - one["loss"][0]) <= 1e-4 * abs(one["loss"][0]):
+        raise AssertionError(f"2-rank loss {ranks[0]['loss']}, one process {one['loss']}")
+
+    class _State:
+        params, bn_state = ranks[0]["params"], ranks[0]["bn_state"]
+
+    _close_states(torch, np, "2 gloo ranks vs one process, step 1", _State, first)
+    del ts, first, step, batch
+    torch.cuda.empty_cache()
+    b2 = {"sparse_conv_train_forward": sum(r["b2"][i][0] for r in ranks for i in range(DP_STEPS)),
+          "sparse_conv_train_dgrad": sum(r["b2"][i][1] for r in ranks for i in range(DP_STEPS))}
+    _emit(phase="data_parallel_training", ranks=2, backend="gloo", device="cuda:0 (shared)",
+          crop=DP_CROP, global_batch=DP_BATCH, steps=DP_STEPS, dtype="float32",
+          sparse_exec=SERVED_CONFIG, replicas_bit_equal=True,
+          ms_per_step_2_ranks=[r["ms"] for r in ranks], ms_per_step_1_rank=one["ms"],
+          allreduce_ms=[r["allreduce_ms"] for r in ranks],
+          allreduce_bytes=ranks[0]["allreduce_bytes"],
+          b2_launches_per_rank_step=ranks[0]["b2"], b2_launches_one_process_step=one["b2"],
+          loss_2_ranks=ranks[0]["loss"], loss_1_rank=one["loss"], nccl_one_rank=nccl,
+          nccl_phase_seconds=round(nccl_s, 1), ranks_seconds=round(ranks_s, 1), card=smi)
+    return {"launches": b2}
+
+
+def _serving_mesh(torch, np, dev, params, state, spec, frames, smi) -> dict:
+    """Phase 43: ``VideoSegmenter(mesh=make_mesh(data=2, devices=[cuda:0,
+    cuda:0]))`` at 1024x2048, batch 8: f32 dense ids bit-equal to the
+    one-device segmenter at the replicas' batch (4), int8 ids agreeing
+    >= 0.99 with the one-device int8 segmenter at batch 8 and bit-equal at
+    batch 4; B1, B3 and the quantize pass launched exactly once per
+    replica forward; a replica copied to the card gives the same ids; a
+    Pallas-lowered plan refused."""
+    from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_apply_q, quantize_activation
+    from tpuseg_torch.ops.upsample import upsample_argmax
+    from tpuseg_torch.parallel import make_mesh
+    from tpuseg_torch.video.pipeline import VideoSegmenter
+
+    mesh = make_mesh(data=2, devices=[dev, dev])
+    served = frames[:MESH_BATCH]
+    calib = frames[MESH_BATCH:MESH_BATCH + 4]
+    counters = (upsample_argmax, fused_sparse_conv_apply_q, quantize_activation)
+
+    def serve(quantize, batch, on_mesh):
+        seg = VideoSegmenter(params, state, spec, MEAN, STD, device=dev,
+                             compute_dtype=torch.float32, batch=batch, quantize=quantize,
+                             calib_frames=calib if quantize else None,
+                             mesh=mesh if on_mesh else None)
+        # one forward of a replica's frames: the per-forward launch counts
+        x = torch.from_numpy(np.stack(served[:batch]).reshape(batch, FULL[0], -1)).to(dev)
+        seg.ids_for(x)
+        _zero_counts(torch, *counters)
+        seg.ids_for(x)
+        torch.cuda.synchronize()
+        per_forward = [f.launches for f in counters]
+        _zero_counts(torch, *counters)
+        t0 = time.perf_counter()
+        res = seg.run(served, need_color=False)
+        torch.cuda.synchronize()
+        out = {"ids": res["ids"], "seconds": time.perf_counter() - t0, "fps": res["fps"],
+               "launches": [f.launches for f in counters], "per_forward": per_forward}
+        if on_mesh:
+            # a replica for another card is this segmenter copied there
+            # (weights, frontend, plans): on cuda:0 its ids are the same
+            with torch.inference_mode():
+                rep = seg._replica_on(torch.device(dev))._replica_ids(x[:batch // 2])
+                if not torch.equal(rep, seg._replica_ids(x[:batch // 2])):
+                    raise AssertionError("a copied replica's ids differ")
+        del seg
+        torch.cuda.empty_cache()
+        return out
+
+    out = {}
+    for quantize in (False, True):
+        tag = "int8" if quantize else "f32"
+        m = serve(quantize, MESH_BATCH, True)
+        one4 = serve(quantize, MESH_BATCH // 2, False)
+        if not np.array_equal(m["ids"], one4["ids"]):
+            raise AssertionError(f"{tag}: mesh ids differ from the one-device segmenter at "
+                                 f"batch {MESH_BATCH // 2}")
+        # run(): the untimed first call and the timed one, each split over
+        # the 2 replicas, each replica one forward of 4 frames
+        want = [4 * n for n in one4["per_forward"]]
+        if m["launches"] != want or m["per_forward"] != [2 * n for n in one4["per_forward"]]:
+            raise AssertionError(f"{tag}: launches on the mesh {m['launches']} "
+                                 f"(a forward {m['per_forward']}), want {want}")
+        if quantize and not (m["launches"][1] > 0 and m["launches"][2] == m["launches"][1]):
+            raise AssertionError(f"int8: B3 {m['launches'][1]}, quantize {m['launches'][2]}")
+        one8 = serve(quantize, MESH_BATCH, False)
+        agree = _agreement(m["ids"], one8["ids"])
+        if quantize and agree < 0.99:
+            raise AssertionError(f"int8 mesh vs one device (batch 8) agreement {agree} < 0.99")
+        out[tag] = {"launches": dict(zip(("upsample_argmax", "sparse_conv_q", "quantize"),
+                                         m["launches"])),
+                    "agreement_vs_batch8": agree, "mesh_seconds": m["seconds"],
+                    "one_device_seconds": one8["seconds"], "mesh_fps": m["fps"],
+                    "one_device_fps": one8["fps"]}
+    masked, pallas, _ = _pruned(torch, params, state, spec, SERVED_CONFIG, "pallas",
+                                torch.bfloat16)
+    try:
+        VideoSegmenter(masked, state, spec, MEAN, STD, device=dev, batch=MESH_BATCH,
+                       exec_plans=pallas, mesh=mesh)
+    except ValueError as e:
+        refused = str(e)[:80]
+    else:
+        raise AssertionError("a Pallas-lowered plan was served over the mesh")
+    _emit(phase="serving_mesh", mesh={"data": 2, "devices": "cuda:0, cuda:0"},
+          size=list(FULL), batch=MESH_BATCH, f32=out["f32"], int8=out["int8"],
+          pallas_refused=refused, card=smi)
+    return {"upsample_argmax": out["f32"]["launches"]["upsample_argmax"]
+            + out["int8"]["launches"]["upsample_argmax"],
+            "fused_sparse_conv_apply_q": out["int8"]["launches"]["sparse_conv_q"],
+            "quantize_activation": out["int8"]["launches"]["quantize"]}
+
+
+def _rank_spatial(device, full) -> dict:
+    """Phase 44, in each of SPATIAL_RANKS gloo ranks on cuda:0: the
+    H-sharded f32 forward of full-width DRN-D-22 on one 1024x2048 frame
+    (``spatial_forward``), its largest difference from the unsharded
+    forward, and the ms of each (the second of two calls)."""
+    import numpy as np
+
+    from tpuseg_torch.models.drnseg import drnseg_forward, init_drnseg
+    from tpuseg_torch.parallel import make_mesh, spatial_forward
+
+    torch, dev, sync = _f32_card(device)
+    params, state, spec = init_drnseg(0, ARCH, CLASSES)
+    params = {k: v.to(dev) for k, v in params.items()}
+    state = {k: v.to(dev) for k, v in state.items()}
+    mesh = make_mesh(data=1, spatial=SPATIAL_RANKS, devices=[dev] * SPATIAL_RANKS)
+    x = torch.from_numpy(np.random.default_rng(44).random((1, *full, 3),
+                                                           dtype=np.float32)).to(dev)
+    fwd = spatial_forward(
+        lambda p, s, v, ranks: drnseg_forward(p, s, v, spec, train=False, ranks=ranks)[0],
+        mesh)
+    times = {}
+    for name, fn in (("spatial", lambda: fwd(params, state, x)),
+                     ("unsharded", lambda: drnseg_forward(params, state, x, spec,
+                                                          train=False)[0])):
+        with torch.no_grad():
+            for _ in range(2):
+                sync()
+                t0 = time.perf_counter()
+                y = fn()
+                sync()
+                times[name] = (time.perf_counter() - t0) * 1e3
+        times[name + "_out"] = y
+    got, want = times.pop("spatial_out"), times.pop("unsharded_out")
+    err = (got - want).abs()
+    bad = int((err > 2e-4 + 2e-4 * want.abs()).sum())
+    return {"ms": times, "max_abs_err": float(err.max()), "violations": bad,
+            "shape": list(got.shape)}
+
+
+def _spatial(torch, dev, smi) -> dict:
+    """Phase 44: SPATIAL_RANKS gloo ranks on cuda:0, one 1024x2048 f32
+    frame through full-width DRN-D-22 with H sharded: the logits within
+    tpuseg's 2e-4 (rtol and atol) of the unsharded forward."""
+    from tpuseg_torch.parallel.mesh import spawn_ranks
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_rank_spatial, SPATIAL_RANKS, dev.type, args=(dev.type, FULL),
+                        backend="gloo", timeout=600)
+    for r in ranks:
+        if r["violations"] or r["shape"] != [1, *FULL, CLASSES]:
+            raise AssertionError(f"spatial forward: {r}")
+    _emit(phase="spatial_forward", ranks=SPATIAL_RANKS, backend="gloo",
+          device="cuda:0 (shared)", size=list(FULL), dtype="float32",
+          ms=[r["ms"] for r in ranks], max_abs_err=max(r["max_abs_err"] for r in ranks),
+          tolerance={"rtol": 2e-4, "atol": 2e-4}, seconds=round(time.perf_counter() - t0, 1),
+          card=smi)
+    return ranks[0]
+
+
+def _directory_envelope(torch, np, dev, workdir, smi) -> dict:
+    """Phase 45: the directory envelope of a full-width DRN-D-22 train
+    state (f32 params, BN state, momentum): a blocking save; an async save
+    that returns after staging while a train step runs, then
+    ``wait_for_saves``; both load with arrays equal to the saved state; a
+    committed ``.new`` preferred, an uncommitted one removed by the next
+    save, ``.old`` the fallback."""
+    import shutil
+
+    from tpuseg_torch.models.drnseg import init_drnseg
+    from tpuseg_torch.train import load_checkpoint, save_checkpoint
+    from tpuseg_torch.train.checkpoint import _flatten_opt
+    from tpuseg_torch.train.orbax_ckpt import wait_for_saves
+
+    params, state, spec = init_drnseg(0, ARCH, CLASSES)
+    ts, step, _ = _trainer(torch, dev, params, state, spec)
+    batch = _train_batch(torch, np, dev, DP_BATCH // 2, DP_CROP, 45)
+    ts, _ = step(ts, *batch)  # a live momentum
+    path = f"{workdir}/envelope/checkpoint.orbax"
+
+    def save(ts, **kw):
+        save_checkpoint(path, ts.params, ts.bn_state, opt_state=ts.opt_state,
+                        meta={"epoch": int(ts.step)}, **kw)
+
+    def equal(ts):
+        p, b, _, opt, meta = load_checkpoint(path)
+        want_opt = _flatten_opt(ts.opt_state)
+        return (meta["epoch"] == ts.step
+                and all(torch.equal(p[k], ts.params[k].cpu()) for k in ts.params)
+                and all(torch.equal(b[k], ts.bn_state[k].cpu()) for k in ts.bn_state)
+                and opt.keys() == want_opt.keys()
+                and all(np.array_equal(opt[k], v) for k, v in want_opt.items()))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save(ts)
+    blocking_ms = (time.perf_counter() - t0) * 1e3
+    if not equal(ts):
+        raise AssertionError("a blocking directory save did not load back equal")
+    ts_saved = ts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts2, _ = step(ts, *batch)
+    torch.cuda.synchronize()
+    step_alone_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    save(ts_saved, async_save=True)
+    staged_ms = (time.perf_counter() - t0) * 1e3
+    ts2, _ = step(ts_saved, *batch)
+    torch.cuda.synchronize()
+    step_during_ms = (time.perf_counter() - t0) * 1e3 - staged_ms
+    t1 = time.perf_counter()
+    wait_for_saves()
+    wait_ms = (time.perf_counter() - t1) * 1e3
+    if not equal(ts_saved):
+        raise AssertionError("an async directory save did not load back equal")
+    # recovery: a committed .new wins, .old serves, an uncommitted .new goes
+    shutil.copytree(path, path + ".new")
+    save(ts2)
+    if os.path.exists(path + ".new") or not equal(ts2):
+        raise AssertionError("the committed .new was not swapped in before the next save")
+    shutil.copytree(path, path + ".new")
+    os.remove(os.path.join(path + ".new", ".metadata"))
+    if not equal(ts2):
+        raise AssertionError("an uncommitted .new was read")
+    save(ts2)
+    if os.path.exists(path + ".new"):
+        raise AssertionError("an uncommitted .new survived a save")
+    shutil.move(path, path + ".old")
+    if not equal(ts2):
+        raise AssertionError(".old was not the fallback")
+    nbytes = sum(f.stat().st_size for f in os.scandir(path + ".old"))
+    _emit(phase="directory_envelope", bytes=nbytes, blocking_save_ms=blocking_ms,
+          async_staged_ms=staged_ms, step_alone_ms=step_alone_ms,
+          step_during_async_save_ms=step_during_ms, wait_after_step_ms=wait_ms,
+          recovery=["committed .new preferred", "uncommitted .new removed", ".old fallback"],
+          card=smi)
+    del ts, ts2, ts_saved, step, batch
+    torch.cuda.empty_cache()
+    return {}
+
+
 def main() -> int:
     import torch
 
@@ -4165,8 +4607,22 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
         torch.cuda.empty_cache()
         t41 = time.perf_counter()
         profiles = _profile_dirs(torch, workdir, smi)
+        torch.cuda.empty_cache()
+        # 42-45. data-parallel training (a one-rank NCCL group; two gloo
+        # ranks sharing the card), serving over a mesh, the H-sharded
+        # forward, the directory envelope
+        t42 = time.perf_counter()
+        dp = _data_parallel_training(torch, np, dev, smi)
+        t43 = time.perf_counter()
+        mesh_serving = _serving_mesh(torch, np, dev, params, state, spec, frames, smi)
+        t44 = time.perf_counter()
+        _spatial(torch, dev, smi)
+        t45 = time.perf_counter()
+        _directory_envelope(torch, np, dev, workdir, smi)
         _emit(phase="phase_seconds", phase_40=round(t41 - t40, 1),
-              phase_41=round(time.perf_counter() - t41, 1))
+              phase_41=round(t42 - t41, 1), phase_42=round(t43 - t42, 1),
+              phase_43=round(t44 - t43, 1), phase_44=round(t45 - t44, 1),
+              phase_45=round(time.perf_counter() - t45, 1))
 
     _emit(phase="total", seconds=round(time.perf_counter() - t_start, 1))
     sc_src, b2_src = "tpuseg/ops/sparse_conv.py", "tpuseg_torch/csrc/sparse_conv.cu"
@@ -4206,6 +4662,10 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
         q_launches += bench[mode]["quantize_activation"]
     for name in B7_ENTRIES:
         s4_launches[name] += bench["fused"][name]
+    # and phase 43's serving replicas
+    launches += mesh_serving["upsample_argmax"]
+    b3_launches += mesh_serving["fused_sparse_conv_apply_q"]
+    q_launches += mesh_serving["quantize_activation"]
     stem_conv1 = stem_k["convs"][1]  # the stem route's main shape: the 256->256 conv
 
     kernels = [
@@ -4247,7 +4707,7 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
          for _, source, replaces in [FLOW_ENTRIES[name]]] + [
         entry(name, b2_src, f"{sc_src}:270", train_sparse["launches"][name] + fid[name]
               + cls_train["launches"][name] + cls_clis["launches"][name]
-              + bench["train"][name] + bench["trainer"][name],
+              + bench["train"][name] + bench["trainer"][name] + dp["launches"][name],
               t["max_abs_err"], t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]),
               t["library_ms"])
         for name, t in train_k.items()] + [

@@ -94,3 +94,58 @@ def test_frontend_bf16_keeps_dtype_and_layout():
     out = fe(torch.from_numpy(frames))
     assert out.dtype == torch.bfloat16 and out.shape == (2, 8, 8, 64)
     assert out.is_contiguous()
+
+
+@pytest.mark.parametrize("f_from,f_to", [(4, 2), (4, 1), (2, 1), (4, 4)])
+def test_refold_bit_equal(f_from, f_to):
+    """refold moves the same bytes as tpuseg's (and s2d(f_from) + refold ==
+    s2d(f_to))."""
+    x = np.random.default_rng(7).normal(size=(2, 16, 24, 3)).astype(np.float32)
+    j = np.asarray(jpoly.refold(jpoly.space_to_depth(jnp.asarray(x), f_from), f_from, f_to))
+    t = tpoly.refold(tpoly.space_to_depth(torch.from_numpy(x), f_from), f_from, f_to).numpy()
+    np.testing.assert_array_equal(t, j)
+    np.testing.assert_array_equal(t, tpoly.space_to_depth(torch.from_numpy(x), f_to).numpy())
+
+
+@pytest.mark.parametrize("args", [(2, 1, 4, 2), (2, 1, 2, 2), (1, 1, 4, 4), (2, 0, 2, 2),
+                                  (4, 3, 4, 2), (2, 3, 1, 1)])
+def test_fold_conv_poly_general_bit_equal(args):
+    w = np.random.default_rng(11).normal(size=(3, 3, 2, 5)).astype(np.float32)
+    if args == (2, 3, 1, 1):
+        w = np.random.default_rng(11).normal(size=(7, 7, 2, 5)).astype(np.float32)
+    wj, *pj = jpoly.fold_conv_poly_general(w, *args)
+    wt, *pt = tpoly.fold_conv_poly_general(w, *args)
+    np.testing.assert_array_equal(wt, wj)
+    assert pt == pj
+
+
+@pytest.mark.parametrize("f,pad", [(2, 3), (4, 3), (4, 1)])
+def test_fold_stem_weights_bit_equal(f, pad):
+    w7 = np.random.default_rng(12).normal(size=(7, 7, 3, 16)).astype(np.float32)
+    wj, *pj = jpoly.fold_stem_weights(w7, f, pad)
+    wt, *pt = tpoly.fold_stem_weights(w7, f, pad)
+    np.testing.assert_array_equal(wt, wj)
+    assert pt == pj
+
+
+@pytest.mark.parametrize("f", [2, 4])
+def test_polyphase_stem_matches_jax_and_direct(f):
+    """PolyphaseStem == tpuseg's PolyphaseStem and == the direct 7x7 conv +
+    bias, f32 (``tests/test_polyphase.py``'s 1e-4), from (n, h, w, 3)
+    frames and from flat rows."""
+    rng = np.random.default_rng(1)
+    w7 = rng.normal(size=(7, 7, 3, 16)).astype(np.float32)
+    bias = rng.normal(size=(16,)).astype(np.float32)
+    x = rng.normal(size=(1, 32, 64, 3)).astype(np.float32)
+    ref = np.asarray(jpoly.PolyphaseStem(w7, bias, f=f, dtype=jnp.float32)(jnp.asarray(x)))
+    w_oihw = torch.from_numpy(np.ascontiguousarray(w7.transpose(3, 2, 0, 1)))
+    stem = tpoly.PolyphaseStem(w_oihw, bias, f=f, dtype=torch.float32)
+    out = stem(torch.from_numpy(x)).numpy()
+    _assert_close(out, ref)
+    direct = torch.nn.functional.conv2d(torch.from_numpy(x).permute(0, 3, 1, 2), w_oihw,
+                                        torch.from_numpy(bias), padding=3)
+    _assert_close(out, direct.permute(0, 2, 3, 1).numpy())
+    flat = torch.from_numpy(x.reshape(1, 32, 64 * 3))
+    np.testing.assert_array_equal(stem(flat).numpy(), out)
+    with pytest.raises(ValueError, match="fold factor"):
+        stem(torch.zeros(1, 31, 64, 3))

@@ -155,8 +155,6 @@ def test_rmbsnn_drn_sparse_exec(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh-devices", "2"], "A21"), (["--num-processes", "2"], "A21"),
-    (["--ckpt-format", "orbax"], "A21"),
     (["--sparse-exec", "--epochs", "1"], "DrnSpec"),
     (["-a", "drn_d_22", "--sparse-exec", "--epochs", "1"], "requires masks")])
 def test_rmbsnn_refusals(argv, match, tmp_path):
@@ -164,6 +162,44 @@ def test_rmbsnn_refusals(argv, match, tmp_path):
 
     with pytest.raises(SystemExit, match=match):
         t.main(["--device", "cpu", "--save-dir", str(tmp_path)] + SYN + argv)
+
+
+@pytest.mark.parametrize("flags,ckpt", [
+    (["--mesh-devices", "2"], "checkpoint.npz"),
+    (["--num-processes", "2"], "checkpoint.npz"),
+    (["--ckpt-format", "orbax"], "checkpoint.orbax")])
+def test_rmbsnn_parallel_flags_run(flags, ckpt, tmp_path):
+    """The flags an earlier slice refused now run: two gloo ranks
+    (``--mesh-devices 2``, or two processes with ``--num-processes 2``
+    and their coordinator) and the directory envelope, one epoch each,
+    with rank 0's result line and the checkpoint.  Fresh interpreters, each
+    with a timeout."""
+    import socket
+
+    argv = ["--device", "cpu", "--save-dir", str(tmp_path), *SYN, "--epochs", "1", *flags]
+    ids = [None]
+    if "--num-processes" in flags:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            argv += ["--coordinator", f"localhost:{sock.getsockname()[1]}"]
+        ids = [0, 1]
+    code = ("import sys; sys.modules['tensorflow'] = None\n"
+            "from tpuseg_torch.cli.rmbsnn import main\nmain(sys.argv[1:])\n")
+    procs = [subprocess.Popen([sys.executable, "-c", code, *argv,
+                               *([] if i is None else ["--process-id", str(i)])],
+                              cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for i in ids]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    line = [json.loads(ln) for ln in outs[0].splitlines() if '"acc1"' in ln][-1]
+    assert line["epoch"] == 0 and np.isfinite(line["acc1"])
+    assert os.path.exists(tmp_path / ckpt)
 
 
 def test_rmbsnn_device_defaults_to_cuda(tmp_path):

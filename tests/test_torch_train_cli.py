@@ -3,7 +3,7 @@ against ``tpuseg``'s on the same arguments: ``train --synthetic 4 -s 64
 --batch-size 2 --epochs 1 --dtype float32`` on the CPU, dense, masked
 (block128reg_87.50, static masks) and with ``--sparse-exec``; the
 ``sparse_exec`` report; checkpoints read and resumed both ways; ``calc``'s
-parameter count; the flags of later slices refused; and, in the fresh
+parameter count; the multi-rank and directory-envelope flags running; and, in the fresh
 interpreter that runs the port, no ``jax``, ``jaxlib``, ``tpuseg`` or
 ``PIL`` module loaded on the ``--synthetic`` path."""
 
@@ -204,14 +204,41 @@ def test_device_defaults_to_cuda():
         main(BASE)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh-devices", "2"], "A21"), (["--num-processes", "2"], "A21"),
-    (["--ckpt-format", "orbax"], "A21")])
-def test_later_slices_flags_refused(flags, item):
-    from tpuseg_torch.cli.semantic_seg import main
+@pytest.mark.parametrize("flags,ckpt", [
+    (["--mesh-devices", "2"], "checkpoint.npz"),
+    (["--num-processes", "2"], "checkpoint.npz"),
+    (["--ckpt-format", "orbax"], "checkpoint.orbax")])
+def test_parallel_flags_run(flags, ckpt, tmp_path):
+    """The flags an earlier slice refused now run: two gloo ranks
+    (``--mesh-devices 2``, or two processes with ``--num-processes 2``
+    and their coordinator) and the directory envelope; each run prints its
+    epoch line and leaves its checkpoint.  Fresh interpreters that cannot
+    import TensorFlow, each with a timeout."""
+    import socket
 
-    with pytest.raises(SystemExit, match=item):
-        main(BASE + ["--device", "cpu"] + flags)
+    argv = BASE + ["--device", "cpu", "--save-dir", str(tmp_path)] + flags
+    ids = [None]
+    if "--num-processes" in flags:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            argv += ["--coordinator", f"localhost:{sock.getsockname()[1]}"]
+        ids = [0, 1]
+    code = ("import sys; sys.modules['tensorflow'] = None\n"
+            "from tpuseg_torch.cli.semantic_seg import main\nmain(sys.argv[1:])\n")
+    procs = [subprocess.Popen([sys.executable, "-c", code, *argv,
+                               *([] if i is None else ["--process-id", str(i)])],
+                              cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for i in ids]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    assert np.isfinite(_epoch(_lines(outs[0]))["val_miou"])
+    assert os.path.exists(tmp_path / ckpt)
 
 
 def test_profile_dir_traces_first_epoch(tmp_path, capsys):

@@ -11,18 +11,23 @@ eligible masked convs through kernel B2 in the forward and the dgrad
 copy through kernel B3 (``build_quant_plans`` for DRN archs,
 ``build_cls_quant_plans`` for the zoo).
 
-One device (``--device``, ``cuda`` by default, raising without a card; the
-CPU only when asked).  Checkpoints are ``tpuseg``'s npz, so either package
-resumes the other's.  It prints ``tpuseg``'s lines.
+``--device`` (``cuda`` by default, raising without a card; the CPU only
+when asked).  Checkpoints are ``tpuseg``'s npz, so either package resumes
+the other's, or the directory envelope (``--ckpt-format orbax``, every rank
+writes).  It prints ``tpuseg``'s lines.
+
+Data-parallel training, one rank a device (``tpuseg_torch.parallel``):
+``--mesh-devices N`` starts the largest divisor of the batch among
+min(N, visible cards) local ranks (N gloo ranks with ``--device cpu``);
+``--num-processes P --coordinator host:port --process-id i`` joins P
+processes.  The step is the one-device step over the global batch, and
+eval gathers every rank's padded shard of the val set and drops the
+padding, so the accuracies cover the full set exactly once.
 
     python -m tpuseg_torch.cli.rmbsnn --dataset synthetic -a cifar_resnet20 \\
         --epochs 1 [--evaluate --quantize] [--device cpu]
     python -m tpuseg_torch.cli.rmbsnn --dataset synthetic -a drn_d_22 --epochs 1 \\
         --mc-pruning --pr-static --pr-config-path cfg.json --sparse-exec
-
-More than one device or process (``--mesh-devices`` > 1,
-``--num-processes`` > 1) and ``--ckpt-format orbax`` are not ported yet
-and raise a ``SystemExit`` naming ROADMAP A21.
 """
 
 from __future__ import annotations
@@ -72,8 +77,8 @@ def parse_args(argv=None):
                         "time and prediction agreement with the float path")
     p.add_argument("--save-dir", default="runs/cls")
     p.add_argument("--ckpt-format", default="npz", choices=["npz", "orbax"],
-                   help="checkpoint envelope: single-file npz; orbax is not ported yet "
-                        "(ROADMAP A21)")
+                   help="checkpoint envelope: single-file npz or the directory envelope "
+                        "(torch.distributed.checkpoint: async save, every rank writes)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dtype", default="float32", choices=["bfloat16", "float32"])
     p.add_argument("--remat", action="store_true",
@@ -81,21 +86,18 @@ def parse_args(argv=None):
                         "(torch.utils.checkpoint): lower peak memory, same arithmetic")
     p.add_argument("--synthetic-n", type=int, default=256)
     p.add_argument("--mesh-devices", type=int, default=0,
-                   help="0 or 1: one device (more is not ported yet, ROADMAP A21)")
-    p.add_argument("--coordinator", default=None)
+                   help="cap the data-parallel ranks at N local devices, one rank a "
+                        "device (0 = all visible cards whose count divides the batch; "
+                        "with --device cpu, N gloo ranks)")
+    # multi-process init (replaces --world-size/--rank/--dist-url,
+    # rmbsnn_main.py:93-101)
+    p.add_argument("--coordinator", default=None,
+                   help="coordinator address host:port for multi-process runs")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card), cuda:N or cpu")
     return p.parse_args(argv)
-
-
-def _refuse_unported(args) -> None:
-    if (args.mesh_devices or 0) > 1 or (args.num_processes or 1) > 1:
-        raise SystemExit("--mesh-devices/--num-processes > 1: multi-device training is not "
-                         "ported yet (ROADMAP A21)")
-    if args.ckpt_format == "orbax":
-        raise SystemExit("--ckpt-format orbax: not ported yet (ROADMAP A21)")
 
 
 def build_model(args, arch, classes):
@@ -134,7 +136,12 @@ def _on(device, tensors) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    _refuse_unported(args)
+    from tpuseg_torch.parallel.mesh import launch
+
+    return launch(_main, args, args.batch_size)
+
+
+def _main(args):
     import torch
 
     from tpuseg_torch.data.classification import SyntheticClassDataset, make_class_datasets
@@ -143,6 +150,8 @@ def main(argv=None):
     from tpuseg_torch.metrics import AverageMeter, top_k_accuracy
     from tpuseg_torch.models.cifar import CifarSpec, cifar_forward
     from tpuseg_torch.models.factory import num_classes_for_dataset
+    from tpuseg_torch.parallel import setup_data_parallel, shard_batch, shard_train_step
+    from tpuseg_torch.parallel.mesh import gather_over_ranks
     from tpuseg_torch.sparsity import create_masker
     from tpuseg_torch.sparsity.base import mask_sparsity_stats
     from tpuseg_torch.train import (
@@ -157,7 +166,18 @@ def main(argv=None):
     )
     from tpuseg_torch.train.optim import step30_schedule
 
-    device = resolve_device(args.device)
+    # the data-parallel mesh (replaces DDP wrap + per-GPU batch division,
+    # rmbsnn_main.py:215-228): one device a rank, the batch global
+    mesh, local_bs = setup_data_parallel(args.batch_size, args.mesh_devices,
+                                         resolve_device(args.device))
+    device = resolve_device(mesh.device)
+    is_main = mesh.is_main
+    ranked = mesh.rank is not None
+    if is_main and ranked:
+        print(json.dumps({
+            "mesh": {"data": mesh.size, "processes": mesh.size, "local_batch": local_bs,
+                     "global_batch": args.batch_size},
+        }))
     compute_dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
     if args.dataset == "synthetic":
         classes = 10
@@ -184,7 +204,8 @@ def main(argv=None):
         masker = create_masker(args.pr_config_path, seed=args.seed)
         masks = masker.generate_masks(params, is_static=args.pr_static, verbose=True)
         for layer, sp in mask_sparsity_stats(masks).items():
-            print(layer, f"sparsity = {sp}")
+            if is_main:
+                print(layer, f"sparsity = {sp}")
         if args.rejig and args.pr_static:
             params = sparsity_aware_reinit(params, masks, np.random.default_rng(args.seed))
 
@@ -200,7 +221,8 @@ def main(argv=None):
             masks = m
         start_epoch = int(meta.get("epoch", 0))
         best_acc1 = float(meta.get("best_acc1", 0.0))
-        print(f"=> resumed '{args.resume}' (epoch {start_epoch})")
+        if is_main:
+            print(f"=> resumed '{args.resume}' (epoch {start_epoch})")
 
     steps_per_epoch = max(1, len(train_ds) // args.batch_size)
     if args.dataset == "imagenet" and args.epochs == 100:
@@ -228,27 +250,44 @@ def main(argv=None):
         from tpuseg_torch.ops.sparse_train import build_sparse_train_structs
 
         structs, sparse_report = build_sparse_train_structs(masks, spec)
-        print(json.dumps({"sparse_exec": sparse_report}))
+        if is_main:
+            print(json.dumps({"sparse_exec": sparse_report}))
         if structs:
             sparse_plans = {k: st.to(device) for k, st in structs.items()}
-        else:
+        elif is_main:
             print("warning: --sparse-exec found no eligible layer; running masked-dense")
-    step_fn = make_cls_train_step(
+    step_fn = shard_train_step(make_cls_train_step(
         spec, tx, compute_dtype=compute_dtype, teacher=teacher,
         kd_student_wt=args.kd_student_wt, kd_distill_wt=args.kd_distill_wt,
         kd_temperature=args.kd_temperature, remat=args.remat, sparse_plans=sparse_plans,
-    )
+    ), mesh)
     fwd = classifier_forward(spec, compute_dtype)
     topk = (1, min(5, classes))
+    n_ranks, rank = (mesh.size, mesh.rank) if ranked else (1, 0)
 
     def collect_logits(forward):
         logits_all, labels_all = [], []
         with torch.inference_mode():
             for images, labels in prefetch_to_device(
-                    batch_iterator(val_ds, args.batch_size), device):
+                    batch_iterator(val_ds, local_bs, num_shards=n_ranks, shard_index=rank),
+                    device):
                 logits_all.append(forward(ts.params, ts.bn_state, images).float().cpu().numpy())
                 labels_all.append(labels.cpu().numpy())
-        return np.concatenate(logits_all), np.concatenate(labels_all)
+        logits, labels = np.concatenate(logits_all), np.concatenate(labels_all)
+        if ranked:
+            # the shards are unequal (rank i holds ceil((n - i) / ranks)
+            # samples): pad each to the longest, gather a valid mask beside
+            # them and drop the padding, so the FULL val set counts once
+            max_n = -(-len(val_ds) // n_ranks)
+            valid = np.zeros(max_n, bool)
+            valid[:len(logits)] = True
+            pad = max_n - len(logits)
+            logits = np.concatenate([logits, np.zeros((pad,) + logits.shape[1:], logits.dtype)])
+            labels = np.concatenate([labels, np.zeros((pad,) + labels.shape[1:], labels.dtype)])
+            mask = np.concatenate(gather_over_ranks(mesh, valid))
+            logits = np.concatenate(gather_over_ranks(mesh, logits))[mask]
+            labels = np.concatenate(gather_over_ranks(mesh, labels))[mask]
+        return logits, labels
 
     def eval_fwd(p, s, x):
         return fwd(p, s, x, train=False)[0]
@@ -290,7 +329,8 @@ def main(argv=None):
                 "pred_agreement": round(float(
                     (q_logits.argmax(-1) == logits.argmax(-1)).mean()), 4),
             })
-        print(json.dumps(out))
+        if is_main:  # one result line, not one per rank
+            print(json.dumps(out))
         return out
 
     os.makedirs(args.save_dir, exist_ok=True)
@@ -299,9 +339,15 @@ def main(argv=None):
         losses = AverageMeter("loss")
         accs = AverageMeter("acc")
         t0 = time.time()
-        for images, labels in prefetch_to_device(
-                batch_iterator(train_ds, args.batch_size, shuffle=True, drop_last=True,
-                               epoch=epoch), device):
+        if args.num_processes and args.num_processes > 1:
+            # one process per host: each feeds its own shard of local batches
+            it = batch_iterator(train_ds, local_bs, shuffle=True, drop_last=True, epoch=epoch,
+                                num_shards=n_ranks, shard_index=rank)
+        else:
+            # local ranks: each its contiguous part of every global batch
+            it = (shard_batch(mesh, b) for b in batch_iterator(
+                train_ds, args.batch_size, shuffle=True, drop_last=True, epoch=epoch))
+        for images, labels in prefetch_to_device(it, device):
             ts, m = step_fn(ts, images, labels)
             losses.update(float(m["loss"]), len(labels))
             accs.update(float(m["acc"]) * 100, len(labels))
@@ -309,17 +355,27 @@ def main(argv=None):
         top1, top5 = top_k_accuracy(logits, labels, topk=topk)
         is_best = top1 > best_acc1
         best_acc1 = max(best_acc1, top1)
-        save_checkpoint(
-            join(args.save_dir, "checkpoint.npz"),
-            ts.params, ts.bn_state, opt_state=ts.opt_state, masks=ts.masks,
-            meta={"epoch": epoch + 1, "arch": args.arch, "best_acc1": best_acc1,
-                  "dataset": args.dataset},
-            is_best=is_best,
-        )
+        # npz: rank 0 writes, like the reference's DDP guard
+        # (rmbsnn_main.py:414-415); the directory envelope: EVERY rank
+        # calls save (its plan and commit are collective)
+        if is_main or args.ckpt_format == "orbax":
+            save_checkpoint(
+                join(args.save_dir, "checkpoint." + args.ckpt_format),
+                ts.params, ts.bn_state, opt_state=ts.opt_state, masks=ts.masks,
+                meta={"epoch": epoch + 1, "arch": args.arch, "best_acc1": best_acc1,
+                      "dataset": args.dataset},
+                is_best=is_best,
+                async_save=args.ckpt_format == "orbax",
+            )
         line = {"epoch": epoch, "train_loss": round(losses.avg, 4),
                 "train_acc": round(accs.avg, 3), "acc1": round(top1, 3),
                 "acc5": round(top5, 3), "seconds": round(time.time() - t0, 2)}
-        print(json.dumps(line))
+        if is_main:
+            print(json.dumps(line))
+    if args.ckpt_format == "orbax":
+        from tpuseg_torch.train.orbax_ckpt import wait_for_saves
+
+        wait_for_saves()  # never exit with an uncommitted async save
     return line
 
 

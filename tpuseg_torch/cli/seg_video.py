@@ -3,7 +3,7 @@
 Runs DRNSeg over a video file (decoded by ``video.pipeline.FrameSource``)
 or a generated video, batch by batch, and prints one JSON line with the
 end-to-end rate (and, with ``--device-fps``, the device rate timed with CUDA
-events).  It takes ``tpuseg``'s flags except ``--mesh-devices``:
+events).  It takes ``tpuseg``'s flags:
 - the weights: random from seed 0 by default, or ``--pretrained`` (an
   npz checkpoint of either package's trainer, e.g. the
   ``<arch>_shapes.npz`` of ``tools/trained_fidelity``, or a reference
@@ -20,7 +20,10 @@ events).  It takes ``tpuseg``'s flags except ``--mesh-devices``:
   ``--ids-pack BITS`` (auto by default, with an ``ids_pack_auto`` event),
   ``--device-outputs``, ``--overlay``, ``--save-dir``;
 - ``--profile-dir DIR``: a ``torch.profiler`` trace of the run
-  (``tpuseg_torch.metrics.profiling.trace``, Chrome JSON).
+  (``tpuseg_torch.metrics.profiling.trace``, Chrome JSON);
+- ``--mesh-devices N``: serve data-parallel over ``cuda:0`` to ``cuda:N-1``
+  (N replicas of the CPU with ``--device cpu``), one replica a device
+  (``VideoSegmenter(mesh=...)``); N must divide ``--batch``.
 
 Usage:
   python -m tpuseg_torch.cli.seg_video --video shapes --size 1024x2048 \\
@@ -180,9 +183,29 @@ def parse_args(argv=None):
     p.add_argument("--device-fps", action="store_true",
                    help="also report the device rate at --size (CUDA events "
                         "over back-to-back dependent batches; CUDA only)")
+    p.add_argument("--mesh-devices", type=int, default=0, metavar="N",
+                   help="serve data-parallel over the first N local devices (one "
+                        "replica a device, the batch split over them; N must divide "
+                        "--batch; 0 = single device).  Not combinable with Pallas-lowered "
+                        "plans (--sparse-lowering pallas) or --temporal-thresh")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default), cuda:N or cpu")
     return p.parse_args(argv)
+
+
+def _build_mesh(n: int, device):
+    """The serving mesh of ``--mesh-devices N``: the first N cards (raises
+    when there are fewer), or N replicas of the CPU."""
+    if not n:
+        return None
+    from tpuseg_torch.parallel import make_mesh
+
+    if device.type == "cuda":
+        have = torch.cuda.device_count()
+        if have < n:
+            raise SystemExit(f"error: asked for {n} devices, have {have}")
+        return make_mesh(data=n, devices=[torch.device("cuda", i) for i in range(n)])
+    return make_mesh(data=n, devices=[device] * n)
 
 
 def _is_generated(video: str) -> bool:
@@ -294,6 +317,9 @@ def main(argv=None) -> tuple[dict, dict]:
                      or args.temporal_budget is not None):
         raise SystemExit("error: --temporal-autotune replaces --temporal/--temporal-thresh/"
                          "--temporal-budget")
+    if autotune and args.mesh_devices:
+        raise SystemExit("error: --temporal-autotune not combinable with --mesh-devices "
+                         "(budgeted mode is single-device)")
     # calibration and the autotune prefix take the first frames, served or
     # not: generate enough for all (frame t of either source does not depend
     # on the count); a file decodes from its start on each pass
@@ -353,6 +379,7 @@ def main(argv=None) -> tuple[dict, dict]:
         temporal_budget=args.temporal_budget,
         temporal_nearest=args.temporal_nearest,
         temporal_warp=args.temporal_warp,
+        mesh=_build_mesh(args.mesh_devices, device),
         **serve_kw,
     )
     if args.quantize:

@@ -14,10 +14,22 @@ parse_args at :675-761, main at :775-1119):
   prediction / colorized dumps
 - calc: parameter + FLOP count (``torch.utils.flop_counter``)
 
-One device (``--device``, ``cuda`` by default; ``cpu`` only when asked),
-a producer thread that prefetches batches to it, npz checkpoints in
-``tpuseg``'s layout (either package resumes the other's), masks
-checkpointed.  It prints ``tpuseg``'s lines.
+``--device`` (``cuda`` by default; ``cpu`` only when asked), a producer
+thread that prefetches batches to it, npz checkpoints in ``tpuseg``'s
+layout (either package resumes the other's) or the directory envelope
+(``--ckpt-format orbax``, written with ``torch.distributed.checkpoint``),
+masks checkpointed.  It prints ``tpuseg``'s lines.
+
+Data-parallel training, one rank a device (``tpuseg_torch.parallel``):
+``--mesh-devices N`` starts the largest divisor of the batch among
+min(N, visible cards) local ranks (N gloo ranks with ``--device cpu``), each
+training on its contiguous part of every global batch;
+``--num-processes P --coordinator host:port --process-id i`` joins P
+processes, each feeding batch ÷ P samples of its own shard
+(``--num-shards``/``--shard-index``).  Either way the step is the
+one-device step over the global batch (global BN statistics, the loss over
+the global count, summed gradients), eval merges the confusion matrices,
+rank 0 writes the npz, and every rank writes the directory envelope.
 
     python -m tpuseg_torch.cli.semantic_seg train --synthetic 64 -s 512 \\
         --batch-size 8 --epochs 1 [--mc-pruning --pr-static \\
@@ -32,10 +44,6 @@ classifier ``.pth`` (a local path, an http(s) URL resolved through the
 cache, or ``auto``: the arch's published URL).  ``--profile-dir DIR``
 writes a ``torch.profiler`` trace of the first trained epoch
 (``tpuseg_torch.metrics.profiling.trace``).
-
-Not ported yet, and refused with a message naming the ROADMAP item: more
-than one device or process (``--mesh-devices``/``--num-processes``/
-``--num-shards`` > 1, A21), ``--ckpt-format orbax`` (A21).
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 from os.path import join
 
@@ -76,8 +85,9 @@ def parse_args(argv=None):
     p.add_argument("--resume", default=None, help="checkpoint to resume from")
     p.add_argument("--save-dir", default="runs/seg")
     p.add_argument("--ckpt-format", default="npz", choices=["npz", "orbax"],
-                   help="checkpoint envelope: single-file npz (atomic tmp+rename); "
-                        "orbax is not ported yet (ROADMAP A21)")
+                   help="checkpoint envelope: single-file npz (atomic tmp+rename) or the "
+                        "directory envelope (torch.distributed.checkpoint: async save, "
+                        "every rank writes)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace (Chrome JSON) of the first trained "
                         "epoch into this directory")
@@ -108,10 +118,16 @@ def parse_args(argv=None):
                    help="recompute each backbone stage in the backward pass "
                         "(torch.utils.checkpoint): lower peak memory, same arithmetic")
     p.add_argument("--mesh-devices", type=int, default=0,
-                   help="0 or 1: one device (more is not ported yet, ROADMAP A21)")
-    p.add_argument("--num-shards", type=int, default=1, help="hosts (1 only)")
+                   help="cap the data-parallel ranks at N local devices, one rank a "
+                        "device (0 = all visible cards whose count divides the batch; "
+                        "1 = single-device; with --device cpu, N gloo ranks; train only: "
+                        "test and calc run on one device)")
+    p.add_argument("--num-shards", type=int, default=1, help="hosts")
     p.add_argument("--shard-index", type=int, default=0)
-    p.add_argument("--coordinator", default=None)
+    # multi-process init (replaces --world-size/--rank/--dist-url/--dist-backend,
+    # semantic_seg.py:728-744)
+    p.add_argument("--coordinator", default=None,
+                   help="coordinator address host:port for multi-process runs")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--synthetic", type=int, default=0,
@@ -120,20 +136,6 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card), cuda:N or cpu")
     return p.parse_args(argv)
-
-
-def _refuse_unported(args) -> None:
-    """The flags of later slices raise a clear SystemExit naming the slice."""
-    refusals = [
-        ((args.mesh_devices or 0) > 1 or (args.num_processes or 1) > 1
-         or args.num_shards > 1,
-         "--mesh-devices/--num-processes/--num-shards > 1: multi-device training is not "
-         "ported yet (ROADMAP A21)"),
-        (args.ckpt_format == "orbax", "--ckpt-format orbax: not ported yet (ROADMAP A21)"),
-    ]
-    for refused, message in refusals:
-        if refused:
-            raise SystemExit(message)
 
 
 class SyntheticSegDataset:
@@ -241,6 +243,8 @@ def cmd_train(args):
     from tpuseg_torch.data.loaders import batch_iterator, prefetch_to_device
     from tpuseg_torch.device import resolve_device
     from tpuseg_torch.metrics import AverageMeter, fast_hist, miou_from_hist
+    from tpuseg_torch.parallel import setup_data_parallel, shard_batch, shard_train_step
+    from tpuseg_torch.parallel.mesh import sum_over_ranks
     from tpuseg_torch.sparsity.base import mask_sparsity_stats
     from tpuseg_torch.train import (
         create_train_state,
@@ -254,11 +258,23 @@ def cmd_train(args):
         sparsity_aware_reinit,
     )
 
-    device = resolve_device(args.device)
+    # the data-parallel mesh of this rank: one device a rank, the batch
+    # global (the reference's DataParallel, semantic_seg.py:809-815, or DDP
+    # with per-GPU batch division, semantic_seg_multigpu.py:460-526)
+    mesh, local_bs = setup_data_parallel(args.batch_size, args.mesh_devices,
+                                         resolve_device(args.device))
+    device = resolve_device(mesh.device)
+    is_main = mesh.is_main
+    ranked = mesh.rank is not None
+    if is_main and ranked:
+        print(json.dumps({
+            "mesh": {"data": mesh.size, "processes": mesh.size, "local_batch": local_bs,
+                     "global_batch": args.batch_size},
+        }))
     compute_dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
     params, state, spec = load_weights(args, args.classes)
     masker, masks = make_masker(args, params)
-    if masks is not None:
+    if masks is not None and is_main:
         print("mask sparsity:", json.dumps(
             {k: round(v, 2) for k, v in mask_sparsity_stats(masks).items()}
         ))
@@ -313,13 +329,15 @@ def cmd_train(args):
         from tpuseg_torch.ops.sparse_train import build_sparse_train_structs
 
         structs, sparse_report = build_sparse_train_structs(masks, spec)
-        print(json.dumps({"sparse_exec": sparse_report}))
+        if is_main:
+            print(json.dumps({"sparse_exec": sparse_report}))
         if structs:
             sparse_plans = {k: st.to(device) for k, st in structs.items()}
-        else:
+        elif is_main:
             print("warning: --sparse-exec found no eligible layer; running masked-dense")
-    step_fn = make_seg_train_step(spec, tx, compute_dtype=compute_dtype, remat=args.remat,
-                                  sparse_plans=sparse_plans)
+    step_fn = shard_train_step(
+        make_seg_train_step(spec, tx, compute_dtype=compute_dtype, remat=args.remat,
+                            sparse_plans=sparse_plans), mesh)
     eval_fn = make_eval_step(spec, "seg", compute_dtype=compute_dtype)
 
     os.makedirs(args.save_dir, exist_ok=True)
@@ -335,17 +353,28 @@ def cmd_train(args):
                  "crop_size": args.crop_size,
                  "pr_config": args.pr_config_path or "",
                  "unstructured": args.unstructured_sparsity},
-    )
+    ) if is_main else None
     best_miou = float(meta_resume.get("best_miou", 0.0))
+    # every rank evaluates its shard of the val set; the confusion
+    # matrices are summed over the ranks
+    val_shards = (mesh.size, mesh.rank) if ranked else (args.num_shards, args.shard_index)
 
     try:
         for epoch in range(start_epoch, args.epochs):
             losses = AverageMeter("loss")
             t_epoch = time.time()
-            it = batch_iterator(train_ds, args.batch_size, shuffle=True, drop_last=True,
-                                epoch=epoch)
+            if args.num_shards > 1:
+                # one process per host: each feeds its own shard of local batches
+                it = batch_iterator(train_ds, local_bs, shuffle=True, drop_last=True,
+                                    epoch=epoch, num_shards=args.num_shards,
+                                    shard_index=args.shard_index)
+            else:
+                # local ranks: each trains on its contiguous part of every
+                # global batch, as a one-process mesh shards it
+                it = (shard_batch(mesh, b) for b in batch_iterator(
+                    train_ds, args.batch_size, shuffle=True, drop_last=True, epoch=epoch))
             # a device trace of the first trained epoch, when asked
-            with trace(args.profile_dir if epoch == start_epoch else None):
+            with trace(args.profile_dir if epoch == start_epoch and is_main else None):
                 for images, labels in prefetch_to_device(it, device):
                     ts, m = step_fn(ts, images, labels)
                     losses.update(float(m["loss"]), len(images))
@@ -360,10 +389,12 @@ def cmd_train(args):
             if (epoch + 1) % args.eval_every == 0:
                 hist = np.zeros((args.classes, args.classes), dtype=np.int64)
                 for images, labels in prefetch_to_device(
-                        batch_iterator(val_ds, args.batch_size), device):
+                        batch_iterator(val_ds, local_bs, num_shards=val_shards[0],
+                                       shard_index=val_shards[1]), device):
                     _, preds = eval_fn(ts.params, ts.bn_state, images, labels)
                     hist += fast_hist(preds.cpu().numpy().flatten(),
                                       labels.cpu().numpy().flatten(), args.classes)
+                hist = sum_over_ranks(mesh, hist)  # one int64 all-reduce
                 miou = miou_from_hist(hist)
                 line["val_miou"] = round(miou, 3)
                 # reference baseline's independent pixel-accuracy report
@@ -376,15 +407,28 @@ def cmd_train(args):
                 is_best = miou > best_miou
                 best_miou = max(best_miou, miou)
             # checkpoint EVERY epoch (the reference saves per-epoch too,
-            # semantic_seg.py:1085-1092); writes are atomic (tmp + rename)
-            save_checkpoint(
-                join(args.save_dir, "checkpoint.npz"),
-                ts.params, ts.bn_state,
-                opt_state=ts.opt_state, masks=ts.masks,
-                meta={"epoch": epoch + 1, "arch": args.arch,
-                      "best_miou": best_miou, "dataset": "cityscapes"},
-                is_best=is_best,
-            )
+            # semantic_seg.py:1085-1092); writes are atomic.  npz: rank 0
+            # writes the file (the replicas are identical); the directory
+            # envelope: EVERY rank calls save (its plan and commit are
+            # collective), asynchronously, so the next epoch trains while
+            # this one commits
+            if is_main or args.ckpt_format == "orbax":
+                save_checkpoint(
+                    join(args.save_dir, "checkpoint." + args.ckpt_format),
+                    ts.params, ts.bn_state,
+                    opt_state=ts.opt_state, masks=ts.masks,
+                    meta={"epoch": epoch + 1, "arch": args.arch,
+                          "best_miou": best_miou, "dataset": "cityscapes"},
+                    is_best=is_best,
+                    async_save=args.ckpt_format == "orbax",
+                )
+            if ranked and os.environ.get("TPUSEG_SAVE_ALL_PROCS"):
+                # the lockstep test's hook: every rank dumps its replica
+                save_checkpoint(
+                    join(args.save_dir, f"replica_proc{mesh.rank}.npz"),
+                    ts.params, ts.bn_state,
+                    meta={"epoch": epoch + 1, "process": mesh.rank},
+                )
             if masks is not None:
                 # per-epoch pruner stats (pruner.print_stats each epoch,
                 # semantic_seg.py:1094-1095) — measured on the live weights
@@ -395,10 +439,16 @@ def cmd_train(args):
                 line["mean_weight_sparsity"] = round(
                     float(np.mean(list(weight_sparsity.values()))), 2
                 )
-            print(json.dumps(line))
-            runlog.log(epoch, line)
+            if is_main:
+                print(json.dumps(line))
+                runlog.log(epoch, line)
     finally:
-        runlog.close()
+        if runlog is not None:
+            runlog.close()
+    if args.ckpt_format == "orbax":
+        from tpuseg_torch.train.orbax_ckpt import wait_for_saves
+
+        wait_for_saves()  # never exit with an uncommitted async save
     return best_miou
 
 
@@ -513,15 +563,28 @@ def cmd_calc(args):
                       "input": f"{size}x{size}"}))
 
 
+def _run(args):
+    if args.cmd == "train":
+        return cmd_train(args)
+    if args.cmd == "test":
+        return cmd_test(args)
+    return cmd_calc(args)
+
+
 def main(argv=None):
     args = parse_args(argv)
-    _refuse_unported(args)
-    if args.cmd == "train":
-        cmd_train(args)
-    elif args.cmd == "test":
-        cmd_test(args)
-    else:
-        cmd_calc(args)
+    from tpuseg_torch.parallel.mesh import launch
+
+    if args.num_processes and args.num_processes > 1:
+        # tpuseg's hosts: each process feeds its own shard
+        args.num_shards, args.shard_index = args.num_processes, args.process_id or 0
+    elif args.cmd != "train" and (args.mesh_devices or 0) > 1:
+        # tpuseg's test and calc build no mesh either: say so, do not run
+        # one rank in silence
+        print(f"note: --mesh-devices applies to train; {args.cmd} runs on one device",
+              file=sys.stderr)
+    return launch(_run, args, args.batch_size, spawn=args.cmd == "train",
+                  requires=" (one process per device, torch.distributed semantics)")
 
 
 if __name__ == "__main__":

@@ -190,13 +190,14 @@ def linear(x, params, name, compute_dtype=None):
     return x @ w.T + b.to(x.dtype)
 
 
-def _bn(x, params, state, name, upd, momentum=BN_MOMENTUM):
+def _bn(x, params, state, name, upd, momentum=BN_MOMENTUM, ranks=None):
     """BatchNorm of an NCHW map or an (N, C) feature vector; ``upd`` (a
-    dict) selects train mode and receives the running-stat updates."""
+    dict) selects train mode and receives the running-stat updates, and
+    ``ranks`` takes the statistics over its ranks."""
     if x.dim() == 2:
         return batch_norm(x[:, :, None, None], params, state, name, updates=upd,
-                          momentum=momentum)[:, :, 0, 0]
-    return batch_norm(x, params, state, name, updates=upd, momentum=momentum)
+                          momentum=momentum, ranks=ranks)[:, :, 0, 0]
+    return batch_norm(x, params, state, name, updates=upd, momentum=momentum, ranks=ranks)
 
 
 def _pconv(plans, params, cname, x, stride, dilation, padding, cd, groups=1):
@@ -291,12 +292,14 @@ def _init_cresnet(spec: CifarSpec, I: _Init):
     I.linear("fc", 64 * exp, spec.num_classes)
 
 
-def _fwd_cresnet(params, state, x, spec, train, cd, upd, plans=None, remat=False):
+def _fwd_cresnet(params, state, x, spec, train, cd, upd, plans=None, remat=False,
+                 ranks=None):
+    bn = partial(_bn, ranks=ranks)
     preact = spec.block.startswith("preact")
     bottleneck = "bottleneck" in spec.block
     x = _pconv(plans, params, "conv1", x, 1, 1, 1, cd)
     if not preact:
-        x = F.relu(_bn(x, params, state, "bn1", upd))
+        x = F.relu(bn(x, params, state, "bn1", upd))
 
     def group_fn(params, state, x, gupd, g, stride):
         for b in range(spec.layers[g - 1]):
@@ -304,40 +307,40 @@ def _fwd_cresnet(params, state, x, spec, train, cd, upd, plans=None, remat=False
             s = stride if b == 0 else 1
             has_ds = f"{name}.downsample.0.weight" in params
             if preact:
-                out = F.relu(_bn(x, params, state, f"{name}.bn1", gupd))
+                out = F.relu(bn(x, params, state, f"{name}.bn1", gupd))
                 residual = x
                 if has_ds:
                     residual = _pconv(plans, params, f"{name}.downsample.0", out, s, 1, 0, cd)
-                    residual = _bn(residual, params, state, f"{name}.downsample.1", gupd)
+                    residual = bn(residual, params, state, f"{name}.downsample.1", gupd)
                 if bottleneck:
                     # the 1x1 conv1 is stride 1; the 3x3 conv2 carries the stride
                     out = _pconv(plans, params, f"{name}.conv1", out, 1, 1, 0, cd)
-                    out = F.relu(_bn(out, params, state, f"{name}.bn2", gupd))
+                    out = F.relu(bn(out, params, state, f"{name}.bn2", gupd))
                     out = _pconv(plans, params, f"{name}.conv2", out, s, 1, 1, cd)
-                    out = F.relu(_bn(out, params, state, f"{name}.bn3", gupd))
+                    out = F.relu(bn(out, params, state, f"{name}.bn3", gupd))
                     out = _pconv(plans, params, f"{name}.conv3", out, 1, 1, 0, cd)
                 else:
                     out = _pconv(plans, params, f"{name}.conv1", out, s, 1, 1, cd)
-                    out = F.relu(_bn(out, params, state, f"{name}.bn2", gupd))
+                    out = F.relu(bn(out, params, state, f"{name}.bn2", gupd))
                     out = _pconv(plans, params, f"{name}.conv2", out, 1, 1, 1, cd)
                 x = out + residual
             else:
                 residual = x
                 if bottleneck:
                     out = _pconv(plans, params, f"{name}.conv1", x, 1, 1, 0, cd)
-                    out = F.relu(_bn(out, params, state, f"{name}.bn1", gupd))
+                    out = F.relu(bn(out, params, state, f"{name}.bn1", gupd))
                     out = _pconv(plans, params, f"{name}.conv2", out, s, 1, 1, cd)
-                    out = F.relu(_bn(out, params, state, f"{name}.bn2", gupd))
+                    out = F.relu(bn(out, params, state, f"{name}.bn2", gupd))
                     out = _pconv(plans, params, f"{name}.conv3", out, 1, 1, 0, cd)
-                    out = _bn(out, params, state, f"{name}.bn3", gupd)
+                    out = bn(out, params, state, f"{name}.bn3", gupd)
                 else:
                     out = _pconv(plans, params, f"{name}.conv1", x, s, 1, 1, cd)
-                    out = F.relu(_bn(out, params, state, f"{name}.bn1", gupd))
+                    out = F.relu(bn(out, params, state, f"{name}.bn1", gupd))
                     out = _pconv(plans, params, f"{name}.conv2", out, 1, 1, 1, cd)
-                    out = _bn(out, params, state, f"{name}.bn2", gupd)
+                    out = bn(out, params, state, f"{name}.bn2", gupd)
                 if has_ds:
                     residual = _pconv(plans, params, f"{name}.downsample.0", x, s, 1, 0, cd)
-                    residual = _bn(residual, params, state, f"{name}.downsample.1", gupd)
+                    residual = bn(residual, params, state, f"{name}.downsample.1", gupd)
                 x = F.relu(out + residual)
         return x
 
@@ -345,7 +348,7 @@ def _fwd_cresnet(params, state, x, spec, train, cd, upd, plans=None, remat=False
         x = _group(upd, train, remat, partial(group_fn, g=g, stride=1 if g == 1 else 2),
                    params, state, x)
     if preact:
-        x = F.relu(_bn(x, params, state, "bn", upd))
+        x = F.relu(bn(x, params, state, "bn", upd))
     # AvgPool2d(8) then flatten: CIFAR's 32x32 input ends at 8x8, a global mean
     return linear(x.mean(dim=(2, 3)), params, "fc", cd)
 
@@ -385,9 +388,11 @@ def _init_tvresnet(spec: CifarSpec, I: _Init):
     I.linear("fc", 512 * exp, spec.num_classes)
 
 
-def _fwd_tvresnet(params, state, x, spec, train, cd, upd, plans=None, remat=False):
+def _fwd_tvresnet(params, state, x, spec, train, cd, upd, plans=None, remat=False,
+                  ranks=None):
+    bn = partial(_bn, ranks=ranks)
     x = _pconv(plans, params, "conv1", x, 1, 1, 1, cd)
-    x = F.relu(_bn(x, params, state, "bn1", upd))
+    x = F.relu(bn(x, params, state, "bn1", upd))
 
     def group_fn(params, state, x, gupd, g, stride):
         for b in range(spec.layers[g - 1]):
@@ -396,20 +401,20 @@ def _fwd_tvresnet(params, state, x, spec, train, cd, upd, plans=None, remat=Fals
             residual = x
             if spec.block == "bottleneck":
                 out = _pconv(plans, params, f"{name}.conv1", x, 1, 1, 0, cd)
-                out = F.relu(_bn(out, params, state, f"{name}.bn1", gupd))
+                out = F.relu(bn(out, params, state, f"{name}.bn1", gupd))
                 out = _pconv(plans, params, f"{name}.conv2", out, s, 1, 1, cd,
                              groups=spec.groups)
-                out = F.relu(_bn(out, params, state, f"{name}.bn2", gupd))
+                out = F.relu(bn(out, params, state, f"{name}.bn2", gupd))
                 out = _pconv(plans, params, f"{name}.conv3", out, 1, 1, 0, cd)
-                out = _bn(out, params, state, f"{name}.bn3", gupd)
+                out = bn(out, params, state, f"{name}.bn3", gupd)
             else:
                 out = _pconv(plans, params, f"{name}.conv1", x, s, 1, 1, cd)
-                out = F.relu(_bn(out, params, state, f"{name}.bn1", gupd))
+                out = F.relu(bn(out, params, state, f"{name}.bn1", gupd))
                 out = _pconv(plans, params, f"{name}.conv2", out, 1, 1, 1, cd)
-                out = _bn(out, params, state, f"{name}.bn2", gupd)
+                out = bn(out, params, state, f"{name}.bn2", gupd)
             if f"{name}.downsample.0.weight" in params:
                 residual = _pconv(plans, params, f"{name}.downsample.0", x, s, 1, 0, cd)
-                residual = _bn(residual, params, state, f"{name}.downsample.1", gupd)
+                residual = bn(residual, params, state, f"{name}.downsample.1", gupd)
             x = F.relu(out + residual)
         return x
 
@@ -474,7 +479,9 @@ def _init_vgg(spec: CifarSpec, I: _Init):
         I.linear("classifier.3", f, spec.num_classes)
 
 
-def _fwd_vgg(params, state, x, spec, train, cd, upd, plans=None, remat=False):
+def _fwd_vgg(params, state, x, spec, train, cd, upd, plans=None, remat=False,
+             ranks=None):
+    bn = partial(_bn, ranks=ranks)
     # remat groups: the segments between maxpools (each pool halves the
     # live activation)
     segments: list[list] = [[]]
@@ -489,7 +496,7 @@ def _fwd_vgg(params, state, x, spec, train, cd, upd, plans=None, remat=False):
             if kind == "conv":
                 x = _add_bias(_pconv(plans, params, name, x, 1, 1, 1, cd), params, name)
             elif kind == "bn":
-                x = _bn(x, params, state, name, gupd)
+                x = bn(x, params, state, name, gupd)
             elif kind == "relu":
                 x = F.relu(x)
             elif kind == "pool":
@@ -498,7 +505,7 @@ def _fwd_vgg(params, state, x, spec, train, cd, upd, plans=None, remat=False):
                 identity = x
                 out = _pconv(plans, params, f"{name}.conv1", x, 1, 1, 1, cd)
                 out = _add_bias(out, params, f"{name}.conv1")
-                out = _bn(out, params, state, f"{name}.bn1", gupd)
+                out = bn(out, params, state, f"{name}.bn1", gupd)
                 if spec.rvgg_res and cin == cout:
                     out = out + identity
                 x = F.relu(out)
@@ -513,7 +520,7 @@ def _fwd_vgg(params, state, x, spec, train, cd, upd, plans=None, remat=False):
         x = F.relu(linear(x, params, "classifier.3", cd))
         return linear(x, params, "classifier.6", cd)
     x = linear(x, params, "classifier.0", cd)
-    x = F.relu(_bn(x, params, state, "classifier.1", upd))
+    x = F.relu(bn(x, params, state, "classifier.1", upd))
     return linear(x, params, "classifier.3", cd)
 
 
@@ -544,7 +551,9 @@ def _init_wrn(spec: CifarSpec, I: _Init):
     I.linear("linear", stages[3], spec.num_classes)
 
 
-def _fwd_wrn(params, state, x, spec, train, cd, upd, plans=None, remat=False):
+def _fwd_wrn(params, state, x, spec, train, cd, upd, plans=None, remat=False,
+             ranks=None):
+    bn = partial(_bn, ranks=ranks)
     x = _add_bias(conv2d(x, params["conv1.weight"], 1, 1, 1, cd), params, "conv1")
 
     def group_fn(params, state, x, gupd, g, stride):
@@ -554,10 +563,10 @@ def _fwd_wrn(params, state, x, spec, train, cd, upd, plans=None, remat=False):
             # wide_basic: conv1 on relu(bn1(x)) at stride 1, conv2 at stride
             # s; block BNs use the torch default momentum (0.1), only the
             # top-level bn1 0.9
-            out = F.relu(_bn(x, params, state, f"{name}.bn1", gupd))
+            out = F.relu(bn(x, params, state, f"{name}.bn1", gupd))
             out = _add_bias(_pconv(plans, params, f"{name}.conv1", out, 1, 1, 1, cd), params,
                             f"{name}.conv1")
-            out = F.relu(_bn(out, params, state, f"{name}.bn2", gupd))
+            out = F.relu(bn(out, params, state, f"{name}.bn2", gupd))
             out = _add_bias(_pconv(plans, params, f"{name}.conv2", out, s, 1, 1, cd), params,
                             f"{name}.conv2")
             if f"{name}.shortcut.0.weight" in params:
@@ -571,7 +580,7 @@ def _fwd_wrn(params, state, x, spec, train, cd, upd, plans=None, remat=False):
     for g in (1, 2, 3):
         x = _group(upd, train, remat, partial(group_fn, g=g, stride=1 if g == 1 else 2),
                    params, state, x)
-    x = F.relu(_bn(x, params, state, "bn1", upd, momentum=0.9))
+    x = F.relu(bn(x, params, state, "bn1", upd, momentum=0.9))
     return linear(x.mean(dim=(2, 3)), params, "linear", cd)
 
 
@@ -604,6 +613,7 @@ def cifar_forward(
     compute_dtype: torch.dtype | None = None,
     plans: dict | None = None,
     remat: bool = False,
+    ranks=None,
 ) -> tuple[torch.Tensor, State]:
     """NHWC ``x`` -> ``(logits, bn_updates)``; ``bn_updates`` is empty in
     eval and holds every BN's new running statistics with ``train=True``.
@@ -612,12 +622,16 @@ def cifar_forward(
     (``tpuseg_torch.ops.quant.build_cls_quant_plans``) at stride-1,
     ungrouped call sites.  ``remat=True`` recomputes each stage group
     (resnet layer1/2/3[/4], a VGG pool-to-pool segment) in the backward
-    pass (``torch.utils.checkpoint``, not reentrant)."""
+    pass (``torch.utils.checkpoint``, not reentrant).  ``ranks``
+    (``tpuseg_torch.parallel.mesh.Ranks``): train-mode BatchNorm takes the
+    statistics of the global batch whose part ``x`` is."""
+    if ranks is not None and ranks.halo is not None:
+        raise ValueError("CIFAR-zoo forwards do not shard H")
     upd: State | None = {} if train else None
     if compute_dtype is not None:
         x = x.to(compute_dtype)
     logits = _FWD[spec.family](params, state, nhwc_to_nchw(x), spec, train, compute_dtype,
-                               upd, plans, remat)
+                               upd, plans, remat, ranks)
     return logits, upd or {}
 
 

@@ -473,7 +473,7 @@ def conv2d(
 
 def batch_norm(
     x: torch.Tensor, params: Params, state: State, name: str, eps: float = BN_EPS,
-    updates: State | None = None, momentum: float = BN_MOMENTUM,
+    updates: State | None = None, momentum: float = BN_MOMENTUM, ranks=None,
 ) -> torch.Tensor:
     """BatchNorm over the channel axis of an NCHW tensor, in f32 with the
     result cast back to ``x.dtype`` (``tpuseg`` drn.py:474-506).
@@ -482,13 +482,30 @@ def batch_norm(
     dict): the f32 batch mean and biased variance normalize, and the running
     statistics' new values (the unbiased variance folded in at
     ``momentum``) go into ``updates``; nothing is written in place, so a
-    stage recomputed under ``remat`` applies the momentum once."""
+    stage recomputed under ``remat`` applies the momentum once.
+
+    ``ranks`` (``tpuseg_torch.parallel.mesh.Ranks``, train mode): the batch
+    is this rank's equal part of a global one, and the statistics are the
+    global batch's: each rank's mean and M2 (sum of squared deviations) are
+    gathered with their gradient path and combined by Chan's method in rank
+    order (bit-equal on every rank), and the unbiased correction uses the
+    global count."""
     shape = (1, -1, 1, 1)
     if updates is None:
         mean, var = state[f"{name}.running_mean"], state[f"{name}.running_var"]
-    else:
+        n = 0
+    elif ranks is None:
         var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
         n = x.numel() // x.shape[1]
+    else:
+        var_r, mean_r = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+        n_r = x.numel() // x.shape[1]
+        stats = ranks.gather(torch.stack([mean_r, var_r]))  # (R, 2, C)
+        means, m2s = stats[:, 0], stats[:, 1] * n_r
+        mean = means.mean(dim=0)
+        n = n_r * ranks.size
+        var = (m2s.sum(dim=0) + n_r * ((means - mean) ** 2).sum(dim=0)) / n
+    if updates is not None:
         unbiased = var.detach() * (n / max(n - 1, 1))
         updates[f"{name}.running_mean"] = (
             (1 - momentum) * state[f"{name}.running_mean"] + momentum * mean.detach())
@@ -566,7 +583,7 @@ def _is_train_plan(plan) -> bool:
 
 
 def _conv_maybe_bn(x, params, state, cdef: ConvDef, bdef: BNDef | None, compute_dtype,
-                   sparse_plans=None, updates=None):
+                   sparse_plans=None, updates=None, ranks=None):
     """conv -> (folded bias | batch norm).  BN-folded weights
     (``tpuseg_torch.ops.fold_bn``) carry a conv bias and no BN params.
 
@@ -582,26 +599,49 @@ def _conv_maybe_bn(x, params, state, cdef: ConvDef, bdef: BNDef | None, compute_
     A ``SparseTrainPlan`` (``SparseTrainStruct.to(device)``) runs the
     trainable block-sparse conv on the live weight (``tpuseg``
     drn.py:518-526): packed each call, with the kernel in the forward and
-    the dgrad.  ``updates`` (a dict) selects train-mode BatchNorm."""
+    the dgrad.  ``updates`` (a dict) selects train-mode BatchNorm.
+
+    ``ranks`` (``tpuseg_torch.parallel.mesh.Ranks``): BatchNorm takes the
+    global batch's statistics, and with a ``halo`` the rank holds a strip
+    of rows: a dense conv runs on the strip and its halo rows
+    (``Halo.conv2d``), a plan (stride-1 "same") on the strip widened by
+    ``dilation * (k - 1) / 2`` rows each side and cropped back."""
     plan = sparse_plans.get(cdef.name) if sparse_plans else None
     bias = params.get(f"{cdef.name}.bias")
+    halo = ranks.halo if ranks is not None else None
+
+    def planned(fn, x):
+        if halo is None:
+            return fn(x)
+        return halo.same(x, cdef.dilation * (cdef.kernel - 1) // 2, fn)
+
     if plan is not None and _is_train_plan(plan):
         from tpuseg_torch.ops.sparse_train import sparse_conv_train
 
         out_dtype = x.dtype if compute_dtype is None else compute_dtype
-        y = sparse_conv_train(nchw_to_nhwc(x), params[f"{cdef.name}.weight"], plan,
-                              compute_dtype=out_dtype if compute_dtype else torch.float32)
-        x = nhwc_to_nchw(y).to(out_dtype)
+        w = params[f"{cdef.name}.weight"]
+        x = planned(lambda x: nhwc_to_nchw(sparse_conv_train(
+            nchw_to_nhwc(x), w, plan,
+            compute_dtype=out_dtype if compute_dtype else torch.float32)), x).to(out_dtype)
         if bias is not None:
             x = x + bias.to(x.dtype).view(1, -1, 1, 1)
     elif plan is not None:
         out_dtype = x.dtype if compute_dtype is None else compute_dtype
-        y = _sparse_conv_bias_bf16(x, plan, bias) if out_dtype == torch.bfloat16 else None
+        # the one-launch bf16+bias route equals the two passes bit for bit;
+        # a strip takes the two passes
+        y = (_sparse_conv_bias_bf16(x, plan, bias)
+             if out_dtype == torch.bfloat16 and halo is None else None)
         if y is None:
-            y = _sparse_conv(x, plan, cdef).to(out_dtype)
+            y = planned(lambda x: _sparse_conv(x, plan, cdef), x).to(out_dtype)
             if bias is not None:
                 y = y + bias.to(y.dtype).view(1, -1, 1, 1)
         x = y
+    elif halo is not None:
+        w = params[f"{cdef.name}.weight"]
+        if compute_dtype is not None:
+            x, w = x.to(compute_dtype), w.to(compute_dtype)
+        x = halo.conv2d(x, w, None if bias is None else bias.to(x.dtype), cdef.stride,
+                        cdef.padding, cdef.dilation)
     else:
         x = conv2d(
             x,
@@ -613,24 +653,24 @@ def _conv_maybe_bn(x, params, state, cdef: ConvDef, bdef: BNDef | None, compute_
             bias=bias,
         )
     if bdef is not None and f"{bdef.name}.weight" in params:
-        x = batch_norm(x, params, state, bdef.name, updates=updates)
+        x = batch_norm(x, params, state, bdef.name, updates=updates, ranks=ranks)
     return x
 
 
 def _run_block(x, params, state, block: BlockDef, compute_dtype, sparse_plans=None,
-               updates=None):
+               updates=None, ranks=None):
     residual = x
     out = x
     n = len(block.convs)
     for i, (cdef, bdef) in enumerate(zip(block.convs, block.bns)):
         out = _conv_maybe_bn(out, params, state, cdef, bdef, compute_dtype, sparse_plans,
-                             updates)
+                             updates, ranks)
         if i < n - 1:
             out = F.relu_(out)
     if block.downsample is not None:
         cdef, bdef = block.downsample
         residual = _conv_maybe_bn(residual, params, state, cdef, bdef, compute_dtype,
-                                  sparse_plans, updates)
+                                  sparse_plans, updates, ranks)
     # Bottleneck always adds the residual (drn.py:103); BasicBlock honors the
     # flag (drn.py:61-62) even when a downsample path exists.
     if block.kind == "bottleneck" or block.residual:
@@ -639,26 +679,27 @@ def _run_block(x, params, state, block: BlockDef, compute_dtype, sparse_plans=No
 
 
 def _run_stage(x, params, state, stage: StageDef, compute_dtype, sparse_plans=None,
-               updates=None):
+               updates=None, ranks=None):
     """One backbone stage; ``updates`` (a dict) selects train-mode BatchNorm
     and receives the stage's running-stat updates."""
     if stage.kind == "convs":
         for cdef, bdef in stage.convs:
             x = F.relu_(_conv_maybe_bn(x, params, state, cdef, bdef, compute_dtype,
-                                       sparse_plans, updates))
+                                       sparse_plans, updates, ranks))
     else:
         for block in stage.blocks:
-            x = _run_block(x, params, state, block, compute_dtype, sparse_plans, updates)
+            x = _run_block(x, params, state, block, compute_dtype, sparse_plans, updates,
+                           ranks)
     return x
 
 
 def _stage_and_updates(x, params, state, stage: StageDef, compute_dtype, sparse_plans,
-                       train: bool):
+                       train: bool, ranks=None):
     """``x -> (x, bn_updates)`` of one stage (no updates in eval):
     functional, so that under ``remat`` the checkpoint's recompute returns
     its updates instead of writing them a second time."""
     updates: State | None = {} if train else None
-    x = _run_stage(x, params, state, stage, compute_dtype, sparse_plans, updates)
+    x = _run_stage(x, params, state, stage, compute_dtype, sparse_plans, updates, ranks)
     return x, updates or {}
 
 
@@ -686,6 +727,7 @@ def drn_forward(
     sparse_plans: dict | None = None,
     train: bool = False,
     remat: bool = False,
+    ranks=None,
 ) -> tuple[torch.Tensor, State]:
     """Run the DRN backbone: NHWC ``x`` -> ``(NHWC feature map,
     bn_updates)``, as ``tpuseg``'s ``drn_forward`` without its middle taps.
@@ -713,7 +755,17 @@ def drn_forward(
     ``fc``; DRN-C/D end in an average pool of that window at its own stride
     and the 1x1-conv ``fc``.  The window is clamped to the map, so an input
     smaller than the designed 224 still gives logits.
+
+    ``ranks`` (``tpuseg_torch.parallel.mesh.Ranks``): ``x`` is this rank's
+    part of a global batch; train-mode BatchNorm takes the global
+    statistics, and with a ``halo`` ``x`` is a strip of image rows whose
+    convolutions exchange halos (DRNSeg backbones only: no stem frontend,
+    no classifier head).
     """
+    if ranks is not None and ranks.halo is not None and (
+            spec.fc_name is not None or stem_fn is not None or spec.stem_maxpool):
+        raise ValueError("a spatially sharded forward runs DRNSeg backbones without a "
+                         "stem frontend")
     updates: State = {}
     if compute_dtype is not None and stem_fn is None:
         # a stem_fn owns its own input handling (the polyphase frontend
@@ -732,11 +784,11 @@ def drn_forward(
             from torch.utils.checkpoint import checkpoint
 
             x, stage_updates = checkpoint(_stage_and_updates, x, params, state, stage,
-                                          compute_dtype, sparse_plans, train,
+                                          compute_dtype, sparse_plans, train, ranks,
                                           use_reentrant=False)
         else:
             x, stage_updates = _stage_and_updates(x, params, state, stage, compute_dtype,
-                                                  sparse_plans, train)
+                                                  sparse_plans, train, ranks)
         updates.update(stage_updates)
         if stage_name == "stem" and spec.stem_maxpool:
             x = F.max_pool2d(x, 3, 2, 1)

@@ -74,12 +74,16 @@ def init_drnseg(key, arch: str, classes: int) -> tuple[Params, State, DrnSpec]:
     return params, state, spec
 
 
-def upsample8(x: torch.Tensor, up_kernel: torch.Tensor) -> torch.Tensor:
+def upsample8(x: torch.Tensor, up_kernel: torch.Tensor, halo=None) -> torch.Tensor:
     """Depthwise transposed conv, stride 8, kernel 16, pad 4, on NHWC ``x``:
-    (N, h, w, C) -> (N, 8h, 8w, C) in ``x``'s dtype."""
+    (N, h, w, C) -> (N, 8h, 8w, C) in ``x``'s dtype.  With a ``halo``
+    (``tpuseg_torch.parallel.halo.Halo``) ``x`` is a strip of rows and the
+    result the strip of the upsampled image (``Halo.upsample8``)."""
     c = x.shape[-1]
     k = up_kernel.to(device=x.device, dtype=x.dtype)
     w = k.reshape(1, 1, *k.shape[-2:]).expand(c, 1, -1, -1)
+    if halo is not None:
+        return nchw_to_nhwc(halo.upsample8(nhwc_to_nchw(x), w))
     y = F.conv_transpose2d(
         nhwc_to_nchw(x), w, stride=UP_STRIDE, padding=UP_PAD, groups=c
     )
@@ -87,10 +91,11 @@ def upsample8(x: torch.Tensor, up_kernel: torch.Tensor) -> torch.Tensor:
 
 
 def _logits_and_updates(params, state, x, spec, *, compute_dtype, stem_fn, stem_stages,
-                        sparse_plans, train, remat) -> tuple[torch.Tensor, State]:
+                        sparse_plans, train, remat, ranks=None) -> tuple[torch.Tensor, State]:
     feats, updates = drn_forward(
         params, state, x, spec, compute_dtype=compute_dtype, stem_fn=stem_fn,
         stem_stages=stem_stages, sparse_plans=sparse_plans, train=train, remat=remat,
+        ranks=ranks,
     )
     seg = conv2d(
         nhwc_to_nchw(feats), params["seg.weight"], compute_dtype=compute_dtype,
@@ -130,6 +135,7 @@ def drnseg_forward(
     stem_stages: int = 1,
     sparse_plans: dict | None = None,
     remat: bool = False,
+    ranks=None,
 ) -> tuple[torch.Tensor, torch.Tensor, State]:
     """Full DRNSeg forward (``tpuseg``'s ``drnseg_forward``).
 
@@ -137,10 +143,13 @@ def drnseg_forward(
     f32 log-softmax of the x8-upsampled logits (NHWC; the transposed conv
     runs in the compute dtype), as in the reference forward
     (semantic_seg.py:154-158); with ``upsample=False`` it is the log-softmax
-    at feature resolution.  ``train``, ``remat`` and ``sparse_plans``: see
-    ``drn_forward``; ``bn_updates`` is empty in eval."""
+    at feature resolution.  ``train``, ``remat``, ``sparse_plans`` and
+    ``ranks`` (a rank's part of a global batch, or a strip of its rows):
+    see ``drn_forward``; ``bn_updates`` is empty in eval."""
     seg, updates = _logits_and_updates(
         params, state, x, spec, compute_dtype=compute_dtype, stem_fn=stem_fn,
-        stem_stages=stem_stages, sparse_plans=sparse_plans, train=train, remat=remat)
-    y = upsample8(seg, params["up.weight"]) if upsample else seg
+        stem_stages=stem_stages, sparse_plans=sparse_plans, train=train, remat=remat,
+        ranks=ranks)
+    halo = ranks.halo if ranks is not None else None
+    y = upsample8(seg, params["up.weight"], halo) if upsample else seg
     return torch.log_softmax(y.float(), dim=-1), seg, updates

@@ -21,10 +21,16 @@ per-frame ones, and the epilogue ``relu(float(acc) * (xs * ws) + bias)``
 cast to the compute dtype.  Each conv is kernel B3 on its stem packing
 (``tpuseg_torch.ops.quant.stem_packing``) through
 ``fused_sparse_conv_q_bias_relu``.  Stage 3 stays float, as in ``tpuseg``.
+
+``tpuseg``'s other folds are here too, in numpy as there (bit-equal):
+``fold_conv_poly_general`` (a folded-grid stride), ``fold_stem_weights``
+and ``PolyphaseStem`` (the stem conv alone), and ``refold`` (phase factors
+moved from channels to space).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -75,6 +81,86 @@ def fold_conv_poly(
     return wp, -lo, hi
 
 
+def fold_conv_poly_general(
+    w: np.ndarray, stride: int, pad: int, f_in: int, f_out: int
+) -> tuple[np.ndarray, int, int, int]:
+    """Polyphase fold with a FOLDED-GRID STRIDE: valid whenever
+    ``stride * f_out % f_in == 0`` (``fold_conv_poly`` is the special case
+    stride*f_out == f_in, folded stride 1).
+
+    A (K, K, C, O) conv with ``stride``/``pad`` whose input lives on an
+    ``f_in`` grid and whose output lives on an ``f_out`` grid becomes a
+    stride-``sf`` conv with ``sf = stride*f_out//f_in``:
+
+        out full index = stride*(f_out*I + a) + p - pad = f_in*M + dy
+        =>  M = sf*I + (stride*a + p - pad - dy) / f_in   (when integral)
+
+    Returns (w_poly (KH, KW, f_in^2*C, f_out^2*O), sf, pad_lo, pad_hi).
+    """
+    K = w.shape[0]
+    C, O = w.shape[2], w.shape[3]
+    assert (stride * f_out) % f_in == 0, (stride, f_out, f_in)
+    sf = stride * f_out // f_in
+    offs = [
+        (stride * a + p - pad - dy)
+        for a in range(f_out)
+        for p in range(K)
+        for dy in range(f_in)
+        if (stride * a + p - pad - dy) % f_in == 0
+    ]
+    lo = min(offs) // f_in
+    hi = max(offs) // f_in
+    KH = hi - lo + 1
+    wp = np.zeros((KH, KH, f_in * f_in * C, f_out * f_out * O), np.float32)
+    for a in range(f_out):
+        for b in range(f_out):
+            for p in range(K):
+                for q in range(K):
+                    ia = stride * a + p - pad
+                    ib = stride * b + q - pad
+                    for dy in range(f_in):
+                        if (ia - dy) % f_in:
+                            continue
+                        for dx in range(f_in):
+                            if (ib - dx) % f_in:
+                                continue
+                            m = (ia - dy) // f_in
+                            n = (ib - dx) // f_in
+                            ci = (dy * f_in + dx) * C
+                            co = (a * f_out + b) * O
+                            wp[m - lo, n - lo, ci : ci + C, co : co + O] = w[p, q]
+    return wp, sf, -lo, hi
+
+
+def fold_stem_weights(w7: np.ndarray, f: int = 4, pad: int = 3):
+    """Rearrange a (K, K, C, O) stride-1 conv kernel into the polyphase
+    kernel (KH, KW, f*f*C, f*f*O) plus the conv padding to use.
+
+    Returns (w_poly, pad_lo, pad_hi).
+    """
+    K = w7.shape[0]
+    C, O = w7.shape[2], w7.shape[3]
+    # the taps m for which p = f*m + dy + pad - a lands in [0, K) for some
+    # dy, a in [0, f)
+    m_lo = (0 - (f - 1) - pad) // f
+    m_hi = (K - 1 - pad + (f - 1)) // f
+    KH = m_hi - m_lo + 1
+    w = np.zeros((KH, KH, f * f * C, f * f * O), dtype=np.float32)
+    for a in range(f):
+        for b in range(f):
+            for m in range(m_lo, m_hi + 1):
+                for n in range(m_lo, m_hi + 1):
+                    for dy in range(f):
+                        for dx in range(f):
+                            p = f * m + dy + pad - a
+                            q = f * n + dx + pad - b
+                            if 0 <= p < K and 0 <= q < K:
+                                ci = (dy * f + dx) * C
+                                co = (a * f + b) * O
+                                w[m - m_lo, n - m_lo, ci : ci + C, co : co + O] = w7[p, q]
+    return w, -m_lo, m_hi
+
+
 def _hwio(w: torch.Tensor) -> np.ndarray:
     """Port OIHW weight -> ``tpuseg``'s HWIO float32 numpy layout."""
     return w.detach().float().cpu().numpy().transpose(2, 3, 1, 0)
@@ -115,6 +201,21 @@ def fold_input(x: torch.Tensor, f: int, c: int = 3) -> torch.Tensor:
     return space_to_depth(x, f)
 
 
+def refold(x: torch.Tensor, f_from: int, f_to: int) -> torch.Tensor:
+    """Move phase factors from channels to space: (n, h, w, f_from^2*c) on
+    an f_from grid -> (n, h*r, w*r, f_to^2*c) on an f_to grid, r = f_from //
+    f_to, channel order (dy, dx, c) kept on both sides:
+    out[r*i+u, r*j+v, (dy', dx', c)] = x[i, j, (f_to*u+dy', f_to*v+dx', c)]."""
+    n, h, w, ch = x.shape
+    r = f_from // f_to
+    if f_to * r != f_from:
+        raise ValueError(f"f_to {f_to} does not divide f_from {f_from}")
+    c = ch // (f_from * f_from)
+    x = x.reshape(n, h, w, r, f_to, r, f_to, c)
+    x = x.permute(0, 1, 3, 2, 5, 4, 6, 7)
+    return x.reshape(n, h * r, w * r, f_to * f_to * c)
+
+
 def depth_to_space(x: torch.Tensor, f: int) -> torch.Tensor:
     """(n, h, w, f*f*o) -> (n, h*f, w*f, o), channel order (dy, dx, o)."""
     n, h, w, c = x.shape
@@ -130,6 +231,35 @@ def _conv(x, w, b, pad_lo: int, pad_hi: int) -> torch.Tensor:
         return F.conv2d(x, w, b, padding=pad_lo)
     x = F.pad(x, (pad_lo, pad_hi, pad_lo, pad_hi))
     return F.conv2d(x.contiguous(memory_format=torch.channels_last), w, b)
+
+
+class PolyphaseStem:
+    """Precomputed polyphase replacement for a stride-1 KxK stem conv
+    (``tpuseg``'s ``PolyphaseStem``): the port's OIHW weight ``w7`` folded
+    by ``fold_stem_weights`` on ``tpuseg``'s HWIO layout, then one dense
+    conv on the ``f`` x ``f`` space-to-depth grid and a depth-to-space.
+    Takes (n, h, w, c) frames or flat (n, h, w*c) rows, h and w divisible
+    by ``f``; returns the NHWC conv output in ``dtype``."""
+
+    def __init__(self, w7: torch.Tensor, bias=None, f: int = 4, pad: int = 3,
+                 dtype=torch.bfloat16, device="cpu"):
+        w_poly, self.pad_lo, self.pad_hi = fold_stem_weights(_hwio(w7), f, pad)
+        self.w = _device_weight(w_poly, dtype, device)
+        self.f, self.c = f, w7.shape[1]
+        self.bias = None if bias is None else torch.as_tensor(bias).to(device)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        f = self.f
+        h, w = x.shape[1], x.shape[2] // (self.c if x.dim() == 3 else 1)
+        if h % f or w % f:
+            raise ValueError(f"frame {h}x{w} does not divide by the fold factor {f}")
+        x4 = nhwc_to_nchw(fold_input(x.to(self.w.dtype), f, self.c))
+        y4 = _conv(x4.contiguous(memory_format=torch.channels_last), self.w, None,
+                   self.pad_lo, self.pad_hi)
+        y = depth_to_space(nchw_to_nhwc(y4), f)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
 
 
 class PolyphaseFrontend:
@@ -199,6 +329,19 @@ class PolyphaseFrontend:
                 np.abs((0.0 - mean) / std), np.abs((1.0 - mean) / std)
             ).max()
             self.conv0_x_scale = float(bound / 127.0)
+
+    def to(self, device) -> "PolyphaseFrontend":
+        """A copy with its folded weights and plans on ``device`` (a
+        serving replica's frontend: nothing is folded or calibrated again;
+        the host ``q_convs`` stay where they are)."""
+        out = copy.copy(self)
+        out.device = torch.device(device)
+        if self.normalize is not None:
+            out.normalize = tuple(t.to(device) for t in self.normalize)
+        out.convs = [(w.to(device), b.to(device), plo, phi) for w, b, plo, phi in self.convs]
+        out.q_plans = [(plan.to(device), None if chan is None else chan.to(device),
+                        bias.to(device)) for plan, chan, bias in self.q_plans]
+        return out
 
     def _input(self, x: torch.Tensor) -> torch.Tensor:
         """Raw frames -> normalized space-to-depth NCHW (channels_last)."""
@@ -281,6 +424,15 @@ class FusedStage3Frontend(PolyphaseFrontend):
                          f"{stage3}.1.conv2")
         }
         self.stage3 = stage3
+
+    def to(self, device) -> "FusedStage3Frontend":
+        out = super().to(device)
+        out.b0_conv1, out.b0_ds = (
+            (w.to(device), b.to(device), plo, phi)
+            for w, b, plo, phi in (self.b0_conv1, self.b0_ds))
+        out.image_convs = {k: (w.to(device), b.to(device))
+                           for k, (w, b) in self.image_convs.items()}
+        return out
 
     def _image_conv(self, x, name):
         w, b = self.image_convs[name]

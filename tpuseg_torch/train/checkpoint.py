@@ -10,8 +10,12 @@ Format: ``tpuseg``'s single .npz, key for key: ``params/<name>``,
 its state in the same links) and a JSON ``__meta__``.  Conv weights, masks
 and their momentum traces are HWIO on disk, as ``tpuseg`` stores them, so a
 checkpoint written by either package resumes in the other.  The write is
-atomic (tmp + rename).  The orbax envelope (``.orbax`` paths) is not
-ported.
+atomic (tmp + rename).
+
+Paths ending in ``.orbax`` dispatch to the directory envelope
+(``tpuseg_torch.train.orbax_ckpt``: the same keys and tuple, written with
+``torch.distributed.checkpoint``, with async save and every rank of a
+process group taking part), as in ``tpuseg``.
 """
 
 from __future__ import annotations
@@ -39,12 +43,6 @@ def _from_disk(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device=like.device, dtype=like.dtype)
 
 
-def _no_orbax(path: str) -> None:
-    if path.endswith(".orbax"):
-        raise NotImplementedError(f"{path}: the orbax checkpoint envelope is not ported "
-                                  "(ROADMAP A21); use an .npz path")
-
-
 def _flatten_opt(opt_state) -> dict[str, np.ndarray]:
     flat = {}
     for i, link in enumerate(opt_state):
@@ -66,16 +64,17 @@ def save_checkpoint(
     masks: Mapping[str, Any] | None = None,
     meta: Mapping[str, Any] | None = None,
     is_best: bool = False,
+    async_save: bool = False,
 ) -> None:
-    _no_orbax(path)
-    arrays: dict[str, np.ndarray] = {}
-    arrays.update({f"params/{k}": _to_disk(v) for k, v in params.items()})
-    arrays.update({f"bn_state/{k}": _to_disk(v) for k, v in bn_state.items()})
-    if masks:
-        arrays.update({f"masks/{k}": _to_disk(v) for k, v in masks.items()})
-    if opt_state is not None:
-        arrays.update({f"opt/{k}": v for k, v in _flatten_opt(opt_state).items()})
-    arrays["__meta__"] = np.frombuffer(json.dumps(dict(meta or {})).encode(), dtype=np.uint8)
+    """Write the envelope: one .npz (atomic tmp + rename; ``async_save`` is
+    ignored), or for an ``.orbax`` path the directory envelope, which
+    every rank of a process group must call."""
+    arrays = _envelope(params, bn_state, opt_state, masks, meta)
+    if path.endswith(".orbax"):
+        from tpuseg_torch.train.orbax_ckpt import save_checkpoint_orbax
+
+        save_checkpoint_orbax(path, arrays, is_best=is_best, async_save=async_save)
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp.npz"
     np.savez(tmp, **arrays)
@@ -85,26 +84,45 @@ def save_checkpoint(
         shutil.copyfile(path, os.path.join(os.path.dirname(path) or ".", "checkpoint_best.npz"))
 
 
+def _envelope(params, bn_state, opt_state, masks, meta) -> dict[str, np.ndarray]:
+    """The flat ``{key: array}`` both envelopes store."""
+    arrays: dict[str, np.ndarray] = {}
+    arrays.update({f"params/{k}": _to_disk(v) for k, v in params.items()})
+    arrays.update({f"bn_state/{k}": _to_disk(v) for k, v in bn_state.items()})
+    if masks:
+        arrays.update({f"masks/{k}": _to_disk(v) for k, v in masks.items()})
+    if opt_state is not None:
+        arrays.update({f"opt/{k}": v for k, v in _flatten_opt(opt_state).items()})
+    arrays["__meta__"] = np.frombuffer(json.dumps(dict(meta or {})).encode(), dtype=np.uint8)
+    return arrays
+
+
 def load_checkpoint(path: str):
     """Returns (params, bn_state, masks, opt_arrays, meta): params, BN state
     and masks as the port's CPU tensors (conv weights and masks OIHW);
     ``opt_arrays`` the flat ``{link path: array}`` dict as on disk — restore
-    it into a live optimizer state with ``restore_opt_state``."""
-    _no_orbax(path)
+    it into a live optimizer state with ``restore_opt_state``.  An
+    ``.orbax`` path reads the directory envelope."""
+    if path.endswith(".orbax"):
+        from tpuseg_torch.train.orbax_ckpt import load_arrays_orbax
+
+        blob = load_arrays_orbax(path)
+    else:
+        with np.load(path, allow_pickle=False) as f:
+            blob = {k: f[k] for k in f.files}
     params, bn_state, masks, opt_arrays = {}, {}, {}, {}
     meta: dict[str, Any] = {}
-    with np.load(path, allow_pickle=False) as blob:
-        for key in blob.files:
-            if key == "__meta__":
-                meta = json.loads(bytes(blob[key]).decode())
-            elif key.startswith("params/"):
-                params[key[len("params/"):]] = blob[key]
-            elif key.startswith("bn_state/"):
-                bn_state[key[len("bn_state/"):]] = blob[key]
-            elif key.startswith("masks/"):
-                masks[key[len("masks/"):]] = blob[key]
-            elif key.startswith("opt/"):
-                opt_arrays[key[len("opt/"):]] = blob[key]
+    for key, val in blob.items():
+        if key == "__meta__":
+            meta = json.loads(np.asarray(val).tobytes().decode())
+        elif key.startswith("params/"):
+            params[key[len("params/"):]] = val
+        elif key.startswith("bn_state/"):
+            bn_state[key[len("bn_state/"):]] = val
+        elif key.startswith("masks/"):
+            masks[key[len("masks/"):]] = val
+        elif key.startswith("opt/"):
+            opt_arrays[key[len("opt/"):]] = val
     params, bn_state = from_jax_params(params, bn_state)
     masks, _ = from_jax_params(masks)
     return params, bn_state, masks, opt_arrays, meta

@@ -8,6 +8,14 @@ eagerly; there is no trace to compile.
 
 ``classifier_forward`` and ``make_cls_train_step`` are the classifier arm's
 (DRN classifiers and the CIFAR zoo, with knowledge distillation).
+
+Every train step takes an optional ``ranks``
+(``tpuseg_torch.parallel.mesh.Ranks``, which ``shard_train_step`` passes):
+the step then runs on this rank's part of a global batch with the
+unsharded step's semantics: BatchNorm statistics of the global batch, each
+rank's loss its sum over the global count, and the gradients summed over
+the ranks with one flat all-reduce before the update, so every replica
+takes the same update.  Without it the step is the one-device step.
 """
 
 from __future__ import annotations
@@ -62,6 +70,12 @@ def _sgd_update(tx: Sgd, grads, state: TrainState, frozen: tuple[str, ...] = ())
     return new_params, new_opt
 
 
+def _total(loss: torch.Tensor, ranks) -> torch.Tensor:
+    """The global batch's loss: the ranks' parts summed (each is its sum
+    over the global count)."""
+    return ranks.total(loss) if ranks is not None else loss
+
+
 def _check_train_plans(sparse_plans: Mapping | None) -> None:
     if sparse_plans:
         from tpuseg_torch.ops.sparse_train import SparseTrainPlan
@@ -73,15 +87,17 @@ def _check_train_plans(sparse_plans: Mapping | None) -> None:
 
 
 def _grads(loss: torch.Tensor, params: dict, state_params: dict,
-           frozen: tuple[str, ...] = ()) -> dict:
+           frozen: tuple[str, ...] = (), ranks=None) -> dict:
     """d loss / d param for every param of the state (zeros for frozen or
-    unused ones), in the state's key order."""
+    unused ones), in the state's key order; with ``ranks`` summed over the
+    ranks (one flat all-reduce)."""
     names = [k for k in params if k not in frozen]
     grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
     grads = {k: (torch.zeros_like(params[k]) if g is None else g)
              for k, g in zip(names, grads)}
     grads.update({k: torch.zeros_like(state_params[k]) for k in frozen if k in params})
-    return {k: grads[k] for k in state_params}
+    grads = {k: grads[k] for k in state_params}
+    return ranks.sum_grads(grads) if ranks is not None else grads
 
 
 def make_seg_train_step(
@@ -112,18 +128,18 @@ def make_seg_train_step(
     """
     _check_train_plans(sparse_plans)
 
-    def loss_fn(params, bn_state, images, labels):
+    def loss_fn(params, bn_state, images, labels, ranks):
         logp, _seg, updates = drnseg_forward(
             params, bn_state, images, spec, train=True, compute_dtype=compute_dtype,
-            remat=remat, sparse_plans=sparse_plans or None,
+            remat=remat, sparse_plans=sparse_plans or None, ranks=ranks,
         )
-        return seg_loss_from_logprobs(logp, labels), updates
+        return seg_loss_from_logprobs(logp, labels, ranks), updates
 
-    def train_step(state: TrainState, images, labels):
+    def train_step(state: TrainState, images, labels, ranks=None):
         params = {k: v.detach().requires_grad_(k not in frozen)
                   for k, v in state.params.items()}
-        loss, bn_updates = loss_fn(params, state.bn_state, images, labels)
-        grads = _grads(loss, params, state.params, frozen)
+        loss, bn_updates = loss_fn(params, state.bn_state, images, labels, ranks)
+        grads = _grads(loss, params, state.params, frozen, ranks)
         new_params, new_opt = _sgd_update(tx, grads, state, frozen)
         new_state = TrainState(
             params=new_params,
@@ -133,7 +149,7 @@ def make_seg_train_step(
             step=state.step + 1,
         )
         # no predictions in the metrics: evaluation computes them
-        return new_state, {"loss": loss.detach()}
+        return new_state, {"loss": _total(loss.detach(), ranks)}
 
     return train_step
 
@@ -157,17 +173,17 @@ def classifier_forward(spec, compute_dtype=None, remat: bool = False,
                 "sparse_plans is not supported for CIFAR-zoo specs: "
                 "build_sparse_train_structs walks only a DrnSpec's stages")
 
-        def fwd(params, bn_state, x, train=False):
+        def fwd(params, bn_state, x, train=False, ranks=None):
             return cifar_forward(params, bn_state, x, spec, train=train,
-                                 compute_dtype=compute_dtype, remat=remat)
+                                 compute_dtype=compute_dtype, remat=remat, ranks=ranks)
 
     else:
         _check_train_plans(sparse_plans)
 
-        def fwd(params, bn_state, x, train=False):
+        def fwd(params, bn_state, x, train=False, ranks=None):
             return drn_forward(params, bn_state, x, spec, train=train,
                                compute_dtype=compute_dtype, remat=remat,
-                               sparse_plans=sparse_plans or None)
+                               sparse_plans=sparse_plans or None, ranks=ranks)
 
     return fwd
 
@@ -195,18 +211,18 @@ def make_cls_train_step(
     Metrics: ``loss`` and the batch's top-1 ``acc`` (a fraction)."""
     fwd = classifier_forward(spec, compute_dtype, remat=remat, sparse_plans=sparse_plans)
 
-    def train_step(state: TrainState, images, labels):
+    def train_step(state: TrainState, images, labels, ranks=None):
         params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-        logits, bn_updates = fwd(params, state.bn_state, images, train=True)
+        logits, bn_updates = fwd(params, state.bn_state, images, train=True, ranks=ranks)
         if teacher is not None:
             t_fwd, t_params, t_bn = teacher
             with torch.no_grad():
                 t_logits = t_fwd(t_params, t_bn, images)
             loss = combined_kd_loss(logits, labels, t_logits, kd_student_wt, kd_distill_wt,
-                                    kd_temperature)
+                                    kd_temperature, ranks=ranks)
         else:
-            loss = cross_entropy_ignore(logits, labels, ignore_index=-1)
-        grads = _grads(loss, params, state.params)
+            loss = cross_entropy_ignore(logits, labels, ignore_index=-1, ranks=ranks)
+        grads = _grads(loss, params, state.params, ranks=ranks)
         new_params, new_opt = _sgd_update(tx, grads, state)
         new_state = TrainState(
             params=new_params,
@@ -216,7 +232,9 @@ def make_cls_train_step(
             step=state.step + 1,
         )
         acc = (logits.detach().argmax(dim=-1) == labels).float().mean()
-        return new_state, {"loss": loss.detach(), "acc": acc}
+        if ranks is not None:
+            acc = ranks.total(acc) / ranks.size  # equal parts: the global mean
+        return new_state, {"loss": _total(loss.detach(), ranks), "acc": acc}
 
     return train_step
 

@@ -23,6 +23,7 @@ waits on that event only.
 
 from __future__ import annotations
 
+import copy
 import time
 
 import numpy as np
@@ -152,8 +153,21 @@ def _fused_stage3(spec: DrnSpec) -> bool:
             and stage3.blocks[0].kind == "basic")
 
 
+def _plan_replicable(plan) -> bool:
+    """True for the per-conv plans ``tpuseg`` lets a serving mesh partition
+    (they lower to plain XLA there: gathered and grouped convs, RBGP, int8
+    ``QuantConv``).  Its Pallas-backed plans (``FusedSparseConv(Q)``,
+    ``CompactSparse(Q)``) stay single-device, and so do the port's."""
+    from tpuseg_torch.ops.gathered_conv import GatheredGroupConv, GatheredGroupConvQ
+    from tpuseg_torch.ops.quant import QuantConv
+    from tpuseg_torch.ops.rbgp_matmul import RbgpPlan
+
+    return isinstance(plan, (GatheredGroupConv, GatheredGroupConvQ, QuantConv, RbgpPlan))
+
+
 class VideoSegmenter:
-    """Batched end-to-end video segmentation on one device.
+    """Batched end-to-end video segmentation on one device, or on the data
+    axis of a mesh (``mesh=``).
 
     ``params``/``bn_state`` are the port's CPU weights (``init_drnseg`` or
     ``from_jax_params``); BN is folded here and the weights move to
@@ -219,7 +233,19 @@ class VideoSegmenter:
       accumulated |delta| path (ties stay causal);
     - ``temporal_warp`` (interval and budgeted modes): the reused ids are
       moved along per-block shifts estimated on pooled luma (``video/flow.py``,
-      kernels K6 and K7); the target H and W must divide by 128."""
+      kernels K6 and K7); the target H and W must divide by 128.
+
+    ``mesh`` (``tpuseg_torch.parallel.make_mesh(data=N, devices=[...])``,
+    no process group) serves data-parallel over its devices, ``tpuseg``'s
+    serving mesh: the weights and plans are copied to each device (one copy
+    per distinct device), every forward's frames are split over the
+    replicas in order, each replica runs the same program on its own device
+    (kernels B1 and, for int8 plans, B3 launch once per replica) and the ids
+    are gathered on the first device, where the rest of the batch (reuse,
+    outputs) runs.  ``tpuseg``'s guards hold: the batch must divide by the
+    mesh's size, the adaptive temporal modes are refused (they are
+    sequential), and so are plans its partitioner cannot split
+    (``FusedSparseConv(Q)``, ``CompactSparse(Q)``)."""
 
     def __init__(
         self,
@@ -247,9 +273,19 @@ class VideoSegmenter:
         temporal_warp: bool = False,
         transport: str = "rgb",
         ids_bits: int | None = None,
+        mesh=None,
     ):
         _check_temporal(batch, temporal_interval, temporal_thresh, temporal_budget,
                         temporal_nearest, temporal_warp)
+        if mesh is not None:
+            if mesh.rank is not None:
+                raise ValueError("a serving mesh is driven by one process (no process group)")
+            if temporal_thresh is not None:
+                raise ValueError("adaptive temporal reuse is sequential frame-to-frame; "
+                                 "use interval mode or a single device")
+            if batch % mesh.size:
+                raise ValueError(f"batch {batch} must divide over the {mesh.size}-device mesh")
+            device = mesh.devices.flat[0]
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
         if spec.variant != "D":
@@ -304,6 +340,35 @@ class VideoSegmenter:
             exec_plans = self._int8_plans(folded, exec_plans, calib_frames, mean, std,
                                           quantize_stem)
         self.exec_plans = plans_to(exec_plans, self.device)
+        self._replicas = None
+        if mesh is not None:
+            unsafe = sorted(k for k, p in (self.exec_plans or {}).items()
+                            if not _plan_replicable(p))
+            if unsafe:
+                raise ValueError(
+                    "Pallas-backed exec plans are opaque to the GSPMD partitioner: "
+                    f"{unsafe}; use the gathered lowering (--sparse-lowering gathered, the "
+                    "CLI default) or serve single-device")
+            # one replica per device of the data axis, one copy per distinct
+            # device (this segmenter serves its own device)
+            copies = {self.device: self}
+            for d in mesh.devices.flat:
+                d = resolve_device(d)
+                if d not in copies:
+                    copies[d] = self._replica_on(d)
+            self._replicas = [copies[resolve_device(d)] for d in mesh.devices.flat]
+
+    def _replica_on(self, device: torch.device) -> "VideoSegmenter":
+        """A serving replica on ``device``: this segmenter's folded weights,
+        frontend and plans copied there (folded, planned and calibrated
+        once, here), for ``_replica_ids``."""
+        rep = copy.copy(self)
+        rep.device = device
+        rep.params = {k: v.to(device) for k, v in self.params.items()}
+        rep.mean, rep.std = self.mean.to(device), self.std.to(device)
+        rep.stem_fn = self.stem_fn.to(device)
+        rep.exec_plans = plans_to(self.exec_plans, device)
+        return rep
 
     def _int8_plans(self, folded, user_plans, calib_frames, mean, std, quantize_stem) -> dict:
         """``tpuseg``'s order: dense int8 plans; with calibration frames,
@@ -347,7 +412,17 @@ class VideoSegmenter:
     def ids_for(self, frames_u8: torch.Tensor) -> torch.Tensor:
         """Flat uint8 frames (B, H, W*3) on the device -> uint8 class ids
         (B, H, W): frontend/normalize -> DRNSeg logits -> fused
-        upsample+argmax -> crop."""
+        upsample+argmax -> crop.  Over a mesh the frames are split over the
+        replicas in order (each runs this on its own device) and the ids
+        gathered here."""
+        if self._replicas is None:
+            return self._replica_ids(frames_u8)
+        parts = frames_u8.tensor_split(len(self._replicas))
+        ids = [rep._replica_ids(x.to(rep.device, non_blocking=True))
+               for rep, x in zip(self._replicas, parts) if x.shape[0]]
+        return torch.cat([i.to(self.device, non_blocking=True) for i in ids])
+
+    def _replica_ids(self, frames_u8: torch.Tensor) -> torch.Tensor:
         b, h, wc = frames_u8.shape
         w = wc // 3
         if h % 8 == 0 and w % 8 == 0:
