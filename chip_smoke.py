@@ -8,7 +8,7 @@ through ``VideoSegmenter`` and the CLI, trains DRNSeg at crop 512 (dense,
 masked, ``--sparse-exec``) through the trainer's CLI, runs the
 trained-weights fidelity tool and serves its checkpoint, trains the DRN-D-22
 classifier and runs the classifier CLIs and tools (the CIFAR zoo in int8
-through B3's padded route), runs every mode of the sparse-conv bench and
+through B3's narrow route), runs every mode of the sparse-conv bench and
 both CLIs' ``--profile-dir``, and times the kernels against their plain
 versions.
 
@@ -49,16 +49,21 @@ Phases (any failed check raises and the exit code is non-zero):
      and the bf16+bias route vs the two passes it replaces;
  10. the quantize kernels (``csrc/quantize.cu``) vs ``quantize_activation``
      on the CPU, bit for bit on xq and xs (bf16 and f32, per-frame and
-     static, with and without a channel map, a 40x frame and an all-zero
-     frame; a NaN frame's scale NaN on both sides); the int8 block-sparse
-     conv kernel (B3) vs its exact plain version, bit-equal: the CPU tests'
-     shapes with per-frame and static scales, f32 and bf16 x; then every
-     int8 plan the served configurations launch (13 ``QuantConv``, the 7
-     lifted B2 plans of block128reg_87.50, ``CompactSparseQ`` through its
-     channel map, one ``GatheredGroupConvQ``) at its batch-32 serving input,
-     on the f32 route and on the served bf16+bias route (0 mismatches
-     against the plain f32 y cast and biased); a non-contiguous input must
-     raise;
+     static, unmapped and through contiguous, all-padding, gathered and
+     mixed channel maps read by their vector descriptors, a 40x frame and
+     an all-zero frame; a NaN frame's scale NaN on both sides); the int8
+     block-sparse conv kernel (B3) vs its exact plain version, bit-equal:
+     the CPU tests' shapes with per-frame and static scales, f32 and bf16 x;
+     B3's narrow route (cin and cout in 16/32/48/64 with k 1 and 3, K = 128
+     packings, odd maps, several images a tile, an all-zero plan); then
+     every int8 plan the served configurations launch (13 ``QuantConv``,
+     the 7 lifted B2 plans of block128reg_87.50, ``CompactSparseQ`` through
+     its channel map's vectors, one ``GatheredGroupConvQ``) at its batch-32
+     serving input, on the f32 route and on the served bf16+bias route (0
+     mismatches against the plain f32 y cast and biased); a non-contiguous
+     input must raise; the quantize pass through each served
+     ``CompactSparseQ`` map timed against its bound and
+     ``index_select`` + the unmapped pass;
  11. int8 slice parity in f32 (TF32 off), dense and block128_75.00 Pallas:
      every int8 conv's CUDA output is bit-equal to the CPU plain version on
      the activation the CUDA run gave it, and CUDA vs CPU ids agree >= 0.97;
@@ -66,6 +71,7 @@ Phases (any failed check raises and the exit code is non-zero):
      scales), dense calibrated on 8 frames, block128reg_87.50 under the
      Pallas and the gathered lowering; B3 launched exactly 13 / 13 / 11 / 13
      times per forward and B2 never, the quantize kernel once per B3 launch
+     (4 of them a forward through a channel map under the Pallas lowering)
      and the absmax kernel too except in the calibrated run (0); ids
      agreement with the float runs and calibrated vs dynamic >=
      INT8_FULL_MIN (0.9 dense, 0.85 pruned);
@@ -107,9 +113,12 @@ Phases (any failed check raises and the exit code is non-zero):
      epilogue relu(y + bias)) bit-equal to its plain version on the three
      folded stem convs at the inputs a bf16 batch-32 run of the calibrated
      int8-stem frontend gives them, f32 and bf16 out, per-frame and static
-     scales, and on -0.0 and NaN; the padded quantize pass (conv0's 48
-     channels to 128 through a channel map with -1) bit-equal; each conv's
-     route, plain version and bound beside cuDNN's bf16 conv + bias + ReLU;
+     scales (conv0 on B3's narrow route: K = 64, its 48 channels padded by
+     the quantize pass's map, N = 128), and on -0.0 and NaN on a 128-wide
+     and a narrow packing; conv0's quantize pass (through that map, whose
+     -1s are zero vectors, and unpadded) bit-equal and timed against its
+     bound, F.pad to 128 and its plain version; each conv's route, plain version and
+     bound beside cuDNN's bf16 conv + bias + ReLU;
  20. int8-stem f32 parity at 256x512 (per-frame scales): each stem conv's
      CUDA output bit-equal to the CPU plain version on its activation, ids
      >= INT8_PARITY_MIN, exact counts (B3 16, quantize 16, absmax 15 a
@@ -215,9 +224,10 @@ Phases (any failed check raises and the exit code is non-zero):
  38. the classifier CLIs in this process with their launch counts:
      ``rmbsnn --dataset synthetic -a drn_d_22 --mc-pruning --pr-static
      --sparse-exec`` (bf16, 1 epoch), ``rmbsnn -a cifar_resnet20 --evaluate
-     --quantize`` (int8_layers >= 20, B3's padded route 16 times a forward,
-     each padded conv bit-equal to its plain version on the card, timed
-     against cuDNN's bf16 conv), ``rmbsnn -a drn_d_22 --evaluate
+     --quantize`` (int8_layers >= 20, B3's narrow route 16 times a
+     forward, each narrow conv bit-equal to its plain version on the card,
+     timed at r20's three widths against cuDNN's bf16 conv and its quantize
+     pass against its bound), ``rmbsnn -a drn_d_22 --evaluate
      --quantize``, ``imagenet_train --dataset synthetic`` and ``seg_video
      --pretrained x.pth`` (ids equal to the same weights' npz);
  39. ``trained_fidelity --stage cls`` at its defaults and ``remat_mem
@@ -228,8 +238,9 @@ Phases (any failed check raises and the exit code is non-zero):
      untimed loop (INNER unchanged), every launch count zeroed just before
      each mode and read just after: each line parsed, its metric names,
      exact counts (B1 once a frame of --model, with B2, B3 and the
-     quantize pass in its rows; B3's stem route 3 and its padded route 5
-     times a frame of --frontend's int8 rows; B2's forward once a step of
+     quantize pass in its rows, the passes through a channel map once for
+     each CompactSparseQ; B3's stem route 3 and its narrow route 5 times
+     a frame of --frontend's int8 rows; B2's forward once a step of
      --train (w's gradient only: no dgrad) and its training roles 2 x 10
      a step of --trainer; B2, B3, B7a-f in the fused mode), the conv1split
      gate; ``rmcdb_roll_matmul`` against the masked
@@ -261,8 +272,16 @@ Phases (any failed check raises and the exit code is non-zero):
 The line before the last is the kernels' JSON record (each kernel's time,
 its plain version's, its bound at the card's published peaks and the
 PyTorch call's, at its main shape; B3's time is its served route, the
-``quantize`` entry the quantize kernels' per-frame pass, the stem route's
-entry conv1 of the stem); the last line is ``{"ok": true, "device":
+``quantize`` entry the quantize kernels' per-frame pass, ``quantize_map``
+that pass through layer.6.1.conv1's ``CompactSparseQ`` map, the stem route's
+entry conv1 of the stem, ``sparse_conv_q_narrow`` B3's narrow route at
+cifar_resnet20's 16-channel conv, its ms and the cuDNN conv's as device time
+from CUDA graphs: back to back, that small conv's calls are host-paced).
+Each launch counts in one entry: B3's launches by the kernel that ran
+them (``sparse_conv_q_kernel``, ``sparse_conv_q_narrow_kernel``), the stem
+route's on the 128-wide kernel apart from B3's others, the quantize passes
+through a map apart from the unmapped ones.
+The last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device it exits 1 and prints no result.
 """
 
@@ -293,6 +312,10 @@ B2_PER_FORWARD = 7  # B2 convs of block128reg_87.50 under the Pallas lowering
 # CompactSparseQ (3 RBGP plans stay float); gathered: 9 GatheredGroupConvQ
 # + 4 QuantConv
 B3_PER_FORWARD = {"dense": 13, "dense_calibrated": 13, "pallas": 11, "gathered": 13}
+# quantize passes through a CompactSparseQ's channel map per forward (the 4
+# CompactSparseQ of block128reg_87.50 under the Pallas lowering)
+MAP_PER_FORWARD = {"dense": 0, "dense_calibrated": 0, "pallas": 4, "gathered": 0}
+QUANTIZE_MAP_MAIN = "layer.6.1.conv1"  # the quantize_map row's conv: 384 live channels
 # int8 ids CUDA vs CPU in f32: two exact int8 paths fed f32 activations that
 # differ in the last bit (cuDNN and oneDNN sum in other orders) round a few
 # x/scale quotients to other integers, and each such step of a whole
@@ -604,59 +627,126 @@ def _served_w128_times(torch, dev, x, plan, qplan, bias, smi) -> None:
                                     for k in ("b2_route", "b3_served")}, card=smi)
 
 
+QUANTIZE_MAPS = ("contiguous", "all_padding", "gathered", "mixed")  # phase 10's map kinds
+
+
+def _quantize_maps(torch, np, rng) -> dict:
+    """Phase 10's channel maps of x's 384 channels, one of each descriptor
+    kind and one mixing all three: whole 128-channel blocks (as
+    ``CompactSparseQ`` gathers), -1s only, a random gather, and contiguous
+    + gathered + padding vectors (``channel_map_vectors``)."""
+    mixed = np.r_[np.arange(8, 24), [5, 3, 1, 300, 2, 7, 9, 11], -np.ones(8, np.int64),
+                  [-1, 3, 4, 5, 6, 7, 8, 9], np.arange(376, 384)]
+    maps = {"contiguous": np.r_[np.arange(128), np.arange(256, 384)],
+            "all_padding": -np.ones(64, np.int64),
+            "gathered": rng.permutation(384)[:96],
+            "mixed": mixed}
+    return {k: torch.from_numpy(np.asarray(v)).to(torch.int32) for k, v in maps.items()}
+
+
 def _quantize_vs_cpu(torch, np, dev, rng) -> float:
     """Phase 10: the quantize kernels (``quantize_activation`` on the card)
     vs ``quantize_activation`` on the CPU, bit for bit on xq and xs: bf16
     and f32, per-frame and static, a frame of 40x the range and an all-zero
-    frame, with and without a channel map; a frame holding a NaN must get a
-    NaN scale on both sides (its xq is not compared: PyTorch's cast of a NaN
-    to int8 is undefined).  -> the max |difference| of xq (0)."""
-    from tpuseg_torch.ops.sparse_conv import quantize_activation
+    frame, unmapped and through each kind of channel map
+    (``_quantize_maps``: contiguous, all-padding, gathered and mixed
+    vectors, read through the map's ``channel_map_vectors``); a frame
+    holding a NaN must get a NaN scale on both sides (its xq is not
+    compared: PyTorch's cast of a NaN to int8 is undefined; an all-padding
+    map never reads it).  -> the max |difference| of xq (0)."""
+    from tpuseg_torch.ops.sparse_conv import channel_map_vectors, quantize_activation
 
     x = torch.from_numpy(rng.normal(size=(4, 32, 48, 384)).astype(np.float32))
     x[1] *= 40.0
     x[2] = 0.0
     x[3, 7, 9, 300] = float("nan")
-    chan = torch.cat([torch.arange(128), torch.arange(256, 384)]).to(torch.int32)
+    maps = {"none": None, **_quantize_maps(torch, np, rng)}
     worst = 0
     for dtype in (torch.float32, torch.bfloat16):
         for x_scale in (None, 0.013):
-            for cmap in (None, chan):
+            for kind, cmap in maps.items():
                 xd = x.to(dev, dtype)
-                before = (quantize_activation.launches, quantize_activation.absmax_launches)
-                xq_d, xs_d = quantize_activation(
-                    xd, x_scale, None if cmap is None else cmap.to(dev))
+                cd = None if cmap is None else cmap.to(dev)
+                vecs = None if cmap is None else channel_map_vectors(cd)
+                before = (quantize_activation.launches, quantize_activation.absmax_launches,
+                          quantize_activation.map_launches)
+                xq_d, xs_d = quantize_activation(xd, x_scale, cd, vecs=vecs)
                 torch.cuda.synchronize()
                 launched = (quantize_activation.launches - before[0],
-                            quantize_activation.absmax_launches - before[1])
+                            quantize_activation.absmax_launches - before[1],
+                            quantize_activation.map_launches - before[2])
                 xq_c, xs_c = quantize_activation(x.to(dtype), x_scale, cmap)
                 xq_d, xs_d = xq_d.cpu(), xs_d.cpu()
-                same = (torch.equal(xq_d[:3], xq_c[:3]) and torch.equal(xs_d[:3], xs_c[:3])
-                        and xs_d[3].isnan() == xs_c[3].isnan()
-                        and (x_scale is not None or bool(xs_d[3].isnan())))
-                if x_scale is not None:
+                nan_read = kind != "all_padding" and (cmap is None or bool((cmap == 300).any()))
+                same = torch.equal(xq_d[:3], xq_c[:3]) and torch.equal(xs_d[:3], xs_c[:3])
+                if x_scale is not None or not nan_read:
                     same = same and torch.equal(xs_d[3], xs_c[3])
+                    if not nan_read:
+                        same = same and torch.equal(xq_d[3], xq_c[3])
+                else:
+                    same = same and bool(xs_d[3].isnan()) and bool(xs_c[3].isnan())
                 err = int((xq_d[:3].int() - xq_c[:3].int()).abs().max())
                 worst = max(worst, err)
                 _emit(phase="b3_quantize_pass_vs_cpu", x_dtype=str(dtype), shape=list(x.shape),
-                      scale="static" if x_scale else "per-frame",
-                      channel_map=cmap is not None, bit_equal=same, max_abs_err=err,
-                      nan_frame_scale=float(xs_d[3]), launches=launched)
+                      scale="static" if x_scale else "per-frame", channel_map=kind,
+                      vectors=None if vecs is None else sorted(set(
+                          min(v, 0) for v in vecs.tolist())),
+                      bit_equal=same, max_abs_err=err, nan_frame_scale=float(xs_d[3]),
+                      launches=launched)
                 if not same:
                     raise AssertionError(f"the quantize kernels differ from the CPU "
-                                         f"({dtype}, {x_scale}, map {cmap is not None})")
-                if launched != (1, 0 if x_scale is not None else 1):
+                                         f"({dtype}, {x_scale}, map {kind})")
+                if launched != (1, 0 if x_scale is not None else 1, int(cmap is not None)):
                     raise AssertionError(f"quantize launches {launched}")
     return float(worst)
 
 
+NARROW_WIDTHS = (16, 32, 48, 64)
+# phase 10's maps for B3's narrow route, (n, h, w): several 8x8 images a
+# tile, odd maps, one 16x16 image a tile, 8-row bands, 256-pixel segments
+NARROW_MAPS = ((64, 8, 8), (3, 7, 9), (2, 33, 31), (16, 16, 16), (4, 32, 32), (1, 5, 300))
+
+
+def _narrow_vs_plain(torch, np, dev, rng, check) -> int:
+    """Phase 10: B3's narrow route (``csrc/sparse_conv_q_narrow.cu``) on
+    ``int8_packing``'s narrow packings, each held bit-equal to its plain
+    version by ``check``: cin and cout in ``NARROW_WIDTHS`` with k 1 and 3
+    (d 2 where k is 3 and cin = cout) on ``NARROW_MAPS`` in turn, the K =
+    128 packings of 128 -> 64 and 160 -> 200, and an all-zero plan; f32 and
+    bf16 x, per-frame and static scales.  -> the number of packings."""
+    import dataclasses
+
+    from tpuseg_torch.ops.quant import int8_packing, quantize_weight
+    from tpuseg_torch.ops.sparse_conv import b3_narrow_tile
+
+    cases = [(cin, cout, k) for cin in NARROW_WIDTHS for cout in NARROW_WIDTHS for k in (1, 3)]
+    cases += [(128, 64, 3), (160, 200, 1), (48, 256, 3), (32, 32, 0)]  # 0: all-zero plan
+    for i, (cin, cout, k) in enumerate(cases):
+        n, h, w = NARROW_MAPS[i % len(NARROW_MAPS)]
+        kk = k or 3
+        wt = rng.normal(size=(kk, kk, cin, cout)).astype(np.float32) * (k > 0)
+        wq, ws = quantize_weight(wt)
+        d = 2 if kk == 3 and cin == cout else 1
+        packed = int8_packing("narrow", wq, ws, d, d * (kk - 1) // 2).to(dev)
+        assert packed.narrow and (k > 0) == bool(packed.nsteps.sum())
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rng.normal(size=(n, h, w, cin)).astype(np.float32)).to(dev, dtype)
+            static = float(x.float().abs().max()) / 127.0 * 0.8  # some values clip
+            for x_scale in (None, static):
+                check(x, dataclasses.replace(packed, x_scale=x_scale),
+                      f"narrow K={packed.bk} N={packed.bm} tile {b3_narrow_tile(n, h, w)}"
+                      + ("" if k else ", all-zero plan"))
+    return len(cases)
+
+
 def _b3_vs_plain(torch, np, dev, rng, served: dict) -> float:
     """Phase 10: B3 on the card vs its exact plain version on the same
-    inputs, bit for bit: the CPU tests' kinds, then each int8 plan the served
-    configurations launch (``served``: label -> (plan, x channels)) at its
-    batch-32 input, on the f32 route and on the served bf16+bias route
-    (``models/drn.py``; 0 mismatches against the plain f32 y cast and
-    biased)."""
+    inputs, bit for bit: the CPU tests' kinds, B3's narrow route
+    (``_narrow_vs_plain``), then each int8 plan the served configurations
+    launch (``served``: label -> (plan, x channels)) at its batch-32 input
+    (``CompactSparseQ`` through its channel map's vectors), on the f32
+    route and on the served bf16+bias route (``models/drn.py``; 0
+    mismatches against the plain f32 y cast and biased)."""
     from tpuseg_torch.models import drn as tdrn
     from tpuseg_torch.models.sparse_exec import CompactSparseQ
     from tpuseg_torch.ops.sparse_conv import (
@@ -665,9 +755,9 @@ def _b3_vs_plain(torch, np, dev, rng, served: dict) -> float:
 
     worst = 0.0
 
-    def check(x, plan, case, chan=None):
+    def check(x, plan, case, chan=None, vecs=None):
         nonlocal worst
-        got = fused_sparse_conv_apply_q(x, plan, chan=chan)
+        got = fused_sparse_conv_apply_q(x, plan, chan=chan, vecs=vecs)
         want = fused_sparse_conv_q_reference(
             x if chan is None else x.index_select(3, chan), plan)
         torch.cuda.synchronize()
@@ -677,7 +767,7 @@ def _b3_vs_plain(torch, np, dev, rng, served: dict) -> float:
         err = float((got - want).abs().max())
         worst = max(worst, err)
         _emit(phase="b3_vs_plain", shape=list(x.shape), x_dtype=str(x.dtype), k=plan.kernel,
-              dilation=plan.dilation, cout=plan.cout, s=plan.s,
+              dilation=plan.dilation, cin=plan.cin, cout=plan.cout, s=plan.s,
               live_steps=int(plan.nsteps.sum()), scale="static" if plan.x_scale is not None
               else "per-frame", case=case, mismatches=mism, max_abs_err=err,
               max_abs_want=float(want.abs().max()))
@@ -707,17 +797,18 @@ def _b3_vs_plain(torch, np, dev, rng, served: dict) -> float:
             static = float(x.float().abs().max()) / 127.0 * 0.8  # some values clip
             for x_scale in (None, static):
                 check(x, quantize_fused_plan(fplan, x_scale).to(dev), kind)
+    _narrow_vs_plain(torch, np, dev, rng, check)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     n, h, w = SERVING_SPARSE[0][:3]
     for label, (plan, cin) in served.items():
         plan = plan.to(dev)
         if isinstance(plan, CompactSparseQ):
-            packing, chan = plan.inner, plan.live_in32
+            packing, chan, vecs = plan.inner, plan.live_in32, plan.live_vecs
         else:
-            packing, chan = getattr(plan, "packed", plan), None
+            packing, chan, vecs = getattr(plan, "packed", plan), None, None
         x = torch.randn((n, h, w, cin), generator=gen, device=dev, dtype=torch.bfloat16)
-        want = check(x, packing, f"{label} serving input", chan)
+        want = check(x, packing, f"{label} serving input", chan, vecs)
         bias = torch.randn((packing.cout,), generator=gen, device=dev).to(torch.bfloat16)
         got = tdrn._sparse_conv_bias_bf16(tdrn.nhwc_to_nchw(x), plan, bias)
         got = tdrn.nchw_to_nhwc(got)
@@ -740,6 +831,56 @@ def _b3_vs_plain(torch, np, dev, rng, served: dict) -> float:
     else:
         raise AssertionError("B3 accepted a non-contiguous NHWC view")
     return worst
+
+
+def _quantize_map_times(torch, dev, served: dict, smi) -> dict:
+    """Phase 10: the quantize pass through each served ``CompactSparseQ``'s
+    channel map (its live 128-channel blocks) at its batch-32 serving input
+    (32, 128, 256, Cin) bf16, per-frame and static, against the PyTorch
+    comparator (``x.index_select(-1, live)``, then the unmapped pass) and
+    the bound of the function: the live channels' x read once, the int8 x
+    and the scales written (as the unmapped quantize row counts it).  The map of
+    ``layer.6.1.conv1`` (the main row) also against the plain version.
+    -> {label: row}."""
+    from tpuseg_torch.models.sparse_exec import CompactSparseQ
+    from tpuseg_torch.ops.sparse_conv import (
+        quantize_activation, quantize_activation_reference, select_channels)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    n, h, w = SERVING_SPARSE[0][:3]
+    rows = {}
+    for label, (plan, cin) in served.items():
+        if not isinstance(plan, CompactSparseQ):
+            continue
+        plan = plan.to(dev)
+        chan, vecs, live = plan.live_in32, plan.live_vecs, plan.live_in
+        x = torch.randn((n, h, w, cin), generator=gen, device=dev, dtype=torch.bfloat16)
+        fns = {"per_frame": lambda: quantize_activation(x, None, chan, vecs=vecs),
+               "static": lambda: quantize_activation(x, 0.013, chan, vecs=vecs),
+               "index_select_then_pass": lambda: quantize_activation(
+                   x.index_select(3, live), None)}
+        iters = {"per_frame": 10, "static": 10, "index_select_then_pass": 10}
+        main = label.startswith(QUANTIZE_MAP_MAIN)
+        if main:
+            fns["plain"] = lambda: quantize_activation_reference(select_channels(x, chan), None)
+            iters["plain"] = 2
+        turns = _time_turns(torch, fns, iters)
+        live_el = n * h * w * chan.numel()
+        bound = _bound(live_el * 2 + live_el + n * 4, live_el, "f32")
+        row = {"ms": min(turns["per_frame"]), "static_ms": min(turns["static"]),
+               "library_ms": min(turns["index_select_then_pass"]), "bound_ms": bound[0],
+               "bound_by": bound[1],
+               "plain_ms": min(turns["plain"]) if main else None,
+               "live_channels": chan.numel(), "vectors": sorted(set(
+                   min(v, 0) for v in vecs.tolist()))}
+        rows[label] = row
+        _emit(phase="quantize_map_time", plan=label, shape=[n, h, w, cin], turns=turns, **row,
+              bound_share=bound[0] / row["ms"], static_bound_share=bound[0] / row["static_ms"],
+              card=smi)
+        del x
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _served_b3_plans(dense_plans: dict, pallas_plans: dict, gathered_plans: dict,
@@ -1305,9 +1446,9 @@ def _record_stem(torch, log: list):
 
     orig = tpoly.fused_sparse_conv_q_bias_relu
 
-    def recording(x, plan, bias, out_dtype, chan=None):
-        y = orig(x, plan, bias, out_dtype, chan)
-        log.append((x.clone(), plan, bias, out_dtype, chan, y.clone()))
+    def recording(x, plan, bias, out_dtype):
+        y = orig(x, plan, bias, out_dtype)
+        log.append((x.clone(), plan, bias, out_dtype, y.clone()))
         return y
 
     tpoly.fused_sparse_conv_q_bias_relu = recording
@@ -1334,11 +1475,15 @@ def _int8_stem_kernels(torch, np, dev, seg, frames_dev, smi) -> dict:
     three int8 stem convs at the inputs a bf16 batch-32 run of the
     calibrated int8-stem frontend gives them (recorded), bit-equal to its
     plain version (run on the card 8 frames at a time: the function is per
-    frame), f32 and bf16 out, per-frame and static scales; the relu on -0.0
-    and NaN; the padded quantize pass (conv0's 48 channels to 128 through the
-    channel map) bit-equal; then each conv's route, its plain version, its
-    bound and the cuDNN bf16 conv + bias + ReLU the bf16 frontend runs.
-    -> {"err", "convs": [...], "padded_quantize": {...}}."""
+    frame), f32 and bf16 out, per-frame and static scales (conv0 on B3's
+    narrow route, K = 64, N = 128); the relu on -0.0 and NaN on a 128-wide
+    and a narrow packing; conv0's quantize pass bit-equal, timed (through
+    its packing's map padding its 48 channels to the narrow route's 64 with
+    zero vectors, as the route runs it, and unpadded) against its bound,
+    ``F.pad`` to 128 channels and the plain version; then each
+    conv's route, its plain version, its bound and the cuDNN bf16 conv +
+    bias + ReLU the bf16 frontend runs.
+    -> {"err", "convs": [...], "conv0_quantize": {...}}."""
     import dataclasses
 
     import torch.nn.functional as F
@@ -1346,8 +1491,9 @@ def _int8_stem_kernels(torch, np, dev, seg, frames_dev, smi) -> dict:
     from tpuseg_torch.ops import polyphase as tpoly
     from tpuseg_torch.ops.quant import quantize_weight, stem_packing
     from tpuseg_torch.ops.sparse_conv import (
-        fused_sparse_conv_q_bias_relu, fused_sparse_conv_q_bias_relu_reference,
-        quantize_activation, quantize_activation_reference, select_channels)
+        fused_sparse_conv_q_bias_relu,
+        fused_sparse_conv_q_bias_relu_reference, quantize_activation,
+        quantize_activation_reference, select_channels)
 
     fe = seg.stem_fn
     log = []
@@ -1360,20 +1506,21 @@ def _int8_stem_kernels(torch, np, dev, seg, frames_dev, smi) -> dict:
     torch.cuda.synchronize()
     assert len(log) == 3, len(log)
 
-    def plain(x, p, bias, dt, chan):
-        return torch.cat([fused_sparse_conv_q_bias_relu_reference(x[i:i + 8], p, bias, dt, chan)
+    def plain(x, p, bias, dt):
+        return torch.cat([fused_sparse_conv_q_bias_relu_reference(x[i:i + 8], p, bias, dt)
                           for i in range(0, x.shape[0], 8)])
 
     convs = []
-    for i, (x, plan, bias, _, chan, _) in enumerate(log):
+    for i, (x, plan, bias, _, _) in enumerate(log):
         static = fe._stem_x_scale(i)
         for dt in (torch.float32, torch.bfloat16):
             for scale in (None, static):
                 p = dataclasses.replace(plan, x_scale=scale)
-                got = fused_sparse_conv_q_bias_relu(x, p, bias, dt, chan)
-                mism = _same_bits(torch, got, plain(x, p, bias, dt, chan))
+                got = fused_sparse_conv_q_bias_relu(x, p, bias, dt)
+                mism = _same_bits(torch, got, plain(x, p, bias, dt))
                 _emit(phase="int8_stem_vs_plain", conv=i, shape=list(x.shape),
                       out_dtype=str(dt), scale="per-frame" if scale is None else "static",
+                      narrow=plan.narrow, packing=[plan.bk, plan.bm],
                       live_steps=int(plan.nsteps.sum()), mismatches=mism)
                 if mism:
                     raise AssertionError(f"stem conv {i}: the stem route differs from its plain "
@@ -1381,84 +1528,97 @@ def _int8_stem_kernels(torch, np, dev, seg, frames_dev, smi) -> dict:
                 del got
         torch.cuda.empty_cache()
     # relu on -0.0 and NaN: a negative w_scale makes float(0) * sc = -0.0,
-    # a -0.0 bias keeps it, relu turns it into +0.0; a NaN bias stays NaN
+    # a -0.0 bias keeps it, relu turns it into +0.0; a NaN bias stays NaN; on
+    # a 128-wide packing and on conv0's narrow one
     rng = np.random.default_rng(19)
-    wq, ws = quantize_weight((rng.normal(size=(3, 3, 128, 128)) * 0.05).astype(np.float32))
-    zplan, _ = stem_packing("relu cases", wq, ws, 1, 1)
-    zplan = dataclasses.replace(zplan, x_scale=0.05, w_scale=-zplan.w_scale).to(dev)
-    x = torch.zeros((2, 6, 300, 128), device=dev)
-    x[0, 2, 7, 5] = 1.0
-    zb = torch.full((128,), -0.0, device=dev)
-    zb[3], zb[4] = float("nan"), 1.0
-    for dt in (torch.float32, torch.bfloat16):
-        got = fused_sparse_conv_q_bias_relu(x.to(dt), zplan, zb, dt)
-        want = fused_sparse_conv_q_bias_relu_reference(x.to(dt), zplan, zb, dt)
-        mism = _same_bits(torch, got, want)
-        neg0 = int((torch.signbit(got) & (got == 0)).sum())
-        _emit(phase="int8_stem_relu_cases", out_dtype=str(dt), mismatches=mism,
-              nan=int(got.isnan().sum()), negative_zeros=neg0, zeros=int((got == 0).sum()))
-        if mism or neg0 or not got.isnan().any():
-            raise AssertionError(f"the stem route's relu differs on -0.0/NaN ({dt}): {mism} "
-                                 f"mismatches, {neg0} negative zeros")
-    # the padded quantize pass on conv0's input
-    x0, chan0 = log[0][0], log[0][4]
+    for cin, cout in ((128, 128), (48, 256)):
+        wq, ws = quantize_weight((rng.normal(size=(3, 3, cin, cout)) * 0.05).astype(np.float32))
+        zplan = stem_packing("relu cases", wq, ws, 1, 1)
+        zplan = dataclasses.replace(zplan, x_scale=0.05, w_scale=-zplan.w_scale).to(dev)
+        x = torch.zeros((2, 6, 300, cin), device=dev)
+        x[0, 2, 7, 5] = 1.0
+        zb = torch.full((cout,), -0.0, device=dev)
+        zb[3], zb[4] = float("nan"), 1.0
+        for dt in (torch.float32, torch.bfloat16):
+            got = fused_sparse_conv_q_bias_relu(x.to(dt), zplan, zb, dt)
+            want = fused_sparse_conv_q_bias_relu_reference(x.to(dt), zplan, zb, dt)
+            mism = _same_bits(torch, got, want)
+            neg0 = int((torch.signbit(got) & (got == 0)).sum())
+            _emit(phase="int8_stem_relu_cases", out_dtype=str(dt), narrow=zplan.narrow,
+                  mismatches=mism, nan=int(got.isnan().sum()), negative_zeros=neg0,
+                  zeros=int((got == 0).sum()))
+            if mism or neg0 or not got.isnan().any():
+                raise AssertionError(f"the stem route's relu differs on -0.0/NaN ({dt}, narrow "
+                                     f"{zplan.narrow}): {mism} mismatches, {neg0} negative "
+                                     "zeros")
+    # conv0's quantize pass: through its packing's map padding it to 64
+    # channels (the route's; its -1s are zero vectors), and unpadded
+    x0, p0 = log[0][0], log[0][1]
+    n0, c0 = x0.shape[0], x0.shape[3]
+    chan64, vecs64 = p0.in_chan, p0.in_vecs
+    assert p0.narrow and chan64.numel() == 64 and vecs64.tolist()[-2:] == [-1, -1]
     for scale in (None, fe._stem_x_scale(0)):
-        xq, xs = quantize_activation(x0, scale, chan0)
-        xq_p, xs_p = quantize_activation_reference(select_channels(x0, chan0), scale)
-        same = torch.equal(xq, xq_p) and torch.equal(xs, xs_p)
-        _emit(phase="padded_quantize_vs_plain", shape=list(x0.shape), channels=chan0.numel(),
-              scale="per-frame" if scale is None else "static", bit_equal=same)
-        if not same:
-            raise AssertionError("the padded quantize pass differs from its plain version")
-        del xq, xq_p
+        for chan, vecs in ((None, None), (chan64, vecs64)):
+            xq, xs = quantize_activation(x0, scale, chan, vecs=vecs)
+            xq_p, xs_p = quantize_activation_reference(select_channels(x0, chan), scale)
+            same = torch.equal(xq, xq_p) and torch.equal(xs, xs_p)
+            _emit(phase="conv0_quantize_vs_plain", shape=list(x0.shape),
+                  channels=c0 if chan is None else chan.numel(),
+                  scale="per-frame" if scale is None else "static", bit_equal=same)
+            if not same:
+                raise AssertionError("conv0's quantize pass differs from its plain version")
+            del xq, xq_p
     s0 = fe._stem_x_scale(0)
     pq_turns = _time_turns(torch, {
-        "kernel": lambda: quantize_activation(x0, s0, chan0),
-        "plain": lambda: quantize_activation_reference(select_channels(x0, chan0), s0),
-        "library": lambda: F.pad(x0, (0, chan0.numel() - x0.shape[3])),
-    }, {"kernel": 10, "plain": 3, "library": 10})
-    n0 = x0.shape[0]
-    pq_bound = _bound(x0.numel() * 2 + x0[..., 0].numel() * chan0.numel() + n0 * 4, x0.numel(),
-                      "f32")
-    padded = {"ms": min(pq_turns["kernel"]), "plain_ms": min(pq_turns["plain"]),
-              "pad_copy_ms": min(pq_turns["library"]), "bound_ms": pq_bound[0],
-              "bound_by": pq_bound[1]}
-    _emit(phase="padded_quantize_time", shape=list(x0.shape), scale="static", turns=pq_turns,
-          **padded, card=smi)
+        "map64": lambda: quantize_activation(x0, s0, chan64, vecs=vecs64),
+        "unpadded": lambda: quantize_activation(x0, s0),
+        "plain": lambda: quantize_activation_reference(select_channels(x0, chan64), s0),
+        "pad128": lambda: F.pad(x0, (0, 128 - c0)),
+    }, {"map64": 10, "unpadded": 10, "plain": 3, "pad128": 10})
+    px = x0[..., 0].numel()
+    # static scale: the bf16 x read once, the int8 x and the scales written
+    bound = _bound(x0.numel() * 2 + px * 64 + n0 * 4, x0.numel(), "f32")
+    conv0_q = {"ms": min(pq_turns["map64"]), "unpadded_ms": min(pq_turns["unpadded"]),
+               "plain_ms": min(pq_turns["plain"]), "pad128_ms": min(pq_turns["pad128"]),
+               "bound_ms": bound[0], "bound_by": bound[1]}
+    _emit(phase="conv0_quantize_time", shape=list(x0.shape), scale="static", turns=pq_turns,
+          **conv0_q, card=smi)
     # each conv's served route (static scale) against cuDNN's bf16 conv + bias
     # + ReLU, as the bf16 frontend runs it
-    for i, (x, plan, bias, _, chan, _) in enumerate(log):
+    for i, (x, plan, bias, _, _) in enumerate(log):
         p = dataclasses.replace(plan, x_scale=fe._stem_x_scale(i))
         pd = dataclasses.replace(plan, x_scale=None)
         wp, bias_bf16, plo, phi = fe.convs[i]
         xn = tpoly.nhwc_to_nchw(x)
         turns = _time_turns(torch, {
-            "route": lambda: fused_sparse_conv_q_bias_relu(x, p, bias, torch.bfloat16, chan),
-            "route_per_frame": lambda: fused_sparse_conv_q_bias_relu(x, pd, bias, torch.bfloat16,
-                                                                     chan),
+            "route": lambda: fused_sparse_conv_q_bias_relu(x, p, bias, torch.bfloat16),
+            "route_per_frame": lambda: fused_sparse_conv_q_bias_relu(x, pd, bias,
+                                                                     torch.bfloat16),
             "cudnn": lambda: F.relu_(tpoly._conv(xn, wp, bias_bf16, plo, phi)),
         }, {"route": 10, "route_per_frame": 10, "cudnn": 10})
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        plain(x, p, bias, torch.bfloat16, chan)
+        plain(x, p, bias, torch.bfloat16)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         n, h, w, cin = x.shape
         kh, kw, _, cout = fe.q_convs[i][0].shape
-        # bytes: the bf16 x (its real channels) read once, the live int8
-        # tiles and the f32 bias, the bf16 y written once; operations: the
-        # folded conv's products (its real channels and taps)
-        bound = _bound(x.numel() * 2 + _live_tiles(plan.vals) * 128 * 128 + cout * 4
+        # bytes: the bf16 x (its real channels) read once, the int8 weight
+        # (its real channels and taps) and the f32 bias, the bf16 y written
+        # once; operations: the folded conv's products
+        bound = _bound(x.numel() * 2 + kh * kw * cin * cout + cout * 4
                        + n * h * w * cout * 2, 2 * n * h * w * kh * kw * cin * cout, "int8")
         row = {"conv": i, "shape": [n, h, w, cin], "kernel": [kh, kw], "cout": cout,
-               "ms": min(turns["route"]), "per_frame_ms": min(turns["route_per_frame"]),
+               "narrow": plan.narrow, "ms": min(turns["route"]),
+               "per_frame_ms": min(turns["route_per_frame"]),
                "plain_ms": plain_ms, "library_ms": min(turns["cudnn"]),
                "bound_ms": bound[0], "bound_by": bound[1]}
         convs.append(row)
-        _emit(phase="int8_stem_time", turns=turns, **row, card=smi)
+        _emit(phase="int8_stem_time", turns=turns, **row, bound_share=bound[0] / row["ms"],
+              card=smi)
     del log, x0
     torch.cuda.empty_cache()
-    return {"err": 0.0, "convs": convs, "padded_quantize": padded}
+    return {"err": 0.0, "convs": convs, "conv0_quantize": conv0_q}
 
 
 def _int8_stem_parity_f32(torch, np, params, state, spec, small) -> None:
@@ -1491,9 +1651,8 @@ def _int8_stem_parity_f32(torch, np, params, state, spec, small) -> None:
                       "quantize": quantize_activation.launches,
                       "absmax": quantize_activation.absmax_launches}
     checked = 0
-    for x, plan, bias, dt, chan, y in log:
-        want = fused_sparse_conv_q_bias_relu(x.cpu(), plan.to("cpu"), bias.cpu(), dt,
-                                             None if chan is None else chan.cpu())
+    for x, plan, bias, dt, y in log:
+        want = fused_sparse_conv_q_bias_relu(x.cpu(), plan.to("cpu"), bias.cpu(), dt)
         if _same_bits(torch, y.cpu(), want):
             raise AssertionError("int8 stem conv: CUDA output differs from the CPU plain "
                                  "version on the same activation")
@@ -1523,7 +1682,7 @@ def _int8_stem_full(torch, np, dev, params, state, spec, frames, no_stem_ids, be
     -> launches and numbers."""
     from tpuseg_torch.ops.sparse_conv import (
         fused_sparse_conv_apply, fused_sparse_conv_apply_q, fused_sparse_conv_q_bias_relu,
-        quantize_activation)
+        quantize_activation, sparse_conv_q_kernel, sparse_conv_q_narrow_kernel)
     from tpuseg_torch.ops.upsample import upsample_argmax
     from tpuseg_torch.video.pipeline import VideoSegmenter
 
@@ -1535,20 +1694,28 @@ def _int8_stem_full(torch, np, dev, params, state, spec, frames, no_stem_ids, be
     forwards = 1 + -(-len(frames) // 8)
     torch.cuda.synchronize()
     for f in (fused_sparse_conv_apply_q, fused_sparse_conv_q_bias_relu, fused_sparse_conv_apply,
-              upsample_argmax):
+              upsample_argmax, sparse_conv_q_kernel, sparse_conv_q_narrow_kernel):
         f.launches = 0
     quantize_activation.launches = quantize_activation.absmax_launches = 0
+    quantize_activation.map_launches = 0
     res = serve.run(frames, need_color=False)
     torch.cuda.synchronize()
     got = {"b3": fused_sparse_conv_apply_q.launches,
            "b3_stem": fused_sparse_conv_q_bias_relu.launches,
+           "sparse_conv_q_kernel": sparse_conv_q_kernel.launches,
+           "sparse_conv_q_narrow_kernel": sparse_conv_q_narrow_kernel.launches,
            "quantize": quantize_activation.launches,
            "absmax": quantize_activation.absmax_launches,
+           "quantize_map": quantize_activation.map_launches,
            "b2": fused_sparse_conv_apply.launches, "upsample_argmax": upsample_argmax.launches}
     want = {"b3": (B3_PER_FORWARD["dense"] + B3_STEM_PER_FORWARD) * forwards,
             "b3_stem": B3_STEM_PER_FORWARD * forwards,
+            # conv0 on the narrow kernel, the rest on the 128-wide one
+            "sparse_conv_q_kernel": (B3_PER_FORWARD["dense"] + B3_STEM_PER_FORWARD - 1)
+            * forwards, "sparse_conv_q_narrow_kernel": forwards,
             "quantize": (B3_PER_FORWARD["dense"] + B3_STEM_PER_FORWARD) * forwards,
-            "absmax": 0, "b2": 0, "upsample_argmax": forwards}
+            "absmax": 0, "quantize_map": forwards,  # conv0 through its padding map
+            "b2": 0, "upsample_argmax": forwards}
     out = res["ids"]
     assert out.shape == (len(frames),) + FULL and out.dtype == np.uint8, (out.shape, out.dtype)
     assert int(out.max()) < CLASSES
@@ -1697,7 +1864,8 @@ def _budget_full(torch, np, dev, masked, state, spec, gplans, calib, inputs, smi
     promoted count equal to the CPU plain selection on the same frames, then
     ``benchmark_adaptive_device_fps`` on them."""
     from tpuseg_torch.ops.sparse_conv import (
-        fused_sparse_conv_apply, fused_sparse_conv_apply_q, quantize_activation)
+        fused_sparse_conv_apply, fused_sparse_conv_apply_q, quantize_activation,
+        sparse_conv_q_kernel, sparse_conv_q_narrow_kernel)
     from tpuseg_torch.ops.temporal import budget_select, frame_deltas
     from tpuseg_torch.ops.upsample import upsample_argmax
     from tpuseg_torch.video.pipeline import VideoSegmenter
@@ -1708,7 +1876,7 @@ def _budget_full(torch, np, dev, masked, state, spec, gplans, calib, inputs, smi
                          batch=BUDGET_BATCH, exec_plans=gplans, quantize=True, calib_frames=calib,
                          temporal_thresh=thresh, temporal_budget=BUDGET_K)
     counters = (fused_sparse_conv_apply_q, fused_sparse_conv_apply, upsample_argmax,
-                frame_deltas, budget_select)
+                frame_deltas, budget_select, sparse_conv_q_kernel, sparse_conv_q_narrow_kernel)
     torch.cuda.synchronize()
     for f in counters:
         f.launches = 0
@@ -1720,6 +1888,8 @@ def _budget_full(torch, np, dev, masked, state, spec, gplans, calib, inputs, smi
     got["absmax"] = quantize_activation.absmax_launches
     forwards = 1 + len(frames) // BUDGET_BATCH  # run()'s untimed call + the batches
     want = {"fused_sparse_conv_apply_q": B3_PER_FORWARD["gathered"] * forwards,
+            "sparse_conv_q_kernel": B3_PER_FORWARD["gathered"] * forwards,
+            "sparse_conv_q_narrow_kernel": 0,
             "fused_sparse_conv_apply": 0, "upsample_argmax": forwards,
             "frame_deltas": forwards, "budget_select": forwards,
             "quantize_activation": B3_PER_FORWARD["gathered"] * forwards, "absmax": 0}
@@ -2751,11 +2921,12 @@ PRETRAINED_SIZE = (128, 256)
 
 def _counters():
     """{name: wrapper} of every launch counter on the served and trained
-    paths (B1, B2 served and in training, B3 and its stem route, the quantize
-    pass, K3-K8)."""
+    paths (B1, B2 served and in training, B3's entry points and its two
+    kernels, the stem route, the quantize pass, K3-K8)."""
     from tpuseg_torch.ops import sparse_train as tst
-    from tpuseg_torch.ops.sparse_conv import (fused_sparse_conv_apply, fused_sparse_conv_apply_q,
-                                              fused_sparse_conv_q_bias_relu, quantize_activation)
+    from tpuseg_torch.ops.sparse_conv import (
+        fused_sparse_conv_apply, fused_sparse_conv_apply_q, fused_sparse_conv_q_bias_relu,
+        quantize_activation, sparse_conv_q_kernel, sparse_conv_q_narrow_kernel)
     from tpuseg_torch.ops.temporal import budget_select, frame_deltas, keyframe_select
     from tpuseg_torch.ops.upsample import upsample_argmax
     from tpuseg_torch.video.flow import estimate_block_shifts, warp_ids
@@ -2763,6 +2934,7 @@ def _counters():
 
     fns = (upsample_argmax, fused_sparse_conv_apply, tst.sparse_conv_train_forward,
            tst.sparse_conv_train_dgrad, fused_sparse_conv_apply_q, fused_sparse_conv_q_bias_relu,
+           sparse_conv_q_kernel, sparse_conv_q_narrow_kernel,
            quantize_activation, frame_deltas, budget_select, keyframe_select,
            estimate_block_shifts, warp_ids, i420_to_rgb_flat)
     return {f.__name__: f for f in fns}
@@ -2790,19 +2962,23 @@ def _trained_fidelity(torch, out_dir, smi) -> dict:
     before each stage and read just after; each stage's report row and
     seconds.  Gates: the exact rows agree with themselves, every GT mIoU in
     [0, 100], the train stage's val mIoU >= FIDELITY_TRAIN_MIN, the int8 rows
-    >= INT8_TRAINED_MIN against their exact baseline, and the kernels
-    launched where their modes ran."""
+    >= INT8_TRAINED_MIN against their exact baseline, the kernels
+    launched where their modes ran, and each B3 launch on one of its two
+    kernels (the narrow one for the stem's conv0 alone)."""
     from tpuseg_torch.tools import trained_fidelity
 
     counters = _counters()
+    qpass = counters["quantize_activation"]
     stages, launches = {}, {}
     for stage, flags in FIDELITY_STAGES:
         _zero_counts(torch, *counters.values())
+        qpass.map_launches = 0
         t0 = time.perf_counter()
         _, text = _quiet(trained_fidelity.main, ["--stage", stage, "--out", out_dir] + flags)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches[stage] = {k: f.launches for k, f in counters.items()}
+        launches[stage]["quantize_map"] = qpass.map_launches
         with open(f"{out_dir}/report.json") as fh:
             stages[stage] = next(r for r in json.load(fh) if r["stage"] == stage)
         _emit(phase="trained_fidelity", stage=stage, seconds=round(seconds, 1),
@@ -2835,9 +3011,16 @@ def _trained_fidelity(torch, out_dir, smi) -> dict:
     missing = {st: [k for k in ks if not launches[st][k] > 0] for st, ks in need.items()}
     if any(missing.values()):
         raise AssertionError(f"kernels not launched in their stages: {missing}")
+    # each B3 launch on one of its two kernels; the narrow one only for the
+    # stem's conv0, once a stem forward
+    for st, c in launches.items():
+        if (c["sparse_conv_q_kernel"] + c["sparse_conv_q_narrow_kernel"]
+                != c["fused_sparse_conv_apply_q"] or c["sparse_conv_q_narrow_kernel"]
+                * FRONTEND_STEM_CONVS != c["fused_sparse_conv_q_bias_relu"]):
+            raise AssertionError(f"trained_fidelity {st}: B3's kernels {c}")
     _emit(phase="trained_fidelity_gates", train_val_miou=stages["train"]["val_miou"],
           int8_agreement=int8, gt_miou_range=[min(mious), max(mious)], card=smi)
-    total = {k: sum(launches[st][k] for st in launches) for k in counters}
+    total = {k: sum(launches[st][k] for st in launches) for k in [*counters, "quantize_map"]}
     return {"stages": stages, "launches": launches, "total": total}
 
 
@@ -2934,7 +3117,8 @@ CLS_SMALL_MAPS = ((32, 28, 28), (8, 4, 4))  # B2's classifier maps at 224 and 32
 CLS_SMALL_DILATIONS = (1, 2, 4)
 CLS_SYNTHETIC_N = 256  # the CLIs' --synthetic-n: 4 batches of 64
 CLS_CLI_BATCH = 64
-R20_PADDED_PER_FORWARD = 16  # cifar_resnet20's int8 plans at stride-1 call sites
+R20_NARROW_PER_FORWARD = 16  # cifar_resnet20's int8 plans at stride-1 call sites
+R20_MAP_PER_FORWARD = 6      # its layer1 convs: 16 channels padded to K = 32 through a map
 D22_INT8_PER_FORWARD = 13    # drn_d_22's int8 plans (stages 4-8, >= 128 channels)
 CLS_ACC_MIN = 0.5    # cls stage accuracies (chance 0.1)
 
@@ -3121,18 +3305,21 @@ def _cls_training(torch, np, dev, rng, workdir, smi) -> dict:
 
 def _cls_cli(torch, label, fn, argv, counters, smi) -> tuple:
     """``fn(argv)`` (a CLI's ``main``) in this process with every counter in
-    ``counters`` and B3's padded-route count (``quant_conv_apply.
-    padded_launches``, read as ``padded_b3``) zeroed just before and read
+    ``counters``, B3's narrow-route count (``quant_conv_apply.
+    narrow_launches``, read as ``narrow_b3``) and the quantize passes
+    through a channel map (``quantize_map``) zeroed just before and read
     just after: (its result, its JSON lines, the counts)."""
     from tpuseg_torch.ops.quant import quant_conv_apply
+    from tpuseg_torch.ops.sparse_conv import quantize_activation
 
     _zero_counts(torch, *counters)
-    quant_conv_apply.padded_launches = 0
+    quant_conv_apply.narrow_launches = quantize_activation.map_launches = 0
     t0 = time.perf_counter()
     out, text = _quiet(fn, argv)
     torch.cuda.synchronize()
     counts = {f.__name__: f.launches for f in counters}
-    counts["padded_b3"] = quant_conv_apply.padded_launches
+    counts["narrow_b3"] = quant_conv_apply.narrow_launches
+    counts["quantize_map"] = quantize_activation.map_launches
     lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
     _emit(phase="cls_cli", run=label, argv=argv, seconds=round(time.perf_counter() - t0, 1),
           lines=lines[-3:], progress=[ln for ln in text.splitlines() if "\t" in ln][-2:],
@@ -3198,39 +3385,67 @@ def _quant_convs_bit_equal(torch, label, recorded, plans, smi, dtypes=None) -> i
     return len(recorded)
 
 
-def _padded_b3_time(torch, recorded, smi) -> dict:
-    """B3's padded route (``quant_conv_apply`` on cifar_resnet20's 16
-    channel layer1 conv, padded to 128) timed at its recorded f32 input
-    (64, 32, 32, 16) against its plain version and cuDNN's bf16 conv of the
-    same shape."""
+def _narrow_b3_times(torch, recorded, smi) -> dict:
+    """B3's narrow route (``quant_conv_apply`` on cifar_resnet20's 3x3 convs
+    of each width: 16 on 32x32 maps, 32 on 16x16, 64 on 8x8) timed at its
+    recorded f32 input (batch ``CLS_CLI_BATCH``) against its plain version
+    and cuDNN's bf16 conv of the same shape, with the route's quantize pass
+    alone (through the packing's padding map where it has one; its bound:
+    x read once, the int8 x and the scales written) beside it, and the route's
+    and cuDNN's device time from CUDA graphs (``graph_ms``).  -> the rows by
+    width, and the 16-wide one's numbers for the kernels line."""
     import torch.nn.functional as F
 
+    from tpuseg_torch.ab_sparse_conv import graph_ms
     from tpuseg_torch.ops.quant import quant_conv_apply, quant_conv_reference
+    from tpuseg_torch.ops.sparse_conv import b3_narrow_tile, quantize_activation
 
-    plan, _, xin, _ = next(r for r in recorded if r[2].dtype == torch.float32
-                           and tuple(r[2].shape) == (CLS_CLI_BATCH, 32, 32, 16)
-                           and tuple(r[0].w_q.shape) == (3, 3, 16, 16))
-    w_b = plan.w_q.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
-        memory_format=torch.channels_last)
-    x_b = xin.to(torch.bfloat16).permute(0, 3, 1, 2)
-    turns = _time_turns(torch, {
-        "padded_route": lambda: quant_conv_apply(xin, plan),
-        "plain": lambda: quant_conv_reference(xin, plan),
-        "cudnn_bf16": lambda: F.conv2d(x_b, w_b, None, 1, 1),
-    }, {"padded_route": 20, "plain": 3, "cudnn_bf16": 20})
-    n, h, w, c = xin.shape
-    cout = plan.w_q.shape[3]
-    pixels = n * h * w
-    # the function: f32 x read once, the int8 weight and scales, f32 y
-    # written once; 9 * cin * cout int8 products a pixel
-    bound = _bound(xin.numel() * 4 + plan.w_q.numel() + cout * 4 + pixels * cout * 4,
-                   2 * pixels * 9 * c * cout, "int8")
-    _emit(phase="cls_b3_padded", conv="layer1 3x3 16->16", shape=[n, h, w, c], cout=cout,
-          packed=[plan.packed.cin, plan.packed.cout], ms=turns, bound_ms=bound[0],
-          bound_by=bound[1], card=smi)
-    return {"ms": min(turns["padded_route"]), "plain_ms": min(turns["plain"]),
-            "library_ms": min(turns["cudnn_bf16"]), "bound_ms": bound[0],
-            "bound_by": bound[1], "max_abs_err": 0.0}
+    rows = {}
+    for c, side in ((16, 32), (32, 16), (64, 8)):
+        plan, _, xin, _ = next(r for r in recorded if r[2].dtype == torch.float32
+                               and tuple(r[2].shape) == (CLS_CLI_BATCH, side, side, c)
+                               and tuple(r[0].w_q.shape) == (3, 3, c, c))
+        pk = plan.packed
+        w_b = plan.w_q.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        x_b = xin.to(torch.bfloat16).permute(0, 3, 1, 2)
+        turns = _time_turns(torch, {
+            "narrow_route": lambda: quant_conv_apply(xin, plan),
+            "quantize": lambda: quantize_activation(xin, pk.x_scale, pk.in_chan,
+                                                    vecs=pk.in_vecs),
+            "plain": lambda: quant_conv_reference(xin, plan),
+            "cudnn_bf16": lambda: F.conv2d(x_b, w_b, None, 1, 1),
+        }, {"narrow_route": 20, "quantize": 20, "plain": 3, "cudnn_bf16": 20})
+        n, h, w, _ = xin.shape
+        pixels = n * h * w
+        # the function: f32 x read once, the int8 weight and scales, f32 y
+        # written once; 9 * cin * cout int8 products a pixel
+        bound = _bound(xin.numel() * 4 + plan.w_q.numel() + c * 4 + pixels * c * 4,
+                       2 * pixels * 9 * c * c, "int8")
+        # the quantize pass: f32 x read once, the int8 x (as wide as the
+        # packing's map) and the scales written
+        cq = c if pk.in_chan is None else pk.in_chan.numel()
+        q_bound = _bound(xin.numel() * 4 + pixels * cq + n * 4, pixels * cq, "f32")
+        # the route's and cuDNN's device time, 20 calls in one CUDA graph:
+        # back to back, the small convs' calls are paced by their host work
+        device = {"route_device_ms": min(graph_ms(lambda: quant_conv_apply(xin, plan), 20)
+                                         for _ in range(2)),
+                  "cudnn_device_ms": min(graph_ms(lambda: F.conv2d(x_b, w_b, None, 1, 1), 20)
+                                         for _ in range(2))}
+        row = {"ms": min(turns["narrow_route"]), "plain_ms": min(turns["plain"]),
+               "library_ms": min(turns["cudnn_bf16"]), "bound_ms": bound[0],
+               "bound_by": bound[1], "quantize_ms": min(turns["quantize"]),
+               "quantize_bound_ms": q_bound[0], "max_abs_err": 0.0, **device}
+        rows[c] = row
+        _emit(phase="cls_b3_narrow", conv=f"3x3 {c}->{c}", shape=[n, h, w, c],
+              packing=[plan.packed.bk, plan.packed.bm], tile=list(b3_narrow_tile(n, h, w)),
+              ms=turns, **{k: v for k, v in row.items() if not k.endswith("ms")},
+              bound_ms=bound[0], quantize_bound_ms=q_bound[0], **device, card=smi)
+    # the kernels line: the 16-wide conv's device times (route, cuDNN), so
+    # that ms and library_ms stand beside the bound as the card's work
+    main = rows[16]
+    return {"by_width": rows, **main, "ms": main["route_device_ms"],
+            "library_ms": main["cudnn_device_ms"]}
 
 
 def _cls_clis(torch, np, workdir, smi) -> dict:
@@ -3239,13 +3454,14 @@ def _cls_clis(torch, np, workdir, smi) -> dict:
     ``rmbsnn -a drn_d_22 --sparse-exec`` on the classifier config (bf16, 1
     epoch of 4 steps: B2 twice per eligible conv a step, never served); ``-a
     cifar_resnet20 --evaluate --quantize`` in f32 and in bf16 (int8_layers
-    >= 20, the padded B3 route launched 16 times a forward, B3 and the
-    quantize pass once per padded launch); ``-a drn_d_22 --evaluate
+    >= 20, B3's narrow route launched 16 times a forward, B3 and the
+    quantize pass once per narrow launch); ``-a drn_d_22 --evaluate
     --quantize`` in f32 and in bf16 (13 int8 plans at the classifier's
     4x4-2x2 maps, d = 2 and 4: B3 13 times a forward, unpadded).  Every
     ``QuantConv`` dispatch of those four runs is recorded and held bit-equal
     to its plain version on the card (``_quant_convs_bit_equal``), and the
-    padded route is timed (``_padded_b3_time``); ``imagenet_train
+    narrow route is timed at each of r20's widths (``_narrow_b3_times``);
+    ``imagenet_train
     --dataset synthetic``;
     ``seg_video --pretrained x.pth`` on a reference-layout ``.pth`` this
     phase writes: ids equal to the same weights' npz, unequal to the random
@@ -3254,12 +3470,14 @@ def _cls_clis(torch, np, workdir, smi) -> dict:
     from tpuseg_torch.models.drn import jax_key
     from tpuseg_torch.models.drnseg import init_drnseg
     from tpuseg_torch.ops import sparse_train as tst
-    from tpuseg_torch.ops.sparse_conv import (fused_sparse_conv_apply, fused_sparse_conv_apply_q,
-                                              quantize_activation)
+    from tpuseg_torch.ops.sparse_conv import (
+        fused_sparse_conv_apply, fused_sparse_conv_apply_q, quantize_activation,
+        sparse_conv_q_kernel, sparse_conv_q_narrow_kernel)
     from tpuseg_torch.train import save_checkpoint
 
     counters = (tst.sparse_conv_train_forward, tst.sparse_conv_train_dgrad,
-                fused_sparse_conv_apply, fused_sparse_conv_apply_q, quantize_activation)
+                fused_sparse_conv_apply, fused_sparse_conv_apply_q, quantize_activation,
+                sparse_conv_q_kernel, sparse_conv_q_narrow_kernel)
     _, cfg_path = _cls_config(workdir)
     total = Counter()
     synthetic = ["--dataset", "synthetic", "--synthetic-n", str(CLS_SYNTHETIC_N), "-b",
@@ -3280,7 +3498,7 @@ def _cls_clis(torch, np, workdir, smi) -> dict:
     if not math.isfinite(lines[-1]["train_loss"]):
         raise AssertionError(f"rmbsnn --sparse-exec epoch line {lines[-1]}")
     total.update(c)
-    # rmbsnn --evaluate --quantize in f32 and bf16: the zoo's padded route,
+    # rmbsnn --evaluate --quantize in f32 and bf16: the zoo's narrow route,
     # then DRN-D-22's, every QuantConv dispatch recorded
     recorded = {"r20": [], "d22": []}
     res, res_d = {}, {}
@@ -3290,9 +3508,12 @@ def _cls_clis(torch, np, workdir, smi) -> dict:
                 "-a", "cifar_resnet20", "--evaluate", "--quantize", "--dtype", dtype],
             counters, smi))
         recorded["r20"] += rec
-        padded = R20_PADDED_PER_FORWARD * val_batches
-        if not (res[dtype]["int8_layers"] >= 20 and c["padded_b3"] == padded
-                and c["fused_sparse_conv_apply_q"] == c["quantize_activation"] == padded):
+        narrow = R20_NARROW_PER_FORWARD * val_batches
+        if not (res[dtype]["int8_layers"] >= 20 and c["narrow_b3"] == narrow
+                and c["fused_sparse_conv_apply_q"] == c["quantize_activation"] == narrow
+                and c["sparse_conv_q_narrow_kernel"] == narrow
+                and c["sparse_conv_q_kernel"] == 0
+                and c["quantize_map"] == R20_MAP_PER_FORWARD * val_batches):
             raise AssertionError(f"rmbsnn cifar_resnet20 --quantize --dtype {dtype}: "
                                  f"{res[dtype]}, launches {c}")
         total.update(c)
@@ -3302,15 +3523,17 @@ def _cls_clis(torch, np, workdir, smi) -> dict:
         recorded["d22"] += rec
         b3 = D22_INT8_PER_FORWARD * val_batches
         if not (res_d[dtype]["int8_layers"] == D22_INT8_PER_FORWARD
-                and c["fused_sparse_conv_apply_q"] == b3 and c["padded_b3"] == 0):
+                and c["fused_sparse_conv_apply_q"] == b3 and c["narrow_b3"] == 0
+                and c["sparse_conv_q_kernel"] == b3 and c["sparse_conv_q_narrow_kernel"] == 0
+                and c["quantize_map"] == 0):
             raise AssertionError(f"rmbsnn drn_d_22 --quantize --dtype {dtype}: "
                                  f"{res_d[dtype]}, launches {c}")
         total.update(c)
     checked = {"r20": _quant_convs_bit_equal(torch, "cifar_resnet20", recorded["r20"],
-                                             R20_PADDED_PER_FORWARD, smi),
+                                             R20_NARROW_PER_FORWARD, smi),
                "d22": _quant_convs_bit_equal(torch, ARCH, recorded["d22"],
                                              D22_INT8_PER_FORWARD, smi)}
-    padded_t = _padded_b3_time(torch, recorded["r20"], smi)
+    narrow_t = _narrow_b3_times(torch, recorded["r20"], smi)
     del recorded
     # imagenet_train, 1 epoch
     line, _, c = _cls_cli(torch, "imagenet_train", imagenet_train.main, synthetic + [
@@ -3335,7 +3558,7 @@ def _cls_clis(torch, np, workdir, smi) -> dict:
           differs_from_random=differ, card=smi)
     if not (same and differ):
         raise AssertionError(f"seg_video --pretrained .pth: equal {same}, differs {differ}")
-    return {"launches": dict(total), "padded": padded_t, "r20_int8": res, "d22_int8": res_d,
+    return {"launches": dict(total), "narrow": narrow_t, "r20_int8": res, "d22_int8": res_d,
             "bit_equal_checked": checked}
 
 
@@ -3393,7 +3616,7 @@ BENCH_METRICS = {  # mode -> the metric names it prints, in order (bench_sparse.
                    "conv1split_ms"],
 }
 FRONTEND_STEM_CONVS = 3  # B3's stem route in both int8 rows
-FRONTEND_STAGE3_CONVS = 5  # B3's padded route in int8_stem_stage3
+FRONTEND_STAGE3_CONVS = 5  # B3's narrow route in int8_stem_stage3
 TRAINER_B2_CONVS = 10
 BENCH_LOOPS = 2  # each time_loop: the untimed loop and one timed
 
@@ -3408,10 +3631,12 @@ def _bench_counters():
     out = {f.__name__: (f, "launches") for f in (
         upsample_argmax, sc.fused_sparse_conv_apply, sc.fused_sparse_conv_apply_q,
         sc.fused_sparse_conv_q_bias_relu, sc.quantize_activation, tst.sparse_conv_train_forward,
-        tst.sparse_conv_train_dgrad, sc.bsr_matmul_xw,
+        tst.sparse_conv_train_dgrad, sc.bsr_matmul_xw, sc.sparse_conv_q_kernel,
+        sc.sparse_conv_q_narrow_kernel,
         *(getattr(sc, name) for name in B7_ENTRIES))}
     out["absmax"] = (sc.quantize_activation, "absmax_launches")
-    out["padded_b3"] = (quant_conv_apply, "padded_launches")
+    out["narrow_b3"] = (quant_conv_apply, "narrow_launches")
+    out["quantize_map"] = (sc.quantize_activation, "map_launches")
     return out
 
 
@@ -3421,7 +3646,11 @@ def _plan_launches(plans) -> Counter:
     ``CompactSparse``; B3 and its quantize pass once for each int8 plan
     (``QuantConv``, ``FusedSparseConvQ``, ``CompactSparseQ``,
     ``GatheredGroupConvQ``), the absmax pass too where its scale is per
-    frame, and ``padded_b3`` for a ``QuantConv`` on a padded packing; none
+    frame, the 128-wide or the narrow kernel (``sparse_conv_q_kernel``,
+    ``sparse_conv_q_narrow_kernel``) by its packing, ``narrow_b3`` for a
+    ``QuantConv`` on a narrow packing and
+    ``quantize_map`` for a ``CompactSparseQ`` (its channel map) or a narrow
+    packing padded through its map; none
     for the float gathered and RBGP plans, which run cuDNN's and cuBLAS's."""
     from tpuseg_torch.models.sparse_exec import CompactSparse, CompactSparseQ
     from tpuseg_torch.ops.gathered_conv import GatheredGroupConvQ
@@ -3444,8 +3673,9 @@ def _plan_launches(plans) -> Counter:
         out["fused_sparse_conv_apply_q"] += 1
         out["quantize_activation"] += 1
         out["absmax"] += packed.x_scale is None
-        out["padded_b3"] += isinstance(p, QuantConv) and (
-            packed.cout != p.w_q.shape[3] or p.chan is not None)
+        out["narrow_b3"] += isinstance(p, QuantConv) and packed.narrow
+        out["sparse_conv_q_narrow_kernel" if packed.narrow else "sparse_conv_q_kernel"] += 1
+        out["quantize_map"] += isinstance(p, CompactSparseQ) or packed.in_chan is not None
     return out
 
 
@@ -3465,8 +3695,8 @@ def _frontend_stage3_bit_equal(torch, np, dev, smi) -> int:
     """Phase 40: one forward of ``--frontend``'s ``int8_stem_stage3`` row on
     the bench's first frame, every input of its five stage-3 int8 convs
     recorded (block 0's 2x2 conv1 embedded in a 3x3 kernel and its 1x1
-    downsample, 128 -> 64; the three 3x3 64 -> 64 convs; all on padded B3
-    packings), then each conv's ``quant_conv_apply`` on the card (kernel
+    downsample, 128 -> 64; the three 3x3 64 -> 64 convs; all on B3's
+    narrow packings, N = 64), then each conv's ``quant_conv_apply`` on the card (kernel
     B3) held bit-equal to ``quant_conv_reference`` on the same bf16 input."""
     from tpuseg_torch import bench_sparse as bs
     from tpuseg_torch.models.drnseg import init_drnseg
@@ -3503,7 +3733,7 @@ def _bench_modes(torch, np, dev, smi) -> dict:
     metric names and keys, finite values; each loop's launches exactly
     (--model: B1 once a frame, B2, B3, the quantize and absmax passes as
     ``_plan_launches`` counts each row's plans; --frontend: B3's stem route
-    3 times a frame in both int8 rows and its padded route 5 times in
+    3 times a frame in both int8 rows and its narrow route 5 times in
     int8_stem_stage3, static scales; --train: B2's forward once a step of
     the sparse loop, no dgrad, its gradient being w's alone; --trainer:
     B2's two training roles 10 times a step of the sparse loop; --rmcdb,
@@ -3575,13 +3805,18 @@ def _bench_modes(torch, np, dev, smi) -> dict:
     _check_loops("model", benches["model"].loops, [
         {"upsample_argmax": frame, **{k: frame * v for k, v in _plan_launches(plans).items()}}
         for _, plans in plan_rows])
-    stem = {"fused_sparse_conv_q_bias_relu": frame * FRONTEND_STEM_CONVS}
+    # conv0's narrow packing quantizes its 48 channels through its padding
+    # map and runs on the narrow kernel, conv1 and conv2 on the 128-wide one
+    stem = {"fused_sparse_conv_q_bias_relu": frame * FRONTEND_STEM_CONVS, "quantize_map": frame,
+            "sparse_conv_q_kernel": frame * (FRONTEND_STEM_CONVS - 1)}
     b3_stage3 = frame * (FRONTEND_STEM_CONVS + FRONTEND_STAGE3_CONVS)
     _check_loops("frontend", benches["frontend"].loops, [
         {}, {**stem, "fused_sparse_conv_apply_q": frame * FRONTEND_STEM_CONVS,
-             "quantize_activation": frame * FRONTEND_STEM_CONVS},
+             "quantize_activation": frame * FRONTEND_STEM_CONVS,
+             "sparse_conv_q_narrow_kernel": frame},
         {**stem, "fused_sparse_conv_apply_q": b3_stage3, "quantize_activation": b3_stage3,
-         "padded_b3": frame * FRONTEND_STAGE3_CONVS}])
+         "narrow_b3": frame * FRONTEND_STAGE3_CONVS,
+         "sparse_conv_q_narrow_kernel": frame * (1 + FRONTEND_STAGE3_CONVS)}])
     train = BENCH_LOOPS * bs.TRAIN_INNER
     _check_loops("train", benches["train"].loops, [{}, {"sparse_conv_train_forward": train}])
     trainer = BENCH_LOOPS * bs.TRAINER_INNER * TRAINER_B2_CONVS
@@ -3599,13 +3834,14 @@ def _bench_modes(torch, np, dev, smi) -> dict:
             raise AssertionError(f"bench_sparse {m}: launches {launches[m]} outside its loops "
                                  f"{dict(total)}")
     want = {k: BENCH_LOOPS * bs.INNER * len(bs.SPARSITIES) for k in (
-        "fused_sparse_conv_apply", "fused_sparse_conv_apply_q", "quantize_activation",
-        *B7_ENTRIES)}
+        "fused_sparse_conv_apply", "fused_sparse_conv_apply_q", "sparse_conv_q_kernel",
+        "quantize_activation", *B7_ENTRIES)}
     want["phase_sparse_conv_apply"] += BENCH_LOOPS * bs.INNER  # density 1.0
     wrong = {k: (launches["fused"][k], v) for k, v in want.items() if launches["fused"][k] != v}
-    if wrong or launches["fused"]["absmax"]:
+    if wrong or launches["fused"]["absmax"] or launches["fused"]["sparse_conv_q_narrow_kernel"]:
         raise AssertionError(f"bench_sparse fused: launches (got, want) {wrong}, absmax "
-                             f"{launches['fused']['absmax']}")
+                             f"{launches['fused']['absmax']}, narrow B3 "
+                             f"{launches['fused']['sparse_conv_q_narrow_kernel']}")
     rows = {m: benches[m].rows for m in BENCH_MODES}
     return {"rows": rows, "launches": launches, "seconds": seconds}
 
@@ -3917,7 +4153,8 @@ def _serving_mesh(torch, np, dev, params, state, spec, frames, smi) -> dict:
     batch 4; B1, B3 and the quantize pass launched exactly once per
     replica forward; a replica copied to the card gives the same ids; a
     Pallas-lowered plan refused."""
-    from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_apply_q, quantize_activation
+    from tpuseg_torch.ops.sparse_conv import (fused_sparse_conv_apply_q, quantize_activation,
+                                              sparse_conv_q_kernel, sparse_conv_q_narrow_kernel)
     from tpuseg_torch.ops.upsample import upsample_argmax
     from tpuseg_torch.parallel import make_mesh
     from tpuseg_torch.video.pipeline import VideoSegmenter
@@ -3925,7 +4162,8 @@ def _serving_mesh(torch, np, dev, params, state, spec, frames, smi) -> dict:
     mesh = make_mesh(data=2, devices=[dev, dev])
     served = frames[:MESH_BATCH]
     calib = frames[MESH_BATCH:MESH_BATCH + 4]
-    counters = (upsample_argmax, fused_sparse_conv_apply_q, quantize_activation)
+    counters = (upsample_argmax, fused_sparse_conv_apply_q, quantize_activation,
+                sparse_conv_q_kernel, sparse_conv_q_narrow_kernel)
 
     def serve(quantize, batch, on_mesh):
         seg = VideoSegmenter(params, state, spec, MEAN, STD, device=dev,
@@ -3970,14 +4208,19 @@ def _serving_mesh(torch, np, dev, params, state, spec, frames, smi) -> dict:
         if m["launches"] != want or m["per_forward"] != [2 * n for n in one4["per_forward"]]:
             raise AssertionError(f"{tag}: launches on the mesh {m['launches']} "
                                  f"(a forward {m['per_forward']}), want {want}")
-        if quantize and not (m["launches"][1] > 0 and m["launches"][2] == m["launches"][1]):
-            raise AssertionError(f"int8: B3 {m['launches'][1]}, quantize {m['launches'][2]}")
+        # B3's every launch on its 128-wide kernel
+        if quantize and not (m["launches"][1] > 0
+                             and m["launches"][1] == m["launches"][2] == m["launches"][3]
+                             and m["launches"][4] == 0):
+            raise AssertionError(f"int8: B3 {m['launches'][1]}, quantize {m['launches'][2]}, "
+                                 f"its kernels {m['launches'][3:]}")
         one8 = serve(quantize, MESH_BATCH, False)
         agree = _agreement(m["ids"], one8["ids"])
         if quantize and agree < 0.99:
             raise AssertionError(f"int8 mesh vs one device (batch 8) agreement {agree} < 0.99")
-        out[tag] = {"launches": dict(zip(("upsample_argmax", "sparse_conv_q", "quantize"),
-                                         m["launches"])),
+        out[tag] = {"launches": dict(zip(("upsample_argmax", "b3", "quantize",
+                                          "sparse_conv_q_kernel",
+                                          "sparse_conv_q_narrow_kernel"), m["launches"])),
                     "agreement_vs_batch8": agree, "mesh_seconds": m["seconds"],
                     "one_device_seconds": one8["seconds"], "mesh_fps": m["fps"],
                     "one_device_fps": one8["fps"]}
@@ -3995,7 +4238,9 @@ def _serving_mesh(torch, np, dev, params, state, spec, frames, smi) -> dict:
           pallas_refused=refused, card=smi)
     return {"upsample_argmax": out["f32"]["launches"]["upsample_argmax"]
             + out["int8"]["launches"]["upsample_argmax"],
-            "fused_sparse_conv_apply_q": out["int8"]["launches"]["sparse_conv_q"],
+            "fused_sparse_conv_apply_q": out["int8"]["launches"]["b3"],
+            "sparse_conv_q_kernel": out["int8"]["launches"]["sparse_conv_q_kernel"],
+            "sparse_conv_q_narrow_kernel": out["int8"]["launches"]["sparse_conv_q_narrow_kernel"],
             "quantize_activation": out["int8"]["launches"]["quantize"]}
 
 
@@ -4373,12 +4618,14 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
     # 10. B3 vs its exact plain version on the card, bit-equal
     from tpuseg_torch.ops.fold_bn import fold_bn
     from tpuseg_torch.ops.quant import build_quant_plans
-    from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_apply_q
+    from tpuseg_torch.ops.sparse_conv import (fused_sparse_conv_apply_q, sparse_conv_q_kernel,
+                                              sparse_conv_q_narrow_kernel)
 
     dense_int8 = build_quant_plans(fold_bn(params, state, spec), spec)
     served = _served_b3_plans(dense_int8, plans, gplans, fold_bn(masked, state, spec))
     quantize_err = _quantize_vs_cpu(torch, np, dev, rng)
     b3_err = _b3_vs_plain(torch, np, dev, rng, served)
+    map_times = _quantize_map_times(torch, dev, served, smi)
     del served
     torch.cuda.empty_cache()
 
@@ -4395,7 +4642,7 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
         "gathered": (masked, gplans, None, pruned_ids),
     }
     forwards = 1 + -(-len(frames) // 8)
-    b3_launches = q_launches = 0
+    b3_launches = q_launches = map_launches = 0
     int8_ids = {}
     for label, (vparams, vplans, calib, float_ids) in int8_variants.items():
         serve = VideoSegmenter(vparams, state, spec, MEAN, STD, device=dev,
@@ -4408,15 +4655,17 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
                 raise AssertionError(f"calibrated: {len(static)} of {len(serve.exec_plans)} "
                                      "int8 plans carry a static scale; want 13 of 13")
         torch.cuda.synchronize()
-        fused_sparse_conv_apply_q.launches = 0
-        fused_sparse_conv_apply.launches = 0
-        upsample_argmax.launches = 0
+        _zero_counts(torch, fused_sparse_conv_apply_q, fused_sparse_conv_apply, upsample_argmax,
+                     sparse_conv_q_kernel, sparse_conv_q_narrow_kernel)
         quantize_activation.launches = quantize_activation.absmax_launches = 0
+        quantize_activation.map_launches = 0
         res = serve.run(frames, need_color=False)
         torch.cuda.synchronize()
         b3, b2, up = (fused_sparse_conv_apply_q.launches, fused_sparse_conv_apply.launches,
                       upsample_argmax.launches)
+        wide, narrow = sparse_conv_q_kernel.launches, sparse_conv_q_narrow_kernel.launches
         quant, absmax = quantize_activation.launches, quantize_activation.absmax_launches
+        qmap = quantize_activation.map_launches
         out = res["ids"]
         assert out.shape == (32,) + FULL and out.dtype == np.uint8, (out.shape, out.dtype)
         assert int(out.max()) < CLASSES
@@ -4424,12 +4673,21 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
             raise AssertionError(f"int8 {label}: B3 {b3}, B2 {b2}, upsample_argmax {up} "
                                  f"launches; want {B3_PER_FORWARD[label] * forwards}, 0, "
                                  f"{forwards}")
+        # every launch on B3's 128-wide kernel
+        if wide != b3 or narrow != 0:
+            raise AssertionError(f"int8 {label}: B3 {b3} launches, its kernels: 128-wide "
+                                 f"{wide}, narrow {narrow}")
         # one quantize pass per B3 launch; the absmax pass only without static scales
         if quant != b3 or absmax != (0 if calib is not None else b3):
             raise AssertionError(f"int8 {label}: quantize {quant}, absmax {absmax} launches "
                                  f"for {b3} B3 launches")
+        # the quantize passes through a channel map: CompactSparseQ's, one a forward each
+        if qmap != MAP_PER_FORWARD[label] * forwards:
+            raise AssertionError(f"int8 {label}: {qmap} quantize passes through a channel "
+                                 f"map; want {MAP_PER_FORWARD[label] * forwards}")
         b3_launches += b3
         q_launches += quant
+        map_launches += qmap
         int8_ids[label] = out
         ref_label, ref = (("float", float_ids) if float_ids is not None
                           else ("dynamic int8", int8_ids["dense"]))
@@ -4437,7 +4695,7 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
         _emit(phase="int8_full", variant=label, size=list(FULL), dtype="bfloat16", batch=8,
               frames=res["frames"], run_fps=res["fps"], plans=kinds,
               calibrated_frames=0 if calib is None else len(calib), b3_launches=b3,
-              quantize_launches=quant, absmax_launches=absmax,
+              quantize_launches=quant, absmax_launches=absmax, quantize_map_launches=qmap,
               b2_launches=b2, upsample_launches=up, ids_agreement=agree,
               agreement_with=ref_label, limit=limit)
         if agree < limit:
@@ -4641,32 +4899,53 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
         return entry(name, source, replaces, launched, 0.0, t["ms"], t["plain_ms"],
                      (t["bound_ms"], t["bound_by"]), t["library_ms"])
 
-    # B3 and the quantize kernels: the four int8 runs, the int8-stem run and
-    # the budgeted run
+    # B3's entry points and the quantize kernels: the four int8 runs, the
+    # int8-stem run and the budgeted run
+    phase12_b3 = b3_launches  # all on B3's 128-wide kernel (checked there)
     b3_launches += stem_full["launches"]["b3"] + budget["launches"]["fused_sparse_conv_apply_q"]
     q_launches += stem_full["launches"]["quantize"] + budget["launches"]["quantize_activation"]
+    map_launches += stem_full["launches"]["quantize_map"]
     # and phase 34's stages (read around each stage)
     fid = fidelity["total"]
     launches += fid["upsample_argmax"]
     b2_launches += fid["fused_sparse_conv_apply"]
     b3_launches += fid["fused_sparse_conv_apply_q"]
     q_launches += fid["quantize_activation"]
+    map_launches += fid["quantize_map"]
     # and phase 38's classifier CLIs
     b3_launches += cls_clis["launches"]["fused_sparse_conv_apply_q"]
     q_launches += cls_clis["launches"]["quantize_activation"]
+    map_launches += cls_clis["launches"]["quantize_map"]
     # and phase 40's bench modes (read around each mode) and phase 41's run
     launches += bench["model"]["upsample_argmax"] + profiles["seg_video"]["b1_launches"]
     for mode in ("fused", "model", "frontend"):
         b2_launches += bench[mode]["fused_sparse_conv_apply"]
         b3_launches += bench[mode]["fused_sparse_conv_apply_q"]
         q_launches += bench[mode]["quantize_activation"]
+        map_launches += bench[mode]["quantize_map"]
     for name in B7_ENTRIES:
         s4_launches[name] += bench["fused"][name]
     # and phase 43's serving replicas
     launches += mesh_serving["upsample_argmax"]
     b3_launches += mesh_serving["fused_sparse_conv_apply_q"]
     q_launches += mesh_serving["quantize_activation"]
+    # B3's two kernels, counted where each is launched: phase 12's runs, then
+    # the runs above
+    b3_runs = (stem_full["launches"], budget["launches"], fid, cls_clis["launches"],
+               *(bench[mode] for mode in ("fused", "model", "frontend")), mesh_serving)
+    b3_narrow = sum(r["sparse_conv_q_narrow_kernel"] for r in b3_runs)
+    b3_wide = phase12_b3 + sum(r["sparse_conv_q_kernel"] for r in b3_runs)
+    if b3_wide + b3_narrow != b3_launches:
+        raise AssertionError(f"B3: {b3_launches} launches by its entry points, {b3_wide} on "
+                             f"its 128-wide kernel and {b3_narrow} on the narrow one")
+    # the stem route: conv0 on the narrow kernel, once a stem forward (as
+    # phases 21, 34 and 40 check), conv1 and conv2 on the 128-wide one
+    stem_launches = (stem_full["launches"]["b3_stem"] + fid["fused_sparse_conv_q_bias_relu"]
+                     + bench["frontend"]["fused_sparse_conv_q_bias_relu"])
+    stem_wide = stem_launches * (FRONTEND_STEM_CONVS - 1) // FRONTEND_STEM_CONVS
     stem_conv1 = stem_k["convs"][1]  # the stem route's main shape: the 256->256 conv
+    # the quantize_map row: the pass through layer.6.1.conv1's map (384 live)
+    qmap_main = next(k for k in map_times if k.startswith(QUANTIZE_MAP_MAIN))
 
     kernels = [
         entry("upsample_argmax", "tpuseg_torch/csrc/upsample_argmax.cu",
@@ -4675,9 +4954,9 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
         entry("sparse_conv", b2_src, f"{sc_src}:270", b2_launches, b2_err, b2_ms,
               b2_plain_ms, b2_bound, b2_cudnn_ms),
         entry("sparse_conv_q", "tpuseg_torch/csrc/sparse_conv_q.cu", f"{sc_src}:1294",
-              b3_launches, b3_err, b3_ms, b3_plain_ms, b3_bound, None),
-        entry("quantize", "tpuseg_torch/csrc/quantize.cu", f"{sc_src}:1312-1324", q_launches,
-              quantize_err, q_ms, q_plain_ms, q_bound, None),
+              b3_wide - stem_wide, b3_err, b3_ms, b3_plain_ms, b3_bound, None),
+        entry("quantize", "tpuseg_torch/csrc/quantize.cu", f"{sc_src}:1312-1324",
+              q_launches - map_launches, quantize_err, q_ms, q_plain_ms, q_bound, None),
         s4("bsr_matmul_xw", b2_src, f"{sc_src}:84", b4_err),
         s4("bsr_matmul", "tpuseg_torch/csrc/bsr_matmul.cu", "tpuseg/ops/bsr.py:105",
            b56_err["bsr_matmul"]),
@@ -4686,9 +4965,7 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
     ] + [s4(name, b2_src, f"{sc_src}:{line}", b7_err[name])
          for name, (_, _, line) in B7_ENTRIES.items()] + [
         timed("sparse_conv_q_stem", "tpuseg_torch/csrc/sparse_conv_q.cu",
-              "tpuseg/ops/polyphase.py:349-359",
-              stem_full["launches"]["b3_stem"] + fid["fused_sparse_conv_q_bias_relu"]
-              + bench["frontend"]["fused_sparse_conv_q_bias_relu"], stem_conv1),
+              "tpuseg/ops/polyphase.py:349-359", stem_wide, stem_conv1),
         timed("frame_deltas", "tpuseg_torch/csrc/temporal.cu", "tpuseg/video/pipeline.py:670-678",
               budget["launches"]["frame_deltas"] + fid["frame_deltas"],
               temporal_k["frame_deltas"]),
@@ -4711,9 +4988,12 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
               t["max_abs_err"], t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]),
               t["library_ms"])
         for name, t in train_k.items()] + [
-        timed("sparse_conv_q_padded", "tpuseg_torch/csrc/sparse_conv_q.cu", f"{sc_src}:1294",
-              cls_clis["launches"]["padded_b3"] + bench["frontend"]["padded_b3"],
-              cls_clis["padded"])]
+        timed("sparse_conv_q_narrow", "tpuseg_torch/csrc/sparse_conv_q_narrow.cu",
+              f"{sc_src}:1294", b3_narrow, cls_clis["narrow"]),
+        entry("quantize_map", "tpuseg_torch/csrc/quantize.cu",
+              "tpuseg/models/sparse_exec.py:71", map_launches, quantize_err,
+              map_times[qmap_main]["ms"], map_times[qmap_main]["plain_ms"],
+              (map_times[qmap_main]["bound_ms"], map_times[qmap_main]["bound_by"]), None)]
     bad = [k["name"] for k in kernels if not k["launches"] > 0]
     if bad:
         raise AssertionError(f"kernels never launched on their path: {bad}")

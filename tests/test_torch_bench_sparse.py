@@ -195,7 +195,7 @@ def test_model_masks_and_ids_match_tpuseg(monkeypatch):
 
 def test_frontend_mode_and_embedded_int8_conv(small, capsys):
     """--frontend's rows, and stage 3's folded 2x2 conv1 (padding (1, 0),
-    128 -> 64) through the padded B3 route's plan equal to tpuseg's bench
+    128 -> 64) through B3's narrow route's plan equal to tpuseg's bench
     arithmetic (an int8 XLA conv of the 2x2 kernel, y * (xs * ws)) on
     the CPU, bit for bit."""
     import jax
@@ -212,7 +212,9 @@ def test_frontend_mode_and_embedded_int8_conv(small, capsys):
     w = torch.from_numpy(rng.normal(size=(64, 128, 2, 2)).astype(np.float32) * 0.05)
     x = rng.normal(size=(2, 8, 16, 128)).astype(np.float32)
     plan = bench_sparse._quant_conv_of("conv1", w, 1, 0)
-    assert plan.packed.kernel == 3 and plan.packed.cout == 128 and plan.chan is None
+    # B3's narrow packing: 128 input channels a step, one 64-wide out-block
+    assert plan.packed.kernel == 3 and plan.packed.narrow
+    assert (plan.packed.cin, plan.packed.cout, plan.packed.bk, plan.packed.bm) == (128, 64, 128, 64)
     got = plan.apply(torch.from_numpy(x)).numpy()
     wq, ws = jquant(w.numpy().transpose(2, 3, 1, 0))
     xs = np.float32(bench_sparse.FRONTEND_XS)
@@ -231,16 +233,16 @@ def test_embedded_kernel_walks_only_its_taps(kernel, pad_lo, pad_hi, cin):
     """An even or asymmetric kernel embedded in the odd "same" one
     (``embed_same``, as --frontend's stage-3 conv1 and the stem route's
     conv2 are) adds all-zero tiles, and B3's packing does not walk them:
-    its live steps are the kernel's own taps over every input block."""
+    its live steps are the kernel's own taps over every input block (the
+    64-channel case on a narrow packing, K = 64)."""
     from tpuseg_torch.models.weights import oihw_to_hwio_np
     from tpuseg_torch.ops.quant import quantize_weight, stem_packing
 
     rng = np.random.default_rng(kernel + cin)
     w = torch.from_numpy(rng.normal(size=(128, cin, kernel, kernel)).astype(np.float32))
-    packings = [bench_sparse._quant_conv_of("conv", w, pad_lo, pad_hi).packed]
-    if cin % 128 == 0:
-        wq, ws = quantize_weight(oihw_to_hwio_np(w))
-        packings.append(stem_packing("conv", wq, ws, pad_lo, pad_hi)[0])
+    wq, ws = quantize_weight(oihw_to_hwio_np(w))
+    packings = [bench_sparse._quant_conv_of("conv", w, pad_lo, pad_hi).packed,
+                stem_packing("conv", wq, ws, pad_lo, pad_hi)]
     same = 2 * max(pad_lo, pad_hi) + 1
     off = max(pad_lo, pad_hi) - pad_lo
     own = [p * same + q for p in range(off, off + kernel) for q in range(off, off + kernel)]

@@ -1,13 +1,13 @@
 """Port parity for the classifier's int8 evaluation: ``build_cls_quant_plans``
 and the int8 zoo forward against ``tpuseg``'s, ``build_quant_plans`` on a
-DRN classifier spec (``layer5`` naming), and B3's padded packing of the
+DRN classifier spec (``layer5`` naming), and B3's narrow packing of the
 zoo's 16-64 channel convs (``int8_packing``).
 
 ``tpuseg``'s ``QuantConv.apply`` is an XLA int8 conv with an int32 sum; the
 port's plain version is an exact integer conv, so every conv is compared
-bit for bit on the same activation.  The padded packing's plain version
-(B3's plain version on the channel-mapped x) is held bit-equal to the
-unpadded integer conv."""
+bit for bit on the same activation.  The narrow packing's plain version
+(B3's plain version on the unpadded x) is held bit-equal to the integer
+conv and to ``tpuseg``'s."""
 
 import dataclasses
 
@@ -21,6 +21,7 @@ from tpuseg.models import cifar as jcifar
 from tpuseg.models.drn import build_drn_spec as j_build_drn_spec
 from tpuseg.models.drn import init_drn as j_init_drn
 from tpuseg.ops.quant import build_cls_quant_plans as j_build_cls
+from tpuseg.ops.quant import QuantConv as JQuantConv
 from tpuseg.ops.quant import build_quant_plans as j_build_quant
 from tpuseg_torch.models import cifar as tcifar
 from tpuseg_torch.models.drn import build_drn_spec, init_drn
@@ -30,11 +31,12 @@ from tpuseg_torch.ops.quant import (
     build_cls_quant_plans,
     build_quant_plans,
     int8_packing,
+    narrow_widths,
     quant_conv_apply,
     quant_conv_reference,
     quantize_weight,
 )
-from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_q_reference, select_channels
+from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_q_reference
 
 torch.set_num_threads(2)
 
@@ -61,9 +63,12 @@ def test_build_cls_quant_plans_matches_tpuseg_resnet20():
         assert _bits(tplan.w_scale) == _bits(jplan.w_scale), name
         assert (tplan.stride, tplan.dilation, tplan.padding) == \
             (jplan.stride, jplan.dilation, jplan.padding)
-        # every zoo conv of resnet20 is narrower than 128: padded to 128
-        assert tplan.packed.cin == tplan.packed.cout == BK > tplan.w_q.shape[3]
-        assert tplan.packed.s == 1 and tplan.chan is not None
+        # every zoo conv of resnet20 is narrower than 128: a narrow packing
+        # at its own widths, K and N the channels rounded up to 32 and 16
+        cin, cout = tplan.w_q.shape[2:]
+        assert tplan.packed.narrow and (tplan.packed.cin, tplan.packed.cout) == (cin, cout)
+        assert (tplan.packed.bk, tplan.packed.bm) == narrow_widths(cin, cout) == \
+            (max(32, cin), cout) and tplan.packed.s == 1
 
 
 def test_build_cls_quant_plans_skips_grouped_convs():
@@ -82,7 +87,7 @@ def test_build_cls_quant_plans_skips_grouped_convs():
 @pytest.mark.parametrize("x_scale", [None, 0.05])
 def test_cls_int8_convs_bit_equal_tpuseg(x_scale):
     """Each int8 conv of cifar_resnet20 (and its static-scale variant) on
-    one random activation: the port's plain version, the padded packing's
+    one random activation: the port's plain version, the narrow packing's
     plain version and ``tpuseg``'s ``QuantConv.apply``, bit for bit."""
     jp, _, _ = jcifar.create_cifar_model(1, "cifar_resnet20", 10)
     tp, _, _ = tcifar.create_cifar_model(1, "cifar_resnet20", 10)
@@ -104,31 +109,45 @@ def test_cls_int8_convs_bit_equal_tpuseg(x_scale):
 @pytest.mark.parametrize("k,cin,cout", [(3, 16, 16), (3, 16, 32), (1, 32, 64), (3, 64, 64),
                                         (3, 96, 200), (3, 128, 128)])
 def test_int8_packing_pads_to_b3(k, cin, cout):
-    """The padded packing's plain version (B3's plain version on the x that
-    the -1 channel map pads) equals the unpadded integer conv bit for bit;
-    a conv of 128-multiples gets the unpadded full-support packing."""
+    """The narrow packing (K = cin rounded up to 32, or 128-channel slots,
+    x padded to S * K by the quantize pass's -1 map; N = cout rounded up to
+    16, or 128-channel blocks; zero rows and columns past cin and cout,
+    scale 1 past cout) run by B3's plain version equals the integer conv
+    and ``tpuseg``'s ``QuantConv.apply`` bit for bit; a conv of
+    128-multiples gets the full-support packing."""
     rng = np.random.default_rng(k * cin + cout)
     w = rng.normal(size=(k, k, cin, cout)).astype(np.float32)
     wq, ws = quantize_weight(w)
-    packed, chan = int8_packing("c", wq, ws, 1, (k - 1) // 2)
-    cin_p, cout_p = -(-cin // 128) * 128, -(-cout // 128) * 128
-    assert (packed.cin, packed.cout) == (cin_p, cout_p)
-    assert (chan is None) == (cin == cin_p)
-    if chan is not None:
-        assert chan.tolist() == list(range(cin)) + [-1] * (cin_p - cin)
-    assert packed.w_scale.reshape(-1)[cout:].tolist() == [1.0] * (cout_p - cout)
-    # the padded columns hold no live tile but their block's
-    assert int(packed.nsteps.sum()) <= (cout_p // 128) * k * k * (cin_p // 128)
-    x = torch.from_numpy(rng.normal(size=(2, 5, 7, cin)).astype(np.float32))
+    packed = int8_packing("c", wq, ws, 1, (k - 1) // 2)
+    wide = cin % BK == 0 and cout % BK == 0
+    kb, bn = (BK, BK) if wide else narrow_widths(cin, cout)
+    S, nmb = -(-cin // kb), -(-cout // bn)
+    assert (packed.cin, packed.cout, packed.bk, packed.bm, packed.s) == (cin, cout, kb, bn, S)
+    assert packed.narrow == (not wide)
+    # x padded to whole K-wide steps through the quantize pass's map
+    assert (packed.in_chan is None) == (cin == S * kb)
+    if packed.in_chan is not None:
+        assert packed.in_chan.tolist() == list(range(cin)) + [-1] * (S * kb - cin)
+    assert tuple(packed.vals_k.shape) == (nmb, k * k * S, bn, kb)
+    assert packed.w_scale.reshape(-1)[cout:].tolist() == [1.0] * (nmb * bn - cout)
+    dense = packed.vals.reshape(nmb, k * k, S * kb, bn).permute(1, 2, 0, 3).reshape(
+        k, k, S * kb, nmb * bn)
+    assert not dense[:, :, cin:].any() and not dense[..., cout:].any()
+    assert torch.equal(dense[:, :, :cin, :cout], torch.from_numpy(wq))
+    assert int(packed.nsteps.sum()) == nmb * k * k * S
+    x = rng.normal(size=(2, 5, 7, cin)).astype(np.float32)
     from tpuseg_torch.ops.quant import QuantConv
 
     plan = QuantConv(w_q=torch.from_numpy(wq), w_scale=torch.from_numpy(ws), stride=1,
-                     dilation=1, padding=(k - 1) // 2, packed=packed, chan=chan)
-    want = quant_conv_reference(x, plan)
-    got = fused_sparse_conv_q_reference(select_channels(x, chan), packed)[..., :cout]
-    assert _bits(got.contiguous()) == _bits(want)
+                     dilation=1, padding=(k - 1) // 2, packed=packed)
+    want = quant_conv_reference(torch.from_numpy(x), plan)
+    got = fused_sparse_conv_q_reference(torch.from_numpy(x), packed)
+    assert got.shape == want.shape == (2, 5, 7, cout)
+    assert _bits(got) == _bits(want)
+    jqc = JQuantConv(jnp.asarray(wq), jnp.asarray(ws), 1, 1, (k - 1) // 2, None)
+    assert _bits(want) == _bits(jqc.apply(jnp.asarray(x)))
     # the route B3 takes on the card, through its wrappers' plain versions
-    assert _bits(quant_conv_apply(x, plan)) == _bits(want)
+    assert _bits(quant_conv_apply(torch.from_numpy(x), plan)) == _bits(want)
 
 
 def test_int8_packing_names_what_b3_cannot_run():
@@ -169,7 +188,7 @@ def test_build_quant_plans_parses_cls_names(arch):
     assert all(name.startswith(("layer4", "layer5", "layer6", "layer7", "layer8")) for name in t)
     for name in t:
         assert _bits(t[name].w_q) == _bits(j[name].w_q), name
-        assert t[name].chan is None and t[name].packed.cout == t[name].w_q.shape[3]
+        assert not t[name].packed.narrow and t[name].packed.cout == t[name].w_q.shape[3]
     seg = build_quant_plans(init_drn(0, build_drn_spec(arch, 0, naming="seg"))[0],
                             build_drn_spec(arch, 0, naming="seg")) if arch.startswith(
         "drn_d") else t

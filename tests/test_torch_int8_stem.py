@@ -29,13 +29,15 @@ from tpuseg_torch.models.weights import from_jax_params
 from tpuseg_torch.ops import polyphase as tpoly
 from tpuseg_torch.ops.quant import ids_agreement, stem_packing
 from tpuseg_torch.ops.sparse_conv import (
+    ZERO_VEC,
+    channel_map_vectors,
     fused_sparse_conv_apply_q,
     fused_sparse_conv_q_bias_relu,
     fused_sparse_conv_q_bias_relu_reference,
     int_conv_exact,
     quantize_activation,
     relu_tpuseg,
-    select_channels,
+    select_channels_by_vectors,
 )
 from tpuseg_torch.video.pipeline import VideoSegmenter as TSegmenter
 
@@ -110,15 +112,17 @@ def _direct_int_conv(xq, wq, pad_lo, pad_hi):
 
 @pytest.mark.parametrize("conv", [0, 1, 2])
 def test_stem_packing_equals_direct_int_conv(conv):
-    """B3's stem packing (conv0: 48 channels padded to 128 through the
-    channel map; conv2: the 2x2 pad (1, 0) conv as a 3x3 'same' conv) gives
-    the folded conv's integer sum exactly, through the plain version; dead
-    taps of conv2 are no live steps."""
+    """B3's stem packing (conv0: 48 channels in a narrow packing, K = 64,
+    N = 128, x padded to 64 through its map; conv2: the 2x2 pad (1, 0) conv
+    as a 3x3 'same' conv) gives the folded conv's integer sum exactly,
+    through the plain version and on the padded operand; dead taps of conv2
+    are no live steps."""
     _, tfe = _frontends("f32")
     wq, ws = (t.numpy() for t in tfe.q_convs[conv])
     _, _, plo, phi = tfe.convs[conv]
-    plan, chan = stem_packing(f"conv{conv}", wq, ws, plo, phi)
-    assert (chan is not None) == (conv == 0) and plan.kernel == 3 and plan.cin % 128 == 0
+    plan = stem_packing(f"conv{conv}", wq, ws, plo, phi)
+    assert plan.narrow == (conv == 0) and plan.kernel == 3 and plan.cin == wq.shape[2]
+    assert (plan.bk, plan.bm) == ((64, 128) if conv == 0 else (128, 128))
     if conv == 2:  # only taps (p, q) in {0, 1}^2 of the 3x3 kernel are walked
         live = plan.steps[0, :int(plan.nsteps[0])] // plan.s
         assert (plo, phi) == (1, 0) and 0 < len(live) <= 4 * 2
@@ -126,14 +130,22 @@ def test_stem_packing_equals_direct_int_conv(conv):
     rng = np.random.default_rng(conv)
     xq = torch.from_numpy(rng.integers(-127, 128, size=(2, 9, 13, wq.shape[2]), dtype=np.int8))
     # the packing's dense weight through the plain version's integer conv
-    k, S, nmb = plan.kernel, plan.s, plan.cout // 128
-    vals = plan.vals.double().reshape(nmb, k, k, S, 128, 128)
-    w = torch.zeros((k, k, plan.cin, plan.cout), dtype=torch.float64)
+    k, S, bk, bm = plan.kernel, plan.s, plan.bk, plan.bm
+    nmb = plan.cout // bm
+    vals = plan.vals.double().reshape(nmb, k, k, S, bk, bm)
+    w = torch.zeros((k, k, S * bk, plan.cout), dtype=torch.float64)
     for jb, blocks in enumerate(plan.rows.tolist()):
         for s_i, kb in enumerate(blocks):
-            w[:, :, kb * 128:(kb + 1) * 128, jb * 128:(jb + 1) * 128] += vals[jb, :, :, s_i]
-    got = int_conv_exact(select_channels(xq.double(), chan).to(torch.int8), w, 1)
+            w[:, :, kb * bk:(kb + 1) * bk, jb * bm:(jb + 1) * bm] += vals[jb, :, :, s_i]
+    assert not w[:, :, plan.cin:].any()  # the zero rows past cin
+    got = int_conv_exact(xq, w[:, :, :plan.cin], 1)
     torch.testing.assert_close(got, _direct_int_conv(xq, wq, plo, phi), rtol=0, atol=0)
+    assert (plan.in_chan is not None) == (conv == 0)
+    if conv == 0:  # the card's operand: xq padded through the map
+        xq_p = select_channels_by_vectors(xq.double(), plan.in_chan, plan.in_vecs)
+        assert xq_p.shape[3] == S * bk == 64
+        torch.testing.assert_close(int_conv_exact(xq_p.to(torch.int8), w, 1), got,
+                                   rtol=0, atol=0)
 
 
 def test_stem_packing_names_the_conv():
@@ -147,13 +159,21 @@ def test_stem_packing_names_the_conv():
 
 def test_padding_channel_map_matches_zero_padded_x():
     """A -1 in the quantize pass's channel map reads 0: its xq and scale
-    equal those of x padded with zero channels, dynamic and static."""
+    equal those of x padded with zero channels, dynamic and static, at
+    conv0's 48 channels padded to 64 (the narrow route's K) and to 128; the
+    map's descriptor holds the 48 channels as contiguous vectors and the
+    padding as zero vectors, and its plain reader gives the padded x."""
     x = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 5, 7, 48)).astype(np.float32))
-    chan = torch.cat([torch.arange(48), torch.full((80,), -1)]).to(torch.int32)
-    for x_scale in (None, 0.02):
-        got = quantize_activation(x, x_scale, chan)
-        want = quantize_activation(F.pad(x, (0, 80)), x_scale)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for width in (64, 128):
+        chan = torch.cat([torch.arange(48), torch.full((width - 48,), -1)]).to(torch.int32)
+        vecs = channel_map_vectors(chan)
+        assert vecs.tolist() == list(range(0, 48, 8)) + [ZERO_VEC] * ((width - 48) // 8)
+        padded = F.pad(x, (0, width - 48))
+        assert torch.equal(select_channels_by_vectors(x, chan, vecs), padded)
+        for x_scale in (None, 0.02):
+            got = quantize_activation(x, x_scale, chan, vecs=vecs)
+            want = quantize_activation(padded, x_scale)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_relu_matches_jax_on_zero_and_nan():
@@ -187,14 +207,15 @@ def test_stem_convs_bit_equal(dtype, size):
 
 def test_stem_route_plain_version_is_the_quantized_conv():
     """``fused_sparse_conv_q_bias_relu`` on the CPU is its plain version:
-    quantize (through the map), the exact conv, the f32 bias, relu, cast."""
+    quantize, the exact conv, the f32 bias, relu, cast (conv0's narrow
+    packing on its unpadded 48-channel x)."""
     _, tfe = _frontends("f32")
-    plan, chan, bias = tfe.q_plans[0]
+    plan, bias = tfe.q_plans[0]
     x = torch.from_numpy(np.random.default_rng(5).normal(size=(1, 6, 10, 48)).astype(np.float32))
     for p in (plan, dataclasses.replace(plan, x_scale=0.05)):
         for dt in (torch.float32, torch.bfloat16):
-            got = fused_sparse_conv_q_bias_relu(x, p, bias, dt, chan)
-            want = fused_sparse_conv_q_bias_relu_reference(x, p, bias, dt, chan)
+            got = fused_sparse_conv_q_bias_relu(x, p, bias, dt)
+            want = fused_sparse_conv_q_bias_relu_reference(x, p, bias, dt)
             assert got.dtype == dt and torch.equal(got, want)
 
 

@@ -3,8 +3,8 @@ one card in one process, so that the two are timed under the same clocks
 and neighbours.
 
     python -m tpuseg_torch.ab_sparse_conv [--old OLD_sparse_conv.cu]
-        [--old-q OLD_sparse_conv_q.cu] [--old-bsr OLD_bsr_matmul.cu]
-        [--old-up OLD_upsample_argmax.cu] [--skip-fps]
+        [--old-q OLD_sparse_conv_q.cu] [--old-quantize OLD_quantize.cu]
+        [--old-bsr OLD_bsr_matmul.cu] [--old-up OLD_upsample_argmax.cu] [--skip-fps]
 
 Each option is a copy of that source from another commit, e.g.
 ``git show <commit>:tpuseg_torch/csrc/sparse_conv_q.cu > _scratch/old_q.cu``
@@ -36,6 +36,23 @@ batch-32 shapes of ``chip_smoke.py``:
   int8 convs; and the int8 device fps at batch 32 of the four int8
   variants (dense, dense calibrated on 8 frames, block128reg_87.50 under
   the Pallas and the gathered lowering) with one profiled dense batch.
+  A copy without the narrow route (``sparse_conv_q_narrow.cu``) runs a
+  narrow conv as the padded route did: x quantized through a -1 channel
+  map to 128 channels, B3 on the conv's weights zero-padded to 128-channel
+  blocks, the padded output channels sliced off (``padded_route``).  So
+  ``--old-q`` also times that route against the narrow one at
+  cifar_resnet20's three 3x3 convs (16 on 32x32, 32 on 16x16, 64 on 8x8,
+  f32, batch 64) and at the int8 stem's conv0 ((32, 256, 512, 48) bf16 ->
+  256, relu, static scale).
+- ``--old-quantize`` (``quantize.cu``): the quantize pass through each of
+  the four ``CompactSparseQ`` maps of block128reg_87.50's Pallas lowering
+  at its batch-32 input, per-frame and static, conv0's pass (the old build
+  through its -1 map to 128 channels, the new one unpadded) and the
+  unmapped served pass of ``layer.6.1.conv2``.
+- ``--old-q`` and ``--old-quantize`` both also time the 128-wide served
+  int8 step at ``layer.6.1.conv2`` and, unless ``--skip-fps``, the device
+  fps at batch 32 of ``int8_stem`` (dense int8 calibrated, with the int8
+  stem) and of ``sparse_int8`` under the Pallas lowering with each build.
 - ``--old-bsr`` (kernels B5/B6, ``bsr_matmul.cu``): ``bsr_matmul`` and
   ``bsr_matmul_gathered`` at x (512, 2**20) with the 512x512 87.5 % W,
   beside ``torch.mm(..., out_dtype=torch.float32)``.
@@ -79,11 +96,13 @@ BATCH32 = (32, 128, 256, 512)
 BATCH32_HALF = (32, 64, 128, 512)  # layer.6.1.conv2's input at 512x1024 frames
 TRAIN_SHAPE = (8, 64, 64)  # the trainer's stride-8 maps: crop 512, batch 8
 P32 = 32 * 128 * 256
-# per kernel: (source, C entry point, a parameter only the newer interface has)
-SOURCES = {"b2": ("sparse_conv.cu", "tpuseg_sparse_conv", "const void* nsteps"),
-           "b3": ("sparse_conv_q.cu", "tpuseg_sparse_conv_q", "const void* nsteps"),
-           "bsr": ("bsr_matmul.cu", "tpuseg_bsr_matmul", "int nnzb"),
-           "up": ("upsample_argmax.cu", "tpuseg_upsample_argmax", "void* stream")}
+# per kernel: (source, C entry points, a parameter only the newer interface has)
+SOURCES = {"b2": ("sparse_conv.cu", ("tpuseg_sparse_conv",), "const void* nsteps"),
+           "b3": ("sparse_conv_q.cu", ("tpuseg_sparse_conv_q",), "const void* nsteps"),
+           "quantize": ("quantize.cu", ("tpuseg_absmax", "tpuseg_quantize"),
+                        "const void* vecs"),
+           "bsr": ("bsr_matmul.cu", ("tpuseg_bsr_matmul",), "int nnzb"),
+           "up": ("upsample_argmax.cu", ("tpuseg_upsample_argmax",), "void* stream")}
 SERVING_LOGITS = (32, 128, 256, 19)
 
 
@@ -93,7 +112,8 @@ def _emit(**kw) -> None:
 
 def build_old(copies: dict) -> dict:
     """Build the old copies (kernel -> path) into one library, each entry
-    point renamed ``<name>_old``; -> kernel -> (C function, newer ABI?)."""
+    point renamed ``<name>_old``; -> kernel -> (C function, or the tuple of
+    them, newer ABI?)."""
     first = next(iter(copies.values()))
     build = os.path.join(os.path.dirname(os.path.abspath(first)), "ab_old_build")
     src_dir = os.path.join(build, "src")
@@ -103,19 +123,22 @@ def build_old(copies: dict) -> dict:
     shutil.copy(os.path.join(_build.SRC_DIR, "hopper.cuh"), src_dir)
     newer = {}
     for kernel, path in copies.items():
-        fname, symbol, marker = SOURCES[kernel]
+        fname, symbols, marker = SOURCES[kernel]
         src = open(path).read()
         newer[kernel] = marker in src
         if kernel == "b2" and "int rows_per_tile" in src:
             newer[kernel] = 2  # B2 whose caller names the tile's rows
+        for symbol in symbols:
+            src = src.replace(f'extern "C" int {symbol}(', f'extern "C" int {symbol}_old(')
         with open(os.path.join(src_dir, fname.replace(".cu", "_old.cu")), "w") as fh:
-            fh.write(src.replace(f'extern "C" int {symbol}(', f'extern "C" int {symbol}_old('))
+            fh.write(src)
     lib = ctypes.CDLL(_build.build_library(src_dir, build)[0])
     out = {}
     for kernel in copies:
-        fn = getattr(lib, SOURCES[kernel][1] + "_old")
-        fn.restype = ctypes.c_int
-        out[kernel] = (fn, newer[kernel])
+        fns = tuple(getattr(lib, symbol + "_old") for symbol in SOURCES[kernel][1])
+        for fn in fns:
+            fn.restype = ctypes.c_int
+        out[kernel] = (fns[0] if len(fns) == 1 else fns, newer[kernel])
     return out
 
 
@@ -157,13 +180,16 @@ def old_b2(fn, newer: int):
 
 
 def old_b3(fn, newer: bool):
-    """A launcher with ``sc._launch_b3``'s signature on the old B3 copy."""
+    """A launcher with ``sc._launch_b3``'s signature on the old B3 copy (its
+    128-wide route alone)."""
     fn.argtypes = ([ctypes.c_void_p] * (9 if newer else 6) + [ctypes.c_int] * (9 if newer else 8)
                    + [ctypes.c_void_p])
 
-    def launch(xq, xs, plan, bias, bf16_out):
-        if not newer and bf16_out:
-            raise ValueError("the old kernel has no bf16 epilogue")
+    def launch(xq, xs, plan, bias, bf16_out, relu=False):
+        if not newer and (bf16_out or relu):
+            raise ValueError("the old kernel has no bf16 or relu epilogue")
+        if plan.narrow:
+            raise ValueError("the old kernel has no narrow route: see padded_route")
         n, h, w, cin = xq.shape
         out = torch.empty((n, h, w, plan.cout), device=xq.device,
                           dtype=torch.bfloat16 if bf16_out else torch.float32)
@@ -172,7 +198,7 @@ def old_b3(fn, newer: bool):
                      plan.steps.data_ptr(), plan.nsteps.data_ptr(), plan.w_scale.data_ptr(),
                      xs.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
                      n, h, w, cin, plan.cout, plan.s, plan.kernel, plan.dilation,
-                     int(bf16_out), _stream(xq))
+                     2 * int(relu) + int(bf16_out), _stream(xq))
         else:
             err = fn(xq.data_ptr(), plan.vals_k.data_ptr(), plan.rows.data_ptr(),
                      plan.w_scale.data_ptr(), xs.data_ptr(), out.data_ptr(),
@@ -182,6 +208,88 @@ def old_b3(fn, newer: bool):
         return out
 
     return launch
+
+
+def old_quantize(fns, _newer: bool):
+    """A ``sc.quantize_activation`` on the old quantize copy (entries
+    without the vector descriptor; the caller zeroes absmax): the map is
+    read element by element."""
+    absmax_fn, quantize_fn = fns
+    absmax_fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
+                          + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    quantize_fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 2
+                            + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 3
+                            + [ctypes.c_void_p])
+
+    def quantize(x, x_scale, chan=None, *, vecs=None):
+        n, cx = x.shape[0], x.shape[-1]
+        cq = cx if chan is None else chan.numel()
+        xq = torch.empty(x.shape[:-1] + (cq,), dtype=torch.int8, device=x.device)
+        xs = torch.empty((n,), dtype=torch.float32, device=x.device)
+        absmax = None if x_scale is not None else torch.zeros(n, dtype=torch.int32,
+                                                              device=x.device)
+        cptr = None if chan is None else chan.data_ptr()
+        shape = (n, x.numel() // (n * cx), cx, cq, sc._DTYPE_CODE[x.dtype], _stream(x))
+        if absmax is not None and absmax_fn(x.data_ptr(), cptr, absmax.data_ptr(), *shape):
+            raise RuntimeError("old absmax launch failed")
+        if quantize_fn(x.data_ptr(), cptr, None if absmax is None else absmax.data_ptr(),
+                       0.0 if x_scale is None else float(x_scale), xq.data_ptr(),
+                       xs.data_ptr(), *shape):
+            raise RuntimeError("old quantize launch failed")
+        return xq, xs
+
+    return quantize
+
+
+_PADDED = {}
+
+
+def padded_packing(packed):
+    """The padded route's operands for a narrow packing (cached): its weights
+    zero-padded to 128-channel blocks (``full_support_packing``, scale 1 on
+    the padded columns) and the quantize pass's channel map, x's channels
+    then -1s up to the padded width, with its vectors (None, None when cin
+    divides by 128)."""
+    key = id(packed)
+    if key not in _PADDED:
+        from tpuseg_torch.ops.quant import full_support_packing
+
+        k, S, bk, bm = packed.kernel, packed.s, packed.bk, packed.bm
+        nmb = -(-packed.cout // bm)
+        dense = packed.vals.cpu().reshape(nmb, k * k, S * bk, bm).permute(1, 2, 0, 3).reshape(
+            k, k, S * bk, nmb * bm)[:, :, :packed.cin, :packed.cout].numpy()
+        cin_p, cout_p = -(-packed.cin // 128) * 128, -(-packed.cout // 128) * 128
+        w = np.zeros((k, k, cin_p, cout_p), np.int8)
+        w[:, :, :packed.cin, :packed.cout] = dense
+        ws = np.ones(cout_p, np.float32)
+        ws[:packed.cout] = packed.w_scale.reshape(-1)[:packed.cout].cpu().numpy()
+        pp = full_support_packing("padded", w, ws, packed.dilation,
+                                  packed.dilation * (k - 1) // 2, packed.x_scale)
+        chan = None if cin_p == packed.cin else torch.cat(
+            [torch.arange(packed.cin), torch.full((cin_p - packed.cin,), -1)]).to(torch.int32)
+        dev = packed.vals.device
+        chan = None if chan is None else chan.to(dev)
+        vecs = None if chan is None else sc.channel_map_vectors(chan)
+        _PADDED[key] = (pp.to(dev), chan, vecs, packed)
+    return _PADDED[key][:3]
+
+
+def padded_route(x, packed, bias=None, relu=False, bf16_out=False):
+    """A narrow conv as the builds before B3's narrow route ran it: x
+    quantized through the -1 map to 128 channels (``sc.quantize_activation``),
+    one launch of the 128-wide B3 (``sc._launch_b3``) on the padded
+    packing, the padded output channels sliced off.  f32 y, or with
+    ``relu`` relu(y + bias) (f32 bias) as f32 or bf16."""
+    import dataclasses
+
+    pp, chan, vecs = padded_packing(packed)
+    if pp.x_scale != packed.x_scale:
+        pp = dataclasses.replace(pp, x_scale=packed.x_scale)
+    xq, xs = sc.quantize_activation(x, pp.x_scale, chan, vecs=vecs)
+    if bias is not None and pp.cout != packed.cout:
+        bias = torch.nn.functional.pad(bias, (0, pp.cout - packed.cout))
+    y = sc._launch_b3(xq, xs, pp, bias, bf16_out, relu)
+    return y[..., :packed.cout].contiguous() if pp.cout != packed.cout else y
 
 
 def old_bsr(fn, newer: bool):
@@ -223,16 +331,21 @@ def _quantize_plain(x, x_scale, chan=None):
 
 class Kernels:
     """Switches the package between the new kernels and the old copies:
-    ``use("old")`` points each kernel's launcher at its old copy and turns
-    off the bf16 routes an old copy does not have."""
+    ``use("old")`` points each kernel's launcher at its old copy, turns off
+    the bf16 routes an old copy does not have and, with an old B3, runs
+    narrow convs on the padded route (``padded_route``); ``active`` says
+    which is in use."""
 
     def __init__(self, olds: dict):
         from tpuseg_torch.models import drn
+        from tpuseg_torch.ops import polyphase, quant
 
-        self.drn = drn
+        self.drn, self.quant, self.poly = drn, quant, polyphase
+        self.active = "new"
         self.new = {"b2": sc._launch_b2, "b3": sc._launch_b3, "bsr": bsr._launch,
                     "up": up._launch, "quantize": sc.quantize_activation,
-                    "route": drn._sparse_conv_bias_bf16}
+                    "route": drn._sparse_conv_bias_bf16, "qconv": quant.quant_conv_apply,
+                    "stem": polyphase.fused_sparse_conv_q_bias_relu}
         self.old = {}
         if "b2" in olds:
             self.old["b2"] = old_b2(*olds["b2"])
@@ -240,6 +353,22 @@ class Kernels:
             self.old["b3"] = old_b3(*olds["b3"])
             if not olds["b3"][1]:  # a build before the quantize kernels quantized in PyTorch
                 self.old["quantize"] = _quantize_plain
+            new_qconv, new_stem = self.new["qconv"], self.new["stem"]
+
+            def qconv(x, plan, bias=None, bf16_bias=False):
+                if not plan.packed.narrow:
+                    return new_qconv(x, plan, bias, bf16_bias)
+                y = padded_route(x, plan.packed)
+                return sc.cast_bias_bf16(y, bias) if bf16_bias else y
+
+            def stem(x, plan, bias, out_dtype):
+                if not plan.narrow:
+                    return new_stem(x, plan, bias, out_dtype)
+                return padded_route(x, plan, bias.float(), True, out_dtype == torch.bfloat16)
+
+            self.old["qconv"], self.old["stem"] = qconv, stem
+        if "quantize" in olds:
+            self.old["quantize"] = old_quantize(*olds["quantize"])
         if "bsr" in olds:
             self.old["bsr"] = old_bsr(*olds["bsr"])
         if "up" in olds:
@@ -252,10 +381,13 @@ class Kernels:
             if kernel in olds and not olds[kernel][1])
 
     def use(self, which: str) -> None:
+        self.active = which
         funcs = {**self.new, **(self.old if which == "old" else {})}
         sc._launch_b2, sc._launch_b3, bsr._launch = funcs["b2"], funcs["b3"], funcs["bsr"]
         up._launch = funcs["up"]
         sc.quantize_activation = funcs["quantize"]
+        self.quant.quant_conv_apply = funcs["qconv"]
+        self.poly.fused_sparse_conv_q_bias_relu = funcs["stem"]
         skip = {k for kinds in self.no_route for k in kinds} if which == "old" else set()
         route = self.new["route"]
         self.drn._sparse_conv_bias_bf16 = (
@@ -273,6 +405,32 @@ def _time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device ms of one call of ``fn``: ``iters`` calls captured in one CUDA
+    graph (after a warm call outside it), replayed 3 times between CUDA
+    events."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
 
 
 def ab(kernels: Kernels, fns: dict, iters: int = 10, rounds: int = 1) -> dict:
@@ -367,18 +525,111 @@ def _fps_turns(kernels: Kernels, segs: dict, fixed: dict | None = None) -> dict:
     return fps
 
 
+R20_CONVS = ((16, 32), (32, 16), (64, 8))  # cifar_resnet20's 3x3 convs: (channels, map side)
+R20_BATCH = 64
+CONV0 = ((32, 256, 512, 48), 256, 0.03)  # the int8 stem's conv0: x, cout, static scale
+
+
+def _narrow_turns(kernels: Kernels, gen, dev) -> dict:
+    """B3's narrow route (new) against the padded route (an old B3 build)
+    at cifar_resnet20's three 3x3 convs (f32, batch 64, per-frame scales,
+    ``quant_conv_apply``) and the int8 stem's conv0 (bf16, relu(y + bias)
+    as bf16, static scale, the stem route), in turns; the two builds'
+    outputs compared bit for bit."""
+    import dataclasses
+
+    from tpuseg_torch.ops.quant import QuantConv, int8_packing, quantize_weight
+
+    rng = np.random.default_rng(16)
+    fns, shapes = {}, {}
+    for c, side in R20_CONVS:
+        wq, ws = quantize_weight(rng.normal(size=(3, 3, c, c)).astype(np.float32))
+        qc = QuantConv(torch.from_numpy(wq), torch.from_numpy(ws), 1, 1, 1, None,
+                       int8_packing("r20", wq, ws, 1, 1)).to(dev)
+        xr = torch.randn((R20_BATCH, side, side, c), generator=gen, device=dev)
+        fns[f"r20_{c}"] = lambda xr=xr, qc=qc: kernels.quant.quant_conv_apply(xr, qc)
+        shapes[f"r20_{c}"] = list(xr.shape)
+    (shape0, cout0, xs0) = CONV0
+    wq, ws = quantize_weight(rng.normal(size=(3, 3, shape0[3], cout0)).astype(np.float32))
+    p0 = dataclasses.replace(int8_packing("conv0", wq, ws, 1, 1), x_scale=xs0).to(dev)
+    x0 = torch.randn(shape0, generator=gen, device=dev, dtype=torch.bfloat16)
+    b0 = torch.randn(cout0, generator=gen, device=dev)
+    fns["stem_conv0"] = lambda: kernels.poly.fused_sparse_conv_q_bias_relu(x0, p0, b0,
+                                                                           torch.bfloat16)
+    shapes["stem_conv0"] = list(shape0)
+    same = {}
+    for name, fn in fns.items():
+        kernels.use("old")
+        old = fn()
+        kernels.use("new")
+        same[name] = bool(torch.equal(old, fn()))
+        del old
+    turns = ab(kernels, fns, iters=20, rounds=2)
+    # the same calls captured in a CUDA graph: the routes' device time,
+    # without the host work that paces the small convs' calls above
+    graph = {name: {"old": [], "new": []} for name in fns}
+    for which in ("old", "new", "new", "old"):
+        kernels.use(which)
+        for name, fn in fns.items():
+            graph[name][which].append(graph_ms(fn, 5 if name == "stem_conv0" else 20))
+    kernels.use("new")
+    return {"shapes": shapes, "old_equals_new": same, "turns": turns,
+            "new_over_old": _median_ratios(turns), "graph_turns": graph,
+            "graph_new_over_old": _median_ratios(graph)}
+
+
+def _quantize_turns(kernels: Kernels, pallas_plans: dict, folded: dict, gen, dev, x) -> dict:
+    """The quantize pass with each build: through the four ``CompactSparseQ``
+    maps of the Pallas lowering at their batch-32 input (per-frame and
+    static), conv0's input (static; the old build through its -1 map to 128
+    channels, the new one through its narrow packing's map to 64) and the
+    unmapped served pass of ``layer.6.1.conv2`` (``x``, per-frame), in
+    turns."""
+    from tpuseg_torch.models.sparse_exec import CompactSparseQ, quantize_sparse_plans
+    from tpuseg_torch.ops.quant import int8_packing
+
+    fns, live = {}, {}
+    for name, p in quantize_sparse_plans(pallas_plans).items():
+        if not isinstance(p, CompactSparseQ):
+            continue
+        p = p.to(dev)
+        cin = folded[f"{name}.weight"].shape[1]
+        xm = torch.randn(BATCH32[:3] + (cin,), generator=gen, device=dev, dtype=torch.bfloat16)
+        live[name] = p.live_in32.numel()
+        fns[f"{name}_per_frame"] = (lambda xm=xm, p=p: sc.quantize_activation(
+            xm, None, p.live_in32, vecs=p.live_vecs))
+        fns[f"{name}_static"] = (lambda xm=xm, p=p: sc.quantize_activation(
+            xm, 0.013, p.live_in32, vecs=p.live_vecs))
+    (shape0, cout0, xs0) = CONV0
+    x0 = torch.randn(shape0, generator=gen, device=dev, dtype=torch.bfloat16)
+    chan128 = torch.cat([torch.arange(shape0[3]), torch.full((128 - shape0[3],), -1)]).to(
+        device=dev, dtype=torch.int32)
+    p0 = int8_packing("conv0", np.zeros((3, 3, shape0[3], cout0), np.int8),
+                      np.ones(cout0, np.float32), 1, 1).to(dev)
+    # the old build pads conv0's x to 128 channels, the new one to the narrow
+    # route's 64 (the packing's map: its -1s are zero vectors)
+    vecs128 = sc.channel_map_vectors(chan128)
+    fns["stem_conv0"] = lambda: sc.quantize_activation(
+        x0, xs0, *((chan128, vecs128) if kernels.active == "old" else (p0.in_chan, p0.in_vecs)))
+    fns["unmapped_served"] = lambda: sc.quantize_activation(x, None)
+    turns = ab(kernels, fns, iters=10, rounds=2)
+    return {"live_channels": live, "turns": turns, "new_over_old": _median_ratios(turns)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", help="the other commit's sparse_conv.cu (kernel B2)")
     ap.add_argument("--old-q", help="the other commit's sparse_conv_q.cu (kernel B3)")
+    ap.add_argument("--old-quantize", help="the other commit's quantize.cu (B3's quantize pass)")
     ap.add_argument("--old-bsr", help="the other commit's bsr_matmul.cu (kernels B5/B6)")
     ap.add_argument("--old-up", help="the other commit's upsample_argmax.cu (kernel B1)")
     ap.add_argument("--skip-fps", action="store_true", help="kernel times only")
     args = ap.parse_args(argv)
-    copies = {k: v for k, v in (("b2", args.old), ("b3", args.old_q), ("bsr", args.old_bsr),
+    copies = {k: v for k, v in (("b2", args.old), ("b3", args.old_q),
+                                ("quantize", args.old_quantize), ("bsr", args.old_bsr),
                                 ("up", args.old_up)) if v}
     if not copies:
-        ap.error("give at least one of --old, --old-q, --old-bsr, --old-up")
+        ap.error("give at least one of --old, --old-q, --old-quantize, --old-bsr, --old-up")
     if not torch.cuda.is_available():
         print("ab_sparse_conv: no CUDA card", file=sys.stderr)
         return 1
@@ -397,7 +648,8 @@ def main(argv=None) -> int:
     kernels = Kernels(olds)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    if {"b2", "b3"} & set(olds):
+    int8 = {"b3", "quantize"} & set(olds)
+    if ({"b2"} | int8) & set(olds):
         params, masked, state, spec, folded, plans = _served()
         bias = folded["layer.6.1.conv2.bias"].to(dev, torch.bfloat16)
     else:
@@ -467,6 +719,17 @@ def main(argv=None) -> int:
         _emit(phase="b3", conv="layer.6.1.conv2", shape=list(BATCH32), s=qplan.s,
               live_steps=qplan.nsteps.tolist(), turns=turns, card=smi)
         del xq, xs
+    if int8:
+        # the 128-wide served int8 step, which neither redesign touches
+        qplan = sc.quantize_fused_plan(plans["pallas"]["layer.6.1.conv2"]).to(dev)
+        turns = ab(kernels, {"served_int8_w128": lambda: served_step(qplan)}, iters=10, rounds=2)
+        _emit(phase="served_int8_w128", conv="layer.6.1.conv2", shape=list(BATCH32),
+              turns=turns, new_over_old=_median_ratios(turns), card=smi)
+    if "b3" in olds:
+        _emit(phase="narrow_vs_padded", **_narrow_turns(kernels, gen, dev), card=smi)
+    if "quantize" in olds:
+        _emit(phase="quantize_maps", **_quantize_turns(kernels, plans["pallas"], folded, gen,
+                                                       dev, x), card=smi)
     del x
     if "b3" in olds:
         # each of the 13 dense int8 convs at its batch-32 input: the quantize
@@ -552,6 +815,24 @@ def main(argv=None) -> int:
         kernels.use("new")
         _emit(phase="pallas_profile", device_ms_by_kernel=prof, card=smi)
         del seg, fixed
+        torch.cuda.empty_cache()
+    if int8:
+        # int8_stem (dense int8 calibrated, with the int8 stem) and
+        # sparse_int8 (block128reg_87.50, Pallas lowering) with each build
+        from tpuseg_torch.data.shapes import shapes_video
+
+        calib = list(shapes_video(8, FULL, seed=0)[0])
+        segs = {"int8_stem": VideoSegmenter(params, state, spec, MEAN, STD, device=dev,
+                                            compute_dtype=torch.bfloat16, batch=32,
+                                            quantize=True, quantize_stem=True,
+                                            calib_frames=calib),
+                "sparse_int8": VideoSegmenter(masked, state, spec, MEAN, STD, device=dev,
+                                              compute_dtype=torch.bfloat16, batch=32,
+                                              exec_plans=plans["pallas"], quantize=True)}
+        fps = _fps_turns(kernels, segs)
+        _emit(phase="int8_stem_sparse_int8_fps", size=list(FULL), batch=32, device_fps=fps,
+              ids_for_ms={k: [32e3 / v for v in vs] for k, vs in fps.items()}, card=smi)
+        del segs
         torch.cuda.empty_cache()
     if "b3" in olds:
         # int8 device fps at batch 32 of the four int8 variants, and one

@@ -41,11 +41,11 @@ draws them (numpy seed 0):
   three stem convs run as the port serves them, B3's stem route
   (``fused_sparse_conv_q_bias_relu``: relu(y + bias) in f32, then the
   cast; ``tpuseg``'s bench casts y before the bias).  The five 64-channel
-  stage-3 convs run through ``ops/quant.py::quant_conv_apply``'s padded
-  route (B3 on 128-channel packings): block 0's folded 2x2 conv1 (128 ->
-  64, padding (1, 0), embedded in a 3x3 "same" kernel as the stem route
-  embeds conv2) and folded 1x1 downsample (128 -> 64), and the three 3x3
-  64 -> 64 convs; each y is cast to bf16, then the bias added, as in
+  stage-3 convs run through ``ops/quant.py::quant_conv_apply`` on B3's
+  narrow route (N = 64): block 0's folded 2x2 conv1 (128 -> 64, padding
+  (1, 0), embedded in a 3x3 "same" kernel as the stem route embeds conv2)
+  and folded 1x1 downsample (128 -> 64), and the three 3x3 64 -> 64 convs
+  (K = 64); each y is cast to bf16, then the bias added, as in
   ``tpuseg``;
 - ``--train``: one train step of the layer-6 conv at 87.5 %: MSE against a
   seeded target, w <- w - 1e-4 g, masked dense (cuDNN) against
@@ -439,8 +439,8 @@ def bench_model(b: Bench, sweep: bool = False) -> list:
 
 class Int8Frontend:
     """The bf16 ``FusedStage3Frontend`` with the stem convs in int8 (B3's
-    stem route) and, with ``stage3``, stage 3's five convs in int8 (B3
-    through ``quant_conv_apply``'s padded route), every activation scale
+    stem route) and, with ``stage3``, stage 3's five convs in int8 (B3's
+    narrow route through ``quant_conv_apply``), every activation scale
     fixed at ``FRONTEND_XS``; weights quantized from the frontend's bf16
     weights."""
 
@@ -485,15 +485,15 @@ def _quant_conv_of(name: str, w_oihw: torch.Tensor, pad_lo: int, pad_hi: int):
     """The ``QuantConv`` of one stride-1 frontend conv (OIHW weight in the
     compute dtype, padding (pad_lo, pad_hi) on both axes) at the fixed
     scale: an even or asymmetric kernel embedded in the odd "same" kernel,
-    the channels padded to 128 (``int8_packing``)."""
+    on B3's narrow packing (``int8_packing``)."""
     from tpuseg_torch.models.weights import oihw_to_hwio_np
     from tpuseg_torch.ops.quant import QuantConv, embed_same, int8_packing, quantize_weight
 
     wq, ws = quantize_weight(oihw_to_hwio_np(w_oihw))
     wq, pad = embed_same(wq, pad_lo, pad_hi)
-    packed, chan = int8_packing(name, wq, ws, 1, pad, FRONTEND_XS)
     return QuantConv(w_q=torch.from_numpy(wq), w_scale=torch.from_numpy(ws), stride=1,
-                     dilation=1, padding=pad, x_scale=FRONTEND_XS, packed=packed, chan=chan)
+                     dilation=1, padding=pad, x_scale=FRONTEND_XS,
+                     packed=int8_packing(name, wq, ws, 1, pad, FRONTEND_XS))
 
 
 def bench_frontend(b: Bench) -> None:

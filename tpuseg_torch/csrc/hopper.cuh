@@ -103,6 +103,17 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
          (1ull << 62);
 }
 
+// K-major shared-memory matrix descriptor for rows of `row_bytes` = 32, 64
+// or 128, swizzled to match (layout 3, 2, 1: the 32-, 64- and 128-byte
+// swizzles TMA writes for a box of that inner width); 8-row groups sit
+// 8 * row_bytes apart and the leading offset is unused.  Base offset 0, as
+// in sw128_desc: the start may be advanced by 32 bytes within a row.
+__device__ __forceinline__ uint64_t swizzled_desc(uint32_t addr, int row_bytes) {
+  const uint64_t layout = row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>((8 * row_bytes) >> 4) << 32) | (layout << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");

@@ -43,6 +43,7 @@ from tpuseg_torch.ops.rbgp_matmul import plan_rbgp
 from tpuseg_torch.ops.sparse_conv import (
     FusedSparseConv,
     FusedSparseConvQ,
+    channel_map_vectors,
     fused_sparse_conv_apply,
     fused_sparse_conv_apply_q,
     fused_sparse_conv_bias_bf16,
@@ -82,29 +83,36 @@ class CompactSparseQ:
     """``CompactSparse`` with an int8 inner plan: the live channels of x are
     quantized (the per-frame scale taken over them, as ``tpuseg`` does after
     its gather) and run through kernel B3.  On the card the quantize kernels
-    read the live channels through ``live_in32`` and write the compacted
-    int8 x, so no gathered float copy of x is made; on the CPU the plain
-    version gathers with ``index_select``."""
+    read the live channels through ``live_in32`` and its vector descriptor
+    ``live_vecs`` (``channel_map_vectors``, built here once: the live
+    channels are whole 128-channel blocks, so every vector is one 16-byte
+    load) and write the compacted int8 x, so no gathered float copy of x is
+    made; on the CPU the plain version gathers with ``index_select``."""
 
     live_in: torch.Tensor  # (n_live,) int64 input-channel gather
     inner: FusedSparseConvQ
     live_in32: torch.Tensor | None = None  # the same gather, int32: the kernels' map
+    live_vecs: torch.Tensor | None = None  # (n_live / 8,) int32: the map's descriptor
 
     def __post_init__(self):
         if self.live_in32 is None:
             self.live_in32 = self.live_in.to(torch.int32)
+        if self.live_vecs is None:
+            self.live_vecs = channel_map_vectors(self.live_in32)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        return fused_sparse_conv_apply_q(x, self.inner, chan=self.live_in32)
+        return fused_sparse_conv_apply_q(x, self.inner, chan=self.live_in32,
+                                         vecs=self.live_vecs)
 
     def apply_bias_bf16(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
         """The served bf16 route (``fused_sparse_conv_q_bias_bf16``) of the
         compacted conv."""
-        return fused_sparse_conv_q_bias_bf16(x, self.inner, bias, chan=self.live_in32)
+        return fused_sparse_conv_q_bias_bf16(x, self.inner, bias, chan=self.live_in32,
+                                             vecs=self.live_vecs)
 
     def to(self, device) -> "CompactSparseQ":
         return CompactSparseQ(self.live_in.to(device), self.inner.to(device),
-                              self.live_in32.to(device))
+                              self.live_in32.to(device), self.live_vecs.to(device))
 
 
 def quantize_sparse_plans(plans: Mapping, x_scales: Mapping | None = None) -> dict:

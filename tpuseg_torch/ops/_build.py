@@ -155,23 +155,35 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,                  # cudaStream_t
     ]
     lib.tpuseg_sparse_conv_q.restype = ctypes.c_int
+    lib.tpuseg_sparse_conv_q_narrow.argtypes = [
+        ctypes.c_void_p,                  # xq (N, H, W, S*kb) int8, NHWC (padded by the quantize map)
+        ctypes.c_void_p,                  # vals_k (nmb, T*S, bn, kb) int8, K-major
+        ctypes.c_void_p,                  # steps (nmb, T*S) int32: live step ids
+        ctypes.c_void_p,                  # nsteps (nmb,) int32
+        ctypes.c_void_p,                  # w_scale (nmb, 1, bn) f32
+        ctypes.c_void_p,                  # x_scale (N,) f32, per frame
+        ctypes.c_void_p,                  # bias (Cout,) f32 (modes 2, 3) or null (0)
+        ctypes.c_void_p,                  # out (N, H, W, Cout) f32 (modes 0, 2), or bf16 (3)
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n h w
+        ctypes.c_int, ctypes.c_int,       # cin cout
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # s kernel dilation
+        ctypes.c_int, ctypes.c_int,       # kb (K per step), bn (N per out-block)
+        ctypes.c_int, ctypes.c_int,       # the tile: image rows R, images G
+        ctypes.c_int,                     # mode: 0 y, 2/3 relu(y + bias)
+        ctypes.c_void_p,                  # cudaStream_t
+    ]
+    lib.tpuseg_sparse_conv_q_narrow.restype = ctypes.c_int
     quantize_shape = [
         ctypes.c_int, ctypes.c_longlong,  # n, pixels per frame
         ctypes.c_int, ctypes.c_int,       # cx (x's channels), cq (quantized channels)
         ctypes.c_int,                     # dtype: 0 f32, 1 bf16
         ctypes.c_void_p,                  # cudaStream_t
     ]
-    lib.tpuseg_absmax.argtypes = [
-        ctypes.c_void_p,                  # x (N, P, Cx) f32|bf16
-        ctypes.c_void_p,                  # chan (Cq,) int32 or null
-        ctypes.c_void_p,                  # absmax (N,) uint32, zeroed
-        *quantize_shape,
-    ]
-    lib.tpuseg_absmax.restype = ctypes.c_int
     lib.tpuseg_quantize.argtypes = [
         ctypes.c_void_p,                  # x (N, P, Cx) f32|bf16
         ctypes.c_void_p,                  # chan (Cq,) int32 or null
-        ctypes.c_void_p,                  # absmax (N,) uint32, or null: static scale
+        ctypes.c_void_p,                  # vecs (Cq/8,) int32: chan's vector descriptor, or null
+        ctypes.c_void_p,                  # absmax (N,) uint32 scratch: per-frame scale; null: static
         ctypes.c_float,                   # the static scale
         ctypes.c_void_p,                  # xq (N, P, Cq) int8
         ctypes.c_void_p,                  # xs (N,) f32

@@ -278,7 +278,7 @@ class PolyphaseFrontend:
 
     ``int8_stem=True`` adds ``q_convs`` (``tpuseg``'s (w_q, w_scale) per
     conv, HWIO int8 and (O,) f32, on the host), ``q_plans`` (per conv B3's
-    packing, its quantize channel map and the f32 bias, on ``device``),
+    packing and the f32 bias, on ``device``; conv0's is narrow),
     ``conv0_x_scale`` (analytic with ``normalize``, else None: per frame)
     and ``stem_x_scales`` (None until ``calibrate_stem_scales``).
     """
@@ -316,9 +316,7 @@ class PolyphaseFrontend:
                 # compute dtype (polyphase.py:294, 308-314)
                 wq, ws = quantize_weight(torch.from_numpy(wp).to(dtype).float().numpy())
                 self.q_convs.append((torch.from_numpy(wq), torch.from_numpy(ws)))
-                plan, chan = stem_packing(name, wq, ws, plo, phi)
-                self.q_plans.append((plan.to(self.device),
-                                     None if chan is None else chan.to(self.device),
+                self.q_plans.append((stem_packing(name, wq, ws, plo, phi).to(self.device),
                                      conv[1].float()))
         self.out_f = specs[-1][3]
         if int8_stem and normalize is not None:
@@ -339,8 +337,7 @@ class PolyphaseFrontend:
         if self.normalize is not None:
             out.normalize = tuple(t.to(device) for t in self.normalize)
         out.convs = [(w.to(device), b.to(device), plo, phi) for w, b, plo, phi in self.convs]
-        out.q_plans = [(plan.to(device), None if chan is None else chan.to(device),
-                        bias.to(device)) for plan, chan, bias in self.q_plans]
+        out.q_plans = [(plan.to(device), bias.to(device)) for plan, bias in self.q_plans]
         return out
 
     def _input(self, x: torch.Tensor) -> torch.Tensor:
@@ -368,11 +365,11 @@ class PolyphaseFrontend:
                 x = F.relu_(_conv(x, wp, bias, plo, phi))
             return x
         x = nchw_to_nhwc(x)
-        for i, (plan, chan, bias) in enumerate(self.q_plans):
+        for i, (plan, bias) in enumerate(self.q_plans):
             xs = self._stem_x_scale(i)
             if plan.x_scale != xs:
                 plan = dataclasses.replace(plan, x_scale=xs)
-            x = fused_sparse_conv_q_bias_relu(x, plan, bias, self.dtype, chan)
+            x = fused_sparse_conv_q_bias_relu(x, plan, bias, self.dtype)
         return nhwc_to_nchw(x)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:

@@ -12,13 +12,14 @@ the residual run unquantized, as for float plans.
 ``build_cls_quant_plans`` the classifier zoo's for ``cifar_forward(...,
 plans=...)``.  PyTorch has no eager int8 conv on CUDA, so a ``QuantConv``
 carries, besides ``tpuseg``'s ``w_q``/``w_scale``, its full-support packing
-for kernel B3 (``tpuseg_torch.ops.sparse_conv.fused_sparse_conv_apply_q``):
-every input block in ``rows``, S = ceil(Cin/128).  A conv whose channels do
-not divide by 128 (the zoo's 16-64 wide convs) is padded to 128 (``
-int8_packing``): its input through the quantize pass's channel map, its
-output with zero weight columns that are sliced off.  A CUDA tensor runs B3
-on the packing; a CPU tensor runs ``quant_conv_reference``.  Build the plans
-from the f32 (BN-folded) weights: ``w_q`` is then ``tpuseg``'s bit for bit.
+for kernel B3 (``tpuseg_torch.ops.sparse_conv.fused_sparse_conv_apply_q``,
+``int8_packing``): 128-wide blocks when its channels divide by 128, else a
+narrow packing (the zoo's 16-64 wide convs: K of 32, 64 or 128 input
+channels a step, N of 16-128 output channels a block, x padded to whole
+steps by the quantize pass's map) that B3's narrow route writes at its
+own width.  A CUDA tensor runs B3 on the packing; a CPU tensor runs
+``quant_conv_reference``.  Build the plans from the f32 (BN-folded)
+weights: ``w_q`` is then ``tpuseg``'s bit for bit.
 """
 
 from __future__ import annotations
@@ -57,7 +58,6 @@ class QuantConv:
     padding: int
     x_scale: float | None = None  # static activation scale; None = per frame
     packed: FusedSparseConvQ | None = None  # full-support packing: B3's operand
-    chan: torch.Tensor | None = None  # int32 input channel map of a padded packing
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC float x -> f32 NHWC: the plain version on a CPU tensor,
@@ -78,35 +78,27 @@ class QuantConv:
     def to(self, device) -> "QuantConv":
         return dataclasses.replace(
             self, w_q=self.w_q.to(device), w_scale=self.w_scale.to(device),
-            packed=self.packed.to(device),
-            chan=None if self.chan is None else self.chan.to(device))
+            packed=self.packed.to(device))
 
 
 def quant_conv_apply(x: torch.Tensor, plan: QuantConv, bias: torch.Tensor | None = None,
                      bf16_bias: bool = False) -> torch.Tensor:
     """One B3 launch on the plan's packing (``int8_packing``) for NHWC x:
-    x quantized through the plan's channel map (its -1 entries read as 0,
-    so the scale and every integer sum are the unpadded conv's), then any
-    padded output channels sliced off.  f32 out, or with ``bf16_bias`` the
-    served bf16 route with ``bias`` padded by zeros.  Launches count in
-    ``fused_sparse_conv_apply_q.launches``; those on a padded packing also
-    in ``quant_conv_apply.padded_launches``.  On a CPU tensor the B3
-    wrappers run their plain version, which equals
+    f32 out, or with ``bf16_bias`` the served bf16 route.  Launches count in
+    ``fused_sparse_conv_apply_q.launches``; those on a narrow packing (B3's
+    narrow route) also in ``quant_conv_apply.narrow_launches``.  On a CPU
+    tensor the B3 wrappers run their plain version, which equals
     ``quant_conv_reference``."""
-    cout = plan.w_q.shape[3]
-    pad = plan.packed.cout - cout
     if bf16_bias:
-        if bias is not None and pad:
-            bias = F.pad(bias.to(device=x.device, dtype=torch.float32), (0, pad))
-        y = fused_sparse_conv_q_bias_bf16(x, plan.packed, bias, plan.chan)
+        y = fused_sparse_conv_q_bias_bf16(x, plan.packed, bias)
     else:
-        y = fused_sparse_conv_apply_q(x, plan.packed, plan.chan)
-    if x.device.type == "cuda" and (pad or plan.chan is not None):
-        quant_conv_apply.padded_launches += 1
-    return y[..., :cout].contiguous() if pad else y
+        y = fused_sparse_conv_apply_q(x, plan.packed)
+    if x.device.type == "cuda" and plan.packed.narrow:
+        quant_conv_apply.narrow_launches += 1
+    return y
 
 
-quant_conv_apply.padded_launches = 0
+quant_conv_apply.narrow_launches = 0
 
 
 def quant_conv_reference(x: torch.Tensor, plan: QuantConv) -> torch.Tensor:
@@ -151,34 +143,57 @@ def full_support_packing(name: str, w_q: np.ndarray, w_scale: np.ndarray, dilati
     )
 
 
-def int8_packing(name: str, w_q: np.ndarray, w_scale: np.ndarray, dilation: int,
-                 padding: int, x_scale: float | None = None
-                 ) -> tuple[FusedSparseConvQ, torch.Tensor | None]:
-    """B3's packing of a dense stride-1 'same' int8 conv (HWIO ``w_q``) and
-    the channel map its quantize pass takes (None when x needs none).  A
-    conv whose channels divide by 128 gets ``full_support_packing``; one
-    that does not is padded, as ``stem_packing`` pads the stem's conv0:
+def narrow_widths(cin: int, cout: int) -> tuple[int, int]:
+    """B3's narrow route's (K, N) for a cin -> cout conv: K = 32, 64 or 128
+    input channels a step (cin rounded up to 32, then to 64 or to slots of
+    128), N = 16, 32 or 64 output channels a block (cout rounded up to 16,
+    then to the next of them), or 128 past 64."""
+    kb = 32 if cin <= 32 else 64 if cin <= 64 else BK
+    bn = next(n for n in (16, 32, 64, BM) if cout <= n or n == BM)
+    return kb, bn
 
-    - input channels: zero weight rows, and the map ``[0..cin-1] + [-1] *
-      pad`` makes the quantize pass write the padded int8 operand (the
-      absmax and every integer sum are unchanged);
-    - output channels: zero weight columns with scale 1, whose outputs
-      ``quant_conv_apply`` slices off.
+
+def int8_packing(name: str, w_q: np.ndarray, w_scale: np.ndarray, dilation: int,
+                 padding: int, x_scale: float | None = None) -> FusedSparseConvQ:
+    """B3's packing of a dense stride-1 'same' int8 conv (HWIO ``w_q``).  A
+    conv whose channels divide by 128 gets ``full_support_packing``; any
+    other a narrow one (``FusedSparseConvQ.narrow``) at ``narrow_widths``:
+    zero weight rows up to S * K input channels, and where cin < S * K the
+    map ``[0..cin-1] + [-1] * (S * K - cin)`` through which the quantize
+    pass writes the padded int8 x (``in_chan``; its -1s are zero vectors,
+    read from nothing); zero columns (scale 1) up to the out-blocks' width,
+    which B3's narrow route does not write (y is cout wide).
 
     Raises ``ValueError``, naming the conv, on a conv B3 cannot take (an
-    even or non-square kernel, or padding other than 'same')."""
+    even or non-square kernel, padding other than 'same', or a narrow conv
+    whose channels do not divide by 8)."""
     kh, kw, cin, cout = w_q.shape
-    cin_p, cout_p = -(-cin // BK) * BK, -(-cout // BM) * BM
-    chan = None
-    if (cin_p, cout_p) != (cin, cout):
-        w = np.zeros((kh, kw, cin_p, cout_p), np.int8)
-        w[:, :, :cin, :cout] = w_q
-        w_scale = np.concatenate([w_scale, np.ones(cout_p - cout, np.float32)])
-        w_q = w
-        if cin_p != cin:
-            chan = torch.cat([torch.arange(cin, dtype=torch.int32),
-                              torch.full((cin_p - cin,), -1, dtype=torch.int32)])
-    return full_support_packing(name, w_q, w_scale, dilation, padding, x_scale), chan
+    if cin % BK == 0 and cout % BM == 0:
+        return full_support_packing(name, w_q, w_scale, dilation, padding, x_scale)
+    if kh != kw or kh % 2 == 0 or padding != dilation * (kh - 1) // 2 or cin % 8 or cout % 8:
+        raise ValueError(
+            f"{name}: int8 conv {kh}x{kw} {cin}->{cout} (dilation {dilation}, padding "
+            f"{padding}) does not fit kernel B3's narrow route: it needs an odd square 'same' "
+            f"kernel and channels divisible by 8")
+    kb, bn = narrow_widths(cin, cout)
+    S, nmb, T = -(-cin // kb), -(-cout // bn), kh * kw
+    w = np.zeros((kh, kw, S * kb, nmb * bn), np.int8)
+    w[:, :, :cin, :cout] = w_q
+    scale = np.ones(nmb * bn, np.float32)
+    scale[:cout] = w_scale
+    vals = w.reshape(T, S * kb, nmb, bn).transpose(2, 0, 1, 3).reshape(nmb, T * S * kb, bn)
+    taps = np.array([(p * dilation, q * dilation) for p in range(kh) for q in range(kw)],
+                    np.int32)
+    return FusedSparseConvQ(
+        vals=torch.from_numpy(np.ascontiguousarray(vals)),
+        w_scale=torch.from_numpy(scale.reshape(nmb, 1, bn)),
+        rows=torch.from_numpy(np.tile(np.arange(S, dtype=np.int32), (nmb, 1))),
+        taps=taps, s=S, bk=kb, bm=bn, kernel=kh, dilation=dilation, cin=cin, cout=cout,
+        block_density=1.0, x_scale=x_scale,
+        in_chan=None if cin == S * kb else torch.cat(
+            [torch.arange(cin, dtype=torch.int32),
+             torch.full((S * kb - cin,), -1, dtype=torch.int32)]),
+    )
 
 
 def embed_same(w: np.ndarray, pad_lo: int, pad_hi: int) -> tuple[np.ndarray, int]:
@@ -203,37 +218,25 @@ def embed_same(w: np.ndarray, pad_lo: int, pad_hi: int) -> tuple[np.ndarray, int
 
 
 def stem_packing(name: str, w_q: np.ndarray, w_scale: np.ndarray, pad_lo: int, pad_hi: int,
-                 x_scale: float | None = None) -> tuple[FusedSparseConvQ, torch.Tensor | None]:
+                 x_scale: float | None = None) -> FusedSparseConvQ:
     """B3's packing of a folded int8 stem conv (HWIO ``w_q``, stride 1,
-    padding ``(pad_lo, pad_hi)`` on both axes) and the channel map its
-    quantize pass takes (None when x needs none):
-
-    - input channels not a multiple of 128 (conv0, 48) are padded with zero
-      weight rows, and the map ``[0..cin-1] + [-1] * pad`` makes the quantize
-      pass write the padded int8 operand (the integer sum is unchanged);
-    - a kernel that keeps the grid but is even or padded asymmetrically
-      (conv2: 2x2, pad (1, 0)) is embedded in the odd "same" kernel of
-      ``max(pad_lo, pad_hi)`` padding (``embed_same``); the taps it adds
-      are zero, so their tiles are not live steps (the packing's steps come
-      from its nonzero tiles) and B3 walks conv2's 4 taps of the 9.
-
-    Quantization is untouched (zeros change no absmax).  Raises
-    ``ValueError``, naming the conv, on a shape B3 cannot take this way."""
+    padding ``(pad_lo, pad_hi)`` on both axes): ``int8_packing`` of the
+    conv as an odd "same" kernel.  A kernel that keeps the grid but is even
+    or padded asymmetrically (conv2: 2x2, pad (1, 0)) is embedded in the odd
+    "same" kernel of ``max(pad_lo, pad_hi)`` padding (``embed_same``); the
+    taps it adds are zero, so their tiles are not live steps (the packing's
+    steps come from its nonzero tiles) and B3 walks conv2's 4 taps of the 9.
+    conv0's 48 input channels make a narrow packing (K = 64, x padded to 64
+    through its map).  Raises ``ValueError``, naming the conv, on a shape
+    B3 cannot take this way."""
     kh, kw, cin, cout = w_q.shape
-    if kh != kw or pad_lo + pad_hi != kh - 1 or min(pad_lo, pad_hi) < 0 or cout % BM:
+    if kh != kw or pad_lo + pad_hi != kh - 1 or min(pad_lo, pad_hi) < 0:
         raise ValueError(
             f"{name}: int8 stem conv {kh}x{kw} {cin}->{cout} with padding ({pad_lo}, "
             f"{pad_hi}) does not fit kernel B3: it needs a square kernel that keeps the grid "
-            f"(pad_lo + pad_hi = kernel - 1) and output channels divisible by {BM}")
+            f"(pad_lo + pad_hi = kernel - 1)")
     w_same, pad = embed_same(w_q, pad_lo, pad_hi)
-    cin_p = -(-cin // BK) * BK
-    w = np.zeros(w_same.shape[:2] + (cin_p, cout), np.int8)
-    w[:, :, :cin] = w_same
-    chan = None
-    if cin_p != cin:
-        chan = torch.cat([torch.arange(cin, dtype=torch.int32),
-                          torch.full((cin_p - cin,), -1, dtype=torch.int32)])
-    return full_support_packing(name, w, w_scale, 1, pad, x_scale), chan
+    return int8_packing(name, w_same, w_scale, 1, pad, x_scale)
 
 
 # tpuseg's eligibility rule (its build_quant_plans defaults, the only
@@ -284,10 +287,9 @@ def _quant_conv(name: str, w: np.ndarray, stride: int, dilation: int, padding: i
                 x_scale: float | None) -> QuantConv:
     """The ``QuantConv`` of one f32 HWIO weight, with its B3 packing."""
     wq, ws = quantize_weight(w)
-    packed, chan = int8_packing(name, wq, ws, dilation, padding, x_scale)
     return QuantConv(w_q=torch.from_numpy(wq), w_scale=torch.from_numpy(ws), stride=stride,
-                     dilation=dilation, padding=padding, x_scale=x_scale, packed=packed,
-                     chan=chan)
+                     dilation=dilation, padding=padding, x_scale=x_scale,
+                     packed=int8_packing(name, wq, ws, dilation, padding, x_scale))
 
 
 def build_cls_quant_plans(
@@ -305,7 +307,7 @@ def build_cls_quant_plans(
     sites).  The 3-channel stem falls under the channel floor.  Pass the
     spec's ``groups`` for resnext archs: their grouped 3x3 convs (cin =
     cout / groups) never dispatch and get no plan.  Convs of 16-64 channels
-    get B3's padded packing (``int8_packing``)."""
+    get B3's narrow packing (``int8_packing``)."""
     plans: dict[str, QuantConv] = {}
     for key, wt in params.items():
         if not key.endswith(".weight") or wt.dim() != 4:

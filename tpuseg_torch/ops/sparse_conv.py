@@ -77,13 +77,23 @@ integer conv and the epilogue ``float(acc) * (x_scale[n] * w_scale[o])``.
   (``tpuseg/ops/polyphase.py:349-359``): the same launches write
   ``relu(y + bias)`` in f32, as f32 or rounded once to bf16, with
   ``tpuseg``'s relu (``relu_tpuseg``); its plain version is
-  ``fused_sparse_conv_q_bias_relu_reference``.  A negative entry of a
-  channel map reads 0 (``select_channels``), so the quantize pass pads
-  conv0's 48 channels to the 128 B3 takes.
+  ``fused_sparse_conv_q_bias_relu_reference``.
+- B3's narrow route (``csrc/sparse_conv_q_narrow.cu``): a ``narrow``
+  packing (``ops/quant.py::int8_packing`` of a conv whose channels do not
+  divide by 128: the zoo's, the int8 stem's conv0, the frontend's stage-3
+  convs) runs K of 32, 64 or 128 channels a step (x padded to whole steps
+  through the packing's map) and N of 16-128 a block; ``b3_narrow_tile``
+  is its tile, and
+  ``b3_narrow_instance`` raises on an epilogue it has no instance for.
+- ``channel_map_vectors``: a channel map's vector descriptor (contiguous,
+  zero or gathered 8-channel vectors), built once with the map, through
+  which the quantize kernels read it; ``select_channels_by_vectors`` is its
+  plain reader and equals ``select_channels``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -94,6 +104,23 @@ from tpuseg_torch.models.weights import oihw_to_hwio_np
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 BK = BM = 128  # channel block sizes (in, out), the kernel's
+
+
+def _raw_stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as the int a ctypes launch
+    takes: the lookup PyTorch's generated kernels launch with
+    (``torch.cuda.current_stream(device).cuda_stream`` builds a Stream
+    object, microseconds a call, which the small narrow convs feel)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _on_device(device: torch.device):
+    """A context in which ``device`` is the current CUDA device: a no-op
+    where it already is (the usual case, and the cheap one),
+    ``torch.cuda.device`` otherwise."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def _raise_on(lib, kernel: str, err: int) -> None:
@@ -673,7 +700,21 @@ class FusedSparseConvQ:
     plan is made: ``vals_k``, the kernel's K-major copy (int8 tensor-core
     MMA takes both operands K-major), and ``steps``/``nsteps``, the live
     steps of the nonzero int8 tiles (``FusedSparseConv``'s layout; a tile
-    whose weights all quantize to 0 is not live)."""
+    whose weights all quantize to 0 is not live).
+
+    A dense conv's packing (``ops/quant.py::int8_packing``) whose channels
+    do not divide by 128 is ``narrow``: full support (``rows`` = 0..S-1),
+    ``bk`` in {32, 64, 128} input channels a slot (S = ceil(cin / bk)) and
+    ``bm`` in {16, 32, 64, 128} output channels a block (nmb = ceil(cout /
+    bm)), zero rows and columns past cin and cout; B3 runs it on its narrow
+    route (``csrc/sparse_conv_q_narrow.cu``).  Where cin < S * bk the
+    packing carries ``in_chan``, the quantize pass's map of x's channels
+    then -1s up to S * bk, and its ``channel_map_vectors`` ``in_vecs``
+    (built here, moved by ``to``): on the card x is quantized through it
+    into the padded int8 operand (the -1s are zero vectors: nothing is
+    read), which B3 reads in whole K-wide steps; the plain version reads
+    the unpadded x.  A TMA box wider than x's channels would zero-fill them
+    instead, which the H100 runs slower (``PERF.md``)."""
 
     vals: torch.Tensor     # (nmb, T*S*bk, bm) int8
     w_scale: torch.Tensor  # (nmb, 1, bm) f32 per-output-channel
@@ -691,6 +732,8 @@ class FusedSparseConvQ:
     vals_k: torch.Tensor | None = None  # (nmb, T*S, bm, bk) int8: vals per tile, transposed
     steps: torch.Tensor | None = None   # (nmb, T*S) int32
     nsteps: torch.Tensor | None = None  # (nmb,) int32
+    in_chan: torch.Tensor | None = None  # (S*bk,) int32 padding map of a narrow packing
+    in_vecs: torch.Tensor | None = None  # (S*bk/8,) int32: its channel_map_vectors
 
     def __post_init__(self):
         nmb, tsk, bm = self.vals.shape
@@ -700,13 +743,23 @@ class FusedSparseConvQ:
         if self.steps is None:
             live = (tiles != 0).any(3).any(2).cpu().numpy()
             self.steps, self.nsteps = _step_list(live)
+        if self.in_chan is not None and self.in_vecs is None:
+            self.in_vecs = channel_map_vectors(self.in_chan)
+
+    @property
+    def narrow(self) -> bool:
+        """Whether B3 runs this packing on its narrow route: anything but
+        128-wide blocks over channels that divide by 128."""
+        return (self.bk, self.bm) != (BK, BM) or self.cin % BK != 0 or self.cout % BM != 0
 
     def to(self, device) -> "FusedSparseConvQ":
         """The plan with its tensors on ``device`` (dtypes unchanged)."""
         return dataclasses.replace(
             self, vals=self.vals.to(device), w_scale=self.w_scale.to(device),
             rows=self.rows.to(device), vals_k=self.vals_k.to(device),
-            steps=self.steps.to(device), nsteps=self.nsteps.to(device))
+            steps=self.steps.to(device), nsteps=self.nsteps.to(device),
+            in_chan=None if self.in_chan is None else self.in_chan.to(device),
+            in_vecs=None if self.in_vecs is None else self.in_vecs.to(device))
 
 
 def quantize_fused_plan(plan: FusedSparseConv, x_scale: float | None = None) -> FusedSparseConvQ:
@@ -744,6 +797,48 @@ def select_channels(x: torch.Tensor, chan: torch.Tensor | None) -> torch.Tensor:
     return x.index_select(x.dim() - 1, chan.clamp_min(0)).masked_fill_(chan < 0, 0)
 
 
+ZERO_VEC, GATHER_VEC = -1, -2  # channel_map_vectors' kinds below 0
+
+
+def channel_map_vectors(chan: torch.Tensor) -> torch.Tensor:
+    """The vector descriptor of a channel map (``chan``, int, its length a
+    multiple of 8), which the quantize kernels read the map through: one
+    int32 per 8 output channels, on ``chan``'s device.  Entry v is
+
+    - ``s >= 0`` (contiguous): ``chan[8v:8v+8]`` is ``s .. s+7`` with s a
+      multiple of 8, one 16-byte load of bf16;
+    - ``ZERO_VEC``: all 8 entries are negative (zeros; nothing is loaded);
+    - ``GATHER_VEC``: anything else, read element by element.
+
+    Build it once where the map is made (a host copy of ``chan``).
+    ``select_channels_by_vectors`` is its plain reader."""
+    c = chan.detach().cpu().numpy().astype(np.int64)
+    if c.ndim != 1 or c.size % 8:
+        raise ValueError(f"a channel map of a multiple of 8 entries, got shape {c.shape}")
+    v = c.reshape(-1, 8)
+    first = v[:, 0]
+    contiguous = (first >= 0) & (first % 8 == 0) & (v == first[:, None] + np.arange(8)).all(1)
+    out = np.where(contiguous, first, np.where((v < 0).all(1), ZERO_VEC, GATHER_VEC))
+    return torch.from_numpy(out.astype(np.int32)).to(chan.device)
+
+
+def select_channels_by_vectors(x: torch.Tensor, chan: torch.Tensor,
+                               vecs: torch.Tensor) -> torch.Tensor:
+    """Plain reader of ``channel_map_vectors``: ``select_channels(x,
+    chan)`` built vector by vector as the kernels read it (a contiguous
+    vector as one slice of x, a zero vector as zeros, a gathered one
+    through ``chan``)."""
+    parts = []
+    for v, d in enumerate(vecs.tolist()):
+        if d >= 0:
+            parts.append(x[..., d:d + 8])
+        elif d == ZERO_VEC:
+            parts.append(x.new_zeros(x.shape[:-1] + (8,)))
+        else:
+            parts.append(select_channels(x, chan[8 * v:8 * v + 8]))
+    return torch.cat(parts, dim=-1)
+
+
 def quantize_activation_reference(x: torch.Tensor,
                                   x_scale: float | None) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``quantize_activation``: ``tpuseg``'s ops in its
@@ -766,22 +861,26 @@ def quantize_activation_reference(x: torch.Tensor,
 
 
 def quantize_activation(x: torch.Tensor, x_scale: float | None,
-                        chan: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                        chan: torch.Tensor | None = None, *,
+                        vecs: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """``(xq, xs)``: int8 ``xq`` of x's shape and the (N,) f32 per-frame
     scales, ``tpuseg``'s x quantization (``quantize_activation_reference``).
     With ``chan`` (an int32 index of x's last axis) it quantizes
     ``x.index_select(-1, chan)``, the scale taken over those channels, as
     ``tpuseg``'s ``CompactSparseQ`` does after its gather; a negative entry
-    of ``chan`` reads as 0 (``select_channels``), which pads x's channels
-    in the same pass (the int8 stem's conv0).
+    of ``chan`` reads as 0 (``select_channels``).  ``vecs`` is the map's
+    ``channel_map_vectors``, built once with the map (a CUDA call with
+    ``chan`` raises without it: building it reads ``chan`` on the host).
 
     On a CPU tensor this runs the plain version.  On a CUDA tensor (bf16 or
     f32, contiguous, channels last) it launches the hand-written kernels of
     ``tpuseg_torch/csrc/quantize.cu`` on the current stream: per-frame
     absmax (dynamic scale only, counted in ``quantize_activation.
-    absmax_launches``), then one pass that reads x (through ``chan``: the
-    gathered copy is never made) and writes xq and xs (counted in
-    ``quantize_activation.launches``); it raises if a launch fails."""
+    absmax_launches``), then one pass that reads x (through the map's
+    vectors: the gathered copy is never made) and writes xq and xs
+    (counted in ``quantize_activation.launches``, and those through a map
+    in ``quantize_activation.map_launches`` too); it raises if a launch
+    fails."""
     if x.device.type == "cpu":
         return quantize_activation_reference(select_channels(x, chan), x_scale)
     if x.device.type != "cuda":
@@ -797,32 +896,39 @@ def quantize_activation(x: torch.Tensor, x_scale: float | None,
         raise ValueError("chan must be a contiguous 1-D int32 tensor on x's device")
     if cq % 8 or (chan is None and cx % 8):
         raise ValueError(f"the quantize kernels take channel counts divisible by 8, got {cq}")
+    if chan is not None and vecs is None:
+        raise ValueError("a channel map on the card needs its channel_map_vectors (vecs=)")
+    if chan is not None and (vecs.dtype != torch.int32 or tuple(vecs.shape) != (cq // 8,)
+                             or not vecs.is_contiguous() or vecs.device != x.device):
+        raise ValueError(f"vecs must be chan's contiguous int32 descriptor ({cq // 8},) "
+                         "on x's device")
     from tpuseg_torch.ops._build import load_library
 
-    pixels = x[0, ..., 0].numel()
-    xq = torch.empty(x.shape[:-1] + (cq,), dtype=torch.int8, device=x.device)
-    xs = torch.empty((n,), dtype=torch.float32, device=x.device)
-    absmax = None if x_scale is not None else torch.zeros((n,), dtype=torch.int32,
-                                                          device=x.device)
+    dev = x.device
+    pixels = x.numel() // (n * cx)
+    xq = torch.empty(x.shape[:-1] + (cq,), dtype=torch.int8, device=dev)
+    # xs, and the absmax kernel's (N,) scratch (its C entry zeroes it)
+    scales = torch.empty((1 if x_scale is not None else 2, n), dtype=torch.int32, device=dev)
+    xs = scales[0].view(torch.float32)
+    absmax = None if x_scale is not None else scales[1]
     lib = load_library()
     cptr = None if chan is None else chan.data_ptr()
+    vptr = None if chan is None else vecs.data_ptr()
     shape = (n, pixels, cx, cq, _DTYPE_CODE[x.dtype])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if absmax is not None:
-            _raise_on(lib, "absmax", lib.tpuseg_absmax(x.data_ptr(), cptr, absmax.data_ptr(),
-                                                      *shape, stream))
-            quantize_activation.absmax_launches += 1
+    with _on_device(dev):
         _raise_on(lib, "quantize", lib.tpuseg_quantize(
-            x.data_ptr(), cptr, None if absmax is None else absmax.data_ptr(),
+            x.data_ptr(), cptr, vptr, None if absmax is None else absmax.data_ptr(),
             0.0 if x_scale is None else float(x_scale), xq.data_ptr(), xs.data_ptr(), *shape,
-            stream))
+            _raw_stream(dev)))
+    quantize_activation.absmax_launches += absmax is not None
     quantize_activation.launches += 1
+    quantize_activation.map_launches += chan is not None
     return xq, xs
 
 
 quantize_activation.launches = 0
 quantize_activation.absmax_launches = 0
+quantize_activation.map_launches = 0
 
 
 def int_conv_exact(xq: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
@@ -854,17 +960,21 @@ def dequantize(acc: torch.Tensor, xs: torch.Tensor, w_scale: torch.Tensor) -> to
 def fused_sparse_conv_q_reference(x: torch.Tensor, plan: FusedSparseConvQ) -> torch.Tensor:
     """Plain version of B3: quantize x (``quantize_activation_reference``),
     rebuild the dense HWIO int8 weight from ``vals``/``rows`` (padded slots
-    add zeros), compute the integer conv exactly (``int_conv_exact``), apply
+    add zeros; a narrow packing's rows and columns past cin and cout are
+    cut off), compute the integer conv exactly (``int_conv_exact``), apply
     the epilogue.  NHWC in, f32 out."""
     xq, xs = quantize_activation_reference(x, plan.x_scale)
     k, S, bk, bm = plan.kernel, plan.s, plan.bk, plan.bm
-    nmb = plan.cout // bm
+    nmb = -(-plan.cout // bm)
     vals = plan.vals.to(torch.float64).reshape(nmb, k, k, S, bk, bm)
-    w = torch.zeros((k, k, plan.cin, plan.cout), dtype=torch.float64, device=vals.device)
+    w = torch.zeros((k, k, -(-plan.cin // bk) * bk, nmb * bm), dtype=torch.float64,
+                    device=vals.device)
     for jb, blocks in enumerate(plan.rows.tolist()):
         for s_i, kb in enumerate(blocks):
             w[:, :, kb * bk:(kb + 1) * bk, jb * bm:(jb + 1) * bm] += vals[jb, :, :, s_i]
-    return dequantize(int_conv_exact(xq, w, plan.dilation), xs, plan.w_scale)
+    w = w[:, :, :plan.cin, :plan.cout]
+    return dequantize(int_conv_exact(xq, w, plan.dilation), xs,
+                      plan.w_scale.reshape(-1)[:plan.cout])
 
 
 def cast_bias_bf16(y: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
@@ -885,23 +995,40 @@ def _check_q(x: torch.Tensor, plan: FusedSparseConvQ, chan: torch.Tensor | None)
     cin = x.shape[3] if chan is None else chan.numel()
     if cin != plan.cin:
         raise ValueError(f"x has {cin} channels, the plan {plan.cin}")
+    # get_device and torch.Size == tuple: the checks run on every launch,
+    # and the small narrow convs feel their host time
     tensors = (plan.vals, plan.vals_k, plan.rows, plan.w_scale, plan.steps, plan.nsteps)
-    if any(t.device != x.device for t in tensors):
+    dev = x.get_device()
+    if any(t.get_device() != dev for t in tensors):
         raise ValueError(f"plan on {plan.vals.device}, x on {x.device}")
-    nmb, T, S = plan.cout // plan.bm, plan.kernel * plan.kernel, plan.s
+    nmb, T, S = -(-plan.cout // plan.bm), plan.kernel * plan.kernel, plan.s
     if (plan.vals.dtype != torch.int8 or plan.vals_k.dtype != torch.int8
             or plan.rows.dtype != torch.int32 or plan.w_scale.dtype != torch.float32
             or plan.steps.dtype != torch.int32 or plan.nsteps.dtype != torch.int32
-            or tuple(plan.vals.shape) != (nmb, T * S * plan.bk, plan.bm)
-            or tuple(plan.vals_k.shape) != (nmb, T * S, plan.bm, plan.bk)
-            or tuple(plan.rows.shape) != (nmb, S)
-            or tuple(plan.w_scale.shape) != (nmb, 1, plan.bm)
-            or tuple(plan.steps.shape) != (nmb, T * S) or tuple(plan.nsteps.shape) != (nmb,)
+            or plan.vals.shape != (nmb, T * S * plan.bk, plan.bm)
+            or plan.vals_k.shape != (nmb, T * S, plan.bm, plan.bk)
+            or plan.rows.shape != (nmb, S) or plan.w_scale.shape != (nmb, 1, plan.bm)
+            or plan.steps.shape != (nmb, T * S) or plan.nsteps.shape != (nmb,)
             or not all(t.is_contiguous() for t in tensors)):
         raise ValueError("int8 plan does not match its geometry (contiguous int8 vals "
                          f"{(nmb, T * S * plan.bk, plan.bm)}, vals_k "
                          f"{(nmb, T * S, plan.bm, plan.bk)}, int32 rows {(nmb, S)}, steps "
                          f"{(nmb, T * S)} and nsteps {(nmb,)}, f32 w_scale {(nmb, 1, plan.bm)})")
+    padded = plan.in_chan is not None
+    if plan.narrow and (plan.bk not in (32, 64, BK) or S != -(-plan.cin // plan.bk)
+                        or plan.bm not in (16, 32, 64, BM) or plan.cin % 8 or plan.cout % 8
+                        or padded != (plan.cin != S * plan.bk)):
+        raise ValueError(f"narrow int8 packing bk={plan.bk}, bm={plan.bm}, S={S} for "
+                         f"{plan.cin} -> {plan.cout} channels: B3's narrow route takes bk in "
+                         "(32, 64, 128) with S = ceil(cin / bk), bm in (16, 32, 64, 128), cin "
+                         "and cout divisible by 8, and a padding map to S * bk channels "
+                         "exactly where cin is less")
+    if padded and (plan.in_chan.dtype != torch.int32 or plan.in_vecs.dtype != torch.int32
+                   or plan.in_chan.shape != (S * plan.bk,)
+                   or plan.in_vecs.shape != (S * plan.bk // 8,)
+                   or plan.in_chan.get_device() != dev or plan.in_vecs.get_device() != dev):
+        raise ValueError(f"the padding map must be int32 ({S * plan.bk},) with its int32 "
+                         f"vectors ({S * plan.bk // 8},) on x's device")
     if plan.kernel % 2 == 0:
         raise ValueError(f"'same' padding needs an odd kernel, got {plan.kernel}")
     if QMAX * QMAX * T * S * plan.bk >= 2**31:
@@ -910,46 +1037,126 @@ def _check_q(x: torch.Tensor, plan: FusedSparseConvQ, chan: torch.Tensor | None)
         raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's int sizes")
 
 
+B3_TILE_PIXELS = 256  # output pixels a CTA of B3 computes
+# (N, epilogue mode) of the narrow route's instances: f32 y at every width
+# (the zoo, the frontend's stage-3 convs), relu(y + bias) at 128 (conv0)
+B3_NARROW_INSTANCES = frozenset({(16, 0), (32, 0), (64, 0), (128, 0), (128, 2), (128, 3)})
+
+
+def b3_narrow_tile(n: int, h: int, w: int) -> tuple[int, int]:
+    """The narrow route's tile on an (n, h, w) map: ``(R, G)``, R image
+    rows and G whole images of 256 pixels or fewer.  A 256-pixel row
+    segment (1, 1) where w >= 256; else R = min(256 // w, h) rows (B2's
+    row bands, ``b2_tile_rows``); where a whole image fits (R = h), G =
+    min(256 // (h * w), n) images."""
+    if w >= B3_TILE_PIXELS:
+        return 1, 1
+    rows = min(B3_TILE_PIXELS // w, h)
+    if rows < h:
+        return rows, 1
+    return h, max(1, min(B3_TILE_PIXELS // (h * w), n))
+
+
+def b3_narrow_instance(kb: int, bn: int, mode: int) -> None:
+    """Raise ``ValueError`` unless the narrow route has an instance for K
+    = ``kb``, N = ``bn`` and epilogue ``mode`` (0 f32 y, 1 bf16 + bias,
+    2/3 relu(y + bias) as f32/bf16): the combinations its callers launch,
+    ``B3_NARROW_INSTANCES``, at K in (32, 64, 128)."""
+    if kb not in (32, 64, BK) or (bn, mode) not in B3_NARROW_INSTANCES:
+        raise ValueError(f"B3's narrow route has no instance for K={kb}, N={bn}, epilogue "
+                         f"mode {mode}; it has K in (32, 64, 128) with (N, mode) in "
+                         f"{sorted(B3_NARROW_INSTANCES)}")
+
+
 def _launch_b3(xq: torch.Tensor, xs: torch.Tensor, plan: FusedSparseConvQ,
                bias: torch.Tensor | None, bf16_out: bool, relu: bool = False) -> torch.Tensor:
-    """One launch of kernel B3 (``csrc/sparse_conv_q.cu``) on int8 NHWC
-    ``xq`` and its (N,) scales ``xs``, checked by the caller: the f32 y, or
-    with ``bf16_out`` the bf16 ``bf16(float(bf16(y)) + float(bias))`` (bias
-    bf16); with ``relu`` ``relu(y + bias)`` (bias f32) as f32, or rounded
-    to bf16 with ``bf16_out``."""
-    from tpuseg_torch.ops._build import load_library
-
-    n, h, w, cin = xq.shape
+    """One launch of kernel B3 on int8 NHWC ``xq`` and its (N,) scales
+    ``xs``, checked by the caller: ``sparse_conv_q_kernel`` for 128-wide
+    packings, ``sparse_conv_q_narrow_kernel`` for narrow ones (which
+    raises, before any launch, on an epilogue it has no instance for:
+    ``b3_narrow_instance``).  Writes the f32 y, or with ``bf16_out`` the
+    bf16 ``bf16(float(bf16(y)) + float(bias))`` (bias bf16); with ``relu``
+    ``relu(y + bias)`` (bias f32) as f32, or rounded to bf16 with
+    ``bf16_out``."""
+    mode = 2 * int(relu) + int(bf16_out)
+    if plan.narrow:
+        b3_narrow_instance(plan.bk, plan.bm, mode)
+    n, h, w, _ = xq.shape
+    dev = xq.device
     out = torch.empty((n, h, w, plan.cout), dtype=torch.bfloat16 if bf16_out else torch.float32,
-                      device=xq.device)
-    lib = load_library()
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream(xq.device).cuda_stream
-        err = lib.tpuseg_sparse_conv_q(
-            xq.data_ptr(), plan.vals_k.data_ptr(), plan.rows.data_ptr(), plan.steps.data_ptr(),
-            plan.nsteps.data_ptr(), plan.w_scale.data_ptr(), xs.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            n, h, w, cin, plan.cout, plan.s, plan.kernel, plan.dilation,
-            2 * int(relu) + int(bf16_out), stream,
-        )
-    _raise_on(lib, "sparse_conv_q", err)
+                      device=dev)
+    kernel = sparse_conv_q_narrow_kernel if plan.narrow else sparse_conv_q_kernel
+    with _on_device(dev):
+        kernel(xq, xs, plan, bias, mode, out, _raw_stream(dev))
     return out
 
 
+def sparse_conv_q_kernel(xq: torch.Tensor, xs: torch.Tensor, plan: FusedSparseConvQ,
+                         bias: torch.Tensor | None, mode: int, out: torch.Tensor,
+                         stream: int) -> None:
+    """One launch of ``csrc/sparse_conv_q.cu`` (B3 on a 128-wide packing)
+    into ``out`` with epilogue ``mode``, counted in
+    ``sparse_conv_q_kernel.launches`` whichever entry point called it;
+    raises if the launch fails."""
+    from tpuseg_torch.ops._build import load_library
+
+    n, h, w, cin = xq.shape
+    lib = load_library()
+    err = lib.tpuseg_sparse_conv_q(
+        xq.data_ptr(), plan.vals_k.data_ptr(), plan.rows.data_ptr(), plan.steps.data_ptr(),
+        plan.nsteps.data_ptr(), plan.w_scale.data_ptr(), xs.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), n, h, w, cin, plan.cout,
+        plan.s, plan.kernel, plan.dilation, mode, stream)
+    _raise_on(lib, "sparse_conv_q", err)
+    sparse_conv_q_kernel.launches += 1
+
+
+sparse_conv_q_kernel.launches = 0
+
+
+def sparse_conv_q_narrow_kernel(xq: torch.Tensor, xs: torch.Tensor, plan: FusedSparseConvQ,
+                                bias: torch.Tensor | None, mode: int, out: torch.Tensor,
+                                stream: int) -> None:
+    """One launch of ``csrc/sparse_conv_q_narrow.cu`` (B3 on a narrow
+    packing) into ``out`` with epilogue ``mode``, counted in
+    ``sparse_conv_q_narrow_kernel.launches`` whichever entry point called
+    it (``quant_conv_apply`` or the int8 stem's conv0); raises if the
+    launch fails."""
+    from tpuseg_torch.ops._build import load_library
+
+    n, h, w, cin = xq.shape
+    lib = load_library()
+    err = lib.tpuseg_sparse_conv_q_narrow(
+        xq.data_ptr(), plan.vals_k.data_ptr(), plan.steps.data_ptr(), plan.nsteps.data_ptr(),
+        plan.w_scale.data_ptr(), xs.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), n, h, w, cin, plan.cout, plan.s, plan.kernel, plan.dilation, plan.bk,
+        plan.bm, *b3_narrow_tile(n, h, w), mode, stream)
+    _raise_on(lib, "sparse_conv_q_narrow", err)
+    sparse_conv_q_narrow_kernel.launches += 1
+
+
+sparse_conv_q_narrow_kernel.launches = 0
+
+
 def _b3_cuda(x: torch.Tensor, plan: FusedSparseConvQ, chan: torch.Tensor | None,
-             bias: torch.Tensor | None, bf16_out: bool) -> torch.Tensor:
-    """The CUDA half of every B3 entry point: quantize x through ``chan``
-    (``quantize_activation``'s kernels), then one B3 launch."""
-    xq, xs = quantize_activation(x, plan.x_scale, chan)
-    return _launch_b3(xq, xs, plan, bias, bf16_out)
+             bias: torch.Tensor | None, bf16_out: bool, vecs: torch.Tensor | None = None,
+             relu: bool = False) -> torch.Tensor:
+    """The CUDA half of every B3 entry point: quantize x through ``chan``,
+    or a narrow packing's own padding map (``quantize_activation``'s
+    kernels), then one B3 launch."""
+    if chan is None and plan.in_chan is not None:
+        chan, vecs = plan.in_chan, plan.in_vecs
+    xq, xs = quantize_activation(x, plan.x_scale, chan, vecs=vecs)
+    return _launch_b3(xq, xs, plan, bias, bf16_out, relu)
 
 
 def fused_sparse_conv_apply_q(x: torch.Tensor, plan: FusedSparseConvQ,
-                              chan: torch.Tensor | None = None) -> torch.Tensor:
+                              chan: torch.Tensor | None = None, *,
+                              vecs: torch.Tensor | None = None) -> torch.Tensor:
     """Int8 stride-1 'same' block-sparse conv of NHWC-contiguous float ``x``
-    -> f32 (N, H, W, Cout); with ``chan`` (int32) the conv of
-    ``select_channels(x, chan)`` (a -1 entry reads zeros), quantized over
-    those channels.
+    -> f32 (N, H, W, Cout); with ``chan`` (int32; ``vecs`` its
+    ``channel_map_vectors``) the conv of ``select_channels(x, chan)`` (a -1
+    entry reads zeros), quantized over those channels.
 
     On a CUDA tensor this quantizes x (``quantize_activation``'s kernels),
     launches B3 on the current stream, counts the launch in
@@ -961,7 +1168,7 @@ def fused_sparse_conv_apply_q(x: torch.Tensor, plan: FusedSparseConvQ,
         return fused_sparse_conv_q_reference(select_channels(x, chan), plan)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    out = _b3_cuda(x, plan, chan, None, False)
+    out = _b3_cuda(x, plan, chan, None, False, vecs)
     fused_sparse_conv_apply_q.launches += 1
     return out
 
@@ -978,7 +1185,8 @@ def fused_sparse_conv_q_bias_bf16_reference(x: torch.Tensor, plan: FusedSparseCo
 
 def fused_sparse_conv_q_bias_bf16(x: torch.Tensor, plan: FusedSparseConvQ,
                                   bias: torch.Tensor | None,
-                                  chan: torch.Tensor | None = None) -> torch.Tensor:
+                                  chan: torch.Tensor | None = None, *,
+                                  vecs: torch.Tensor | None = None) -> torch.Tensor:
     """The served bf16 route of an int8 plan: ``bf16(float(bf16(y)) +
     float(bias_bf16))`` (N, H, W, Cout) bf16, y = B3's f32 function of
     ``x`` (through ``chan``, as ``fused_sparse_conv_apply_q``), each step
@@ -997,7 +1205,7 @@ def fused_sparse_conv_q_bias_bf16(x: torch.Tensor, plan: FusedSparseConvQ,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     b = None if bias is None else bias.to(device=x.device, dtype=torch.bfloat16).contiguous()
-    out = _b3_cuda(x, plan, chan, b, True)
+    out = _b3_cuda(x, plan, chan, b, True, vecs)
     fused_sparse_conv_apply_q.launches += 1
     return out
 
@@ -1009,42 +1217,38 @@ def relu_tpuseg(v: torch.Tensor) -> torch.Tensor:
 
 
 def fused_sparse_conv_q_bias_relu_reference(x: torch.Tensor, plan: FusedSparseConvQ,
-                                            bias: torch.Tensor, out_dtype: torch.dtype,
-                                            chan: torch.Tensor | None = None) -> torch.Tensor:
+                                            bias: torch.Tensor,
+                                            out_dtype: torch.dtype) -> torch.Tensor:
     """Plain version of the int8 stem's route: B3's f32 y
-    (``fused_sparse_conv_q_reference`` on ``select_channels(x, chan)``),
-    then the f32 bias added and ``relu_tpuseg`` in f32, then one cast to
-    ``out_dtype``."""
-    y = fused_sparse_conv_q_reference(select_channels(x, chan), plan)
+    (``fused_sparse_conv_q_reference``), then the f32 bias added and
+    ``relu_tpuseg`` in f32, then one cast to ``out_dtype``."""
+    y = fused_sparse_conv_q_reference(x, plan)
     return relu_tpuseg(y + bias.to(device=y.device, dtype=torch.float32)).to(out_dtype)
 
 
 def fused_sparse_conv_q_bias_relu(x: torch.Tensor, plan: FusedSparseConvQ, bias: torch.Tensor,
-                                  out_dtype: torch.dtype,
-                                  chan: torch.Tensor | None = None) -> torch.Tensor:
+                                  out_dtype: torch.dtype) -> torch.Tensor:
     """The int8 stem's conv (``tpuseg/ops/polyphase.py:349-359``):
     ``relu(float(acc) * (x_scale * w_scale) + bias)`` in f32, each step
     rounded on its own, cast to ``out_dtype`` (f32 or bf16): (N, H, W, Cout).
-    ``bias`` is taken as f32 (a bf16 bias converts exactly); ``chan`` is
-    the quantize pass's channel map (-1 pads with zeros).
+    ``bias`` is taken as f32 (a bf16 bias converts exactly).
 
     On a CUDA tensor the quantize kernels and one B3 launch write it (B3's
-    epilogue modes 2 and 3), counted in ``fused_sparse_conv_apply_q.
-    launches`` with B3's other routes and in ``fused_sparse_conv_q_bias_relu.
-    launches``; on a CPU tensor it runs
-    ``fused_sparse_conv_q_bias_relu_reference``."""
-    _check_q(x, plan, chan)
+    epilogue modes 2 and 3; conv0's narrow packing on the narrow route),
+    counted in ``fused_sparse_conv_apply_q.launches`` with B3's other routes
+    and in ``fused_sparse_conv_q_bias_relu.launches``; on a CPU tensor it
+    runs ``fused_sparse_conv_q_bias_relu_reference``."""
+    _check_q(x, plan, None)
     if bias.dim() != 1 or bias.shape[0] != plan.cout:
         raise ValueError(f"bias must be ({plan.cout},), got {tuple(bias.shape)}")
     if out_dtype not in _DTYPE_CODE:
         raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     if x.device.type == "cpu":
-        return fused_sparse_conv_q_bias_relu_reference(x, plan, bias, out_dtype, chan)
+        return fused_sparse_conv_q_bias_relu_reference(x, plan, bias, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     b = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    xq, xs = quantize_activation(x, plan.x_scale, chan)
-    out = _launch_b3(xq, xs, plan, b, out_dtype == torch.bfloat16, relu=True)
+    out = _b3_cuda(x, plan, None, b, out_dtype == torch.bfloat16, relu=True)
     fused_sparse_conv_apply_q.launches += 1
     fused_sparse_conv_q_bias_relu.launches += 1
     return out
