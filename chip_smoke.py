@@ -109,25 +109,33 @@ Phases (any failed check raises and the exit code is non-zero):
      which writes the f32 y they write, beside the bf16-out
      ``torch.matmul``; for B7 the masked dense cuDNN conv), a yardstick the
      port never calls;
- 19. the int8 stem: B3's stem route (``fused_sparse_conv_q_bias_relu``,
-     epilogue relu(y + bias)) bit-equal to its plain version on the three
-     folded stem convs at the inputs a bf16 batch-32 run of the calibrated
-     int8-stem frontend gives them, f32 and bf16 out, per-frame and static
-     scales (conv0 on B3's narrow route: K = 64, its 48 channels padded by
-     the quantize pass's map, N = 128), and on -0.0 and NaN on a 128-wide
-     and a narrow packing; conv0's quantize pass (through that map, whose
-     -1s are zero vectors, and unpadded) bit-equal and timed against its
-     bound, F.pad to 128 and its plain version; each conv's route, plain version and
-     bound beside cuDNN's bf16 conv + bias + ReLU;
+ 19. the int8 stem: B3's stem route (``fused_sparse_conv_q_bias_relu``, all
+     three folded stem convs on B3's narrow kernel: conv0 K = 64, its 48
+     channels padded by the quantize pass's map; conv1 and conv2 K = 128,
+     S = 2; N = 128) at the inputs a bf16 batch-32 run of the calibrated
+     int8-stem frontend gives them, which hands int8 from conv0 to conv1
+     and from conv1 to conv2: every epilogue mode (relu(y + bias) as f32
+     and bf16, the int8 hand-off from either) bit-equal to its plain
+     version on each conv's float x, per-frame and static scales, and on
+     the int8 x handed to conv1 and conv2; the relu and the hand-off on
+     -0.0 and NaN, the hand-off on .5 ties and clamps; the whole stem,
+     static and per frame, bit-equal to its plain chain on the card;
+     conv0's quantize pass (through that map, whose -1s are zero vectors,
+     and unpadded) bit-equal and timed against its bound, F.pad to 128 and
+     its plain version; each conv's route as the frontend runs it, per
+     frame and static without the hand-off, plain version and bound beside
+     cuDNN's bf16 conv + bias + ReLU; the whole stem static and per frame;
  20. int8-stem f32 parity at 256x512 (per-frame scales): each stem conv's
      CUDA output bit-equal to the CPU plain version on its activation, ids
      >= INT8_PARITY_MIN, exact counts (B3 16, quantize 16, absmax 15 a
-     forward);
+     forward; the stem's 3 on the narrow kernel, 13 on the 128-wide one,
+     no hand-off);
  21. bench.py's int8_stem mode (dense, calibrated): run() at batch 8 with
-     exact counts (B3 16 a forward, 3 of them the stem route, quantize 16,
-     absmax 0), ids against the int8 run without the stem >= INT8_STEM_MIN,
-     the device rate at batch 32, the frontend bf16 vs int8 stem in turns
-     and one profiled call of each;
+     exact counts (B3 16 a forward, 3 of them the stem route on the narrow
+     kernel, 2 of those hand-offs; quantize 14, one of them conv0's map
+     pass; absmax 0; the 128-wide kernel 13), ids against the int8 run
+     without the stem >= INT8_STEM_MIN, the device rate at batch 32, the
+     frontend bf16 vs int8 stem in turns and one profiled call of each;
  22. K3 (``frame_deltas``) bit-equal to its plain version on the 32 shapes
      frames and 32 random full-size frames, timed against it and tpuseg's
      expression in eager PyTorch; K4 (``budget_select``) equal to its plain
@@ -203,7 +211,8 @@ Phases (any failed check raises and the exit code is non-zero):
      agree with themselves, every GT mIoU in [0, 100], the train stage's
      val mIoU >= 60, the int8 rows >= 0.97 against their exact baseline,
      and B2 (training), B1, B3, the quantize pass, K3/K4, K6/K7 and K8
-     launched in the stages that run them;
+     launched in the stages that run them; the stem's convs alone on B3's
+     narrow kernel, two of each three handing int8 on;
  35. ``python -m tpuseg_torch.tools.remat_mem --cases seg`` (DRN-D-22,
      768x768, batch 4, bf16): temp_ratio < 1;
  36. ``seg_video --pretrained`` phase 34's checkpoint on ``shapes:2`` at
@@ -239,8 +248,10 @@ Phases (any failed check raises and the exit code is non-zero):
      each mode and read just after: each line parsed, its metric names,
      exact counts (B1 once a frame of --model, with B2, B3 and the
      quantize pass in its rows, the passes through a channel map once for
-     each CompactSparseQ; B3's stem route 3 and its narrow route 5 times
-     a frame of --frontend's int8 rows; B2's forward once a step of
+     each CompactSparseQ; B3's stem route 3 times a frame of --frontend's
+     int8 rows, all on the narrow kernel, 2 of them hand-offs, and its
+     narrow route 5 more in the stage-3 row; each B3 launch quantizing its
+     x but where the stem handed it int8; B2's forward once a step of
      --train (w's gradient only: no dgrad) and its training roles 2 x 10
      a step of --trainer; B2, B3, B7a-f in the fused mode), the conv1split
      gate; ``rmcdb_roll_matmul`` against the masked
@@ -274,13 +285,14 @@ its plain version's, its bound at the card's published peaks and the
 PyTorch call's, at its main shape; B3's time is its served route, the
 ``quantize`` entry the quantize kernels' per-frame pass, ``quantize_map``
 that pass through layer.6.1.conv1's ``CompactSparseQ`` map, the stem route's
-entry conv1 of the stem, ``sparse_conv_q_narrow`` B3's narrow route at
+entry conv1 of the stem as the calibrated frontend runs it (int8 in, int8
+out), ``sparse_conv_q_narrow`` B3's narrow route at
 cifar_resnet20's 16-channel conv, its ms and the cuDNN conv's as device time
 from CUDA graphs: back to back, that small conv's calls are host-paced).
 Each launch counts in one entry: B3's launches by the kernel that ran
 them (``sparse_conv_q_kernel``, ``sparse_conv_q_narrow_kernel``), the stem
-route's on the 128-wide kernel apart from B3's others, the quantize passes
-through a map apart from the unmapped ones.
+route's three convs (on the narrow kernel) apart from B3's other narrow
+convs, the quantize passes through a map apart from the unmapped ones.
 The last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device it exits 1 and prints no result.
 """
@@ -1440,15 +1452,16 @@ def _same_bits(torch, got, want) -> int:
 
 
 def _record_stem(torch, log: list):
-    """Patch the frontend's stem route to record each call's arguments and
-    output; returns the function that undoes the patch."""
+    """Patch the frontend's stem route to record each call's arguments
+    (``xs`` and ``next_scale`` too) and output; returns the function that
+    undoes the patch."""
     from tpuseg_torch.ops import polyphase as tpoly
 
     orig = tpoly.fused_sparse_conv_q_bias_relu
 
-    def recording(x, plan, bias, out_dtype):
-        y = orig(x, plan, bias, out_dtype)
-        log.append((x.clone(), plan, bias, out_dtype, y.clone()))
+    def recording(x, plan, bias, out_dtype, *, xs=None, next_scale=None):
+        y = orig(x, plan, bias, out_dtype, xs=xs, next_scale=next_scale)
+        log.append((x.clone(), plan, bias, out_dtype, y.clone(), xs, next_scale))
         return y
 
     tpoly.fused_sparse_conv_q_bias_relu = recording
@@ -1470,20 +1483,60 @@ def _profile_kernels(torch, fn) -> dict:
     return {"total_ms": sum(times.values()), "top": [[k[:80], v] for k, v in top]}
 
 
+def _stem_plain(x, plan, bias, dt, xs=None, next_scale=None):
+    """The plain version of one call of the stem route (float x, or int8 x
+    with its scales ``xs``; int8 out with ``next_scale``), 8 frames at a
+    time (the function is per frame; the plain integer conv runs in f64)."""
+    import torch
+
+    from tpuseg_torch.ops import sparse_conv as tsc
+
+    def one(i):
+        xi = x[i:i + 8]
+        si = None if xs is None else xs[i:i + 8]
+        if next_scale is not None:
+            return tsc.fused_sparse_conv_q_bias_relu_int8_out_reference(
+                xi, plan, bias, dt, next_scale, xs=si)
+        if xs is not None:
+            return tsc.fused_sparse_conv_q_bias_relu_int8_in_reference(xi, si, plan, bias, dt)
+        return tsc.fused_sparse_conv_q_bias_relu_reference(xi, plan, bias, dt)
+
+    return torch.cat([one(i) for i in range(0, x.shape[0], 8)])
+
+
+def _plain_stem_chain(torch, fe, x):
+    """The int8 stem as the frontend runs it (``_stem_steps``: each conv
+    handing the next its int8 x where that conv's scale is static), every
+    step its plain version: NHWC x -> NHWC y."""
+    xs = None
+    for i, (plan, bias, next_scale) in enumerate(fe._stem_steps()):
+        x = _stem_plain(x, plan, bias, fe.dtype, xs, next_scale)
+        xs = None if next_scale is None else torch.full(
+            (x.shape[0],), next_scale, dtype=torch.float32, device=x.device)
+    return x
+
+
 def _int8_stem_kernels(torch, np, dev, seg, frames_dev, smi) -> dict:
-    """Phase 19: B3's stem route (``fused_sparse_conv_q_bias_relu``) on the
-    three int8 stem convs at the inputs a bf16 batch-32 run of the
-    calibrated int8-stem frontend gives them (recorded), bit-equal to its
-    plain version (run on the card 8 frames at a time: the function is per
-    frame), f32 and bf16 out, per-frame and static scales (conv0 on B3's
-    narrow route, K = 64, N = 128); the relu on -0.0 and NaN on a 128-wide
-    and a narrow packing; conv0's quantize pass bit-equal, timed (through
-    its packing's map padding its 48 channels to the narrow route's 64 with
-    zero vectors, as the route runs it, and unpadded) against its bound,
-    ``F.pad`` to 128 channels and the plain version; then each
-    conv's route, its plain version, its bound and the cuDNN bf16 conv +
-    bias + ReLU the bf16 frontend runs.
-    -> {"err", "convs": [...], "conv0_quantize": {...}}."""
+    """Phase 19: B3's stem route (``fused_sparse_conv_q_bias_relu`` on B3's
+    narrow kernel, all three convs) at the inputs a bf16 batch-32 run of
+    the calibrated int8-stem frontend gives them (recorded: conv0 takes the
+    float x and hands conv1 its int8 x, conv1 hands conv2), each epilogue
+    mode bit-equal to its plain version (run on the card 8 frames at a
+    time): on each conv's float x (conv0's recorded, conv1's and conv2's
+    the bf16 route's output of the conv before) relu(y + bias) as f32 and
+    bf16 and the int8 hand-off from either, per-frame and static scales; on
+    conv1's and conv2's recorded int8 x the same four outputs; the relu on
+    -0.0 and NaN and the hand-off on -0.0, .5 ties and clamps; the whole
+    stem chain, static and per frame, bit-equal to its plain chain;
+    conv0's quantize pass (through its packing's map padding its 48
+    channels to the narrow route's 64 with zero vectors, as the route runs
+    it, and unpadded) bit-equal and timed against its bound, ``F.pad`` to
+    128 channels and the plain version; then each conv's route as the
+    frontend runs it (static), per frame, and static without the hand-off,
+    its plain version, its bound and the cuDNN bf16 conv + bias + ReLU the
+    bf16 frontend runs; the whole stem static and per frame.
+    -> {"err", "convs": [...], "conv0_quantize": {...}, "stem": {...}}."""
+    import copy
     import dataclasses
 
     import torch.nn.functional as F
@@ -1491,9 +1544,8 @@ def _int8_stem_kernels(torch, np, dev, seg, frames_dev, smi) -> dict:
     from tpuseg_torch.ops import polyphase as tpoly
     from tpuseg_torch.ops.quant import quantize_weight, stem_packing
     from tpuseg_torch.ops.sparse_conv import (
-        fused_sparse_conv_q_bias_relu,
-        fused_sparse_conv_q_bias_relu_reference, quantize_activation,
-        quantize_activation_reference, select_channels)
+        fused_sparse_conv_q_bias_relu, quantize_activation, quantize_activation_reference,
+        select_channels)
 
     fe = seg.stem_fn
     log = []
@@ -1505,33 +1557,54 @@ def _int8_stem_kernels(torch, np, dev, seg, frames_dev, smi) -> dict:
         undo()
     torch.cuda.synchronize()
     assert len(log) == 3, len(log)
+    handed = [(e[0].dtype == torch.int8, e[6] is not None) for e in log]
+    if handed != [(False, True), (True, True), (True, False)] or not all(
+            e[1].narrow for e in log):
+        raise AssertionError(f"the calibrated stem does not hand int8 from conv to conv on the "
+                             f"narrow route: (int8 in, int8 out) {handed}")
+    scales = [fe._stem_x_scale(i) for i in range(3)]
+    # each conv's float x: conv0's recorded, the next ones the bf16 route's
+    # output of the conv before on its float x (static scales)
+    xf = [log[0][0]]
+    for i in range(2):
+        p = dataclasses.replace(log[i][1], x_scale=scales[i])
+        xf.append(fused_sparse_conv_q_bias_relu(xf[i], p, log[i][2], torch.bfloat16))
+    outs = ((torch.float32, None), (torch.bfloat16, None))
 
-    def plain(x, p, bias, dt):
-        return torch.cat([fused_sparse_conv_q_bias_relu_reference(x[i:i + 8], p, bias, dt)
-                          for i in range(0, x.shape[0], 8)])
+    def check(i, x, p, bias, dt, xs, next_scale, what):
+        got = fused_sparse_conv_q_bias_relu(x, p, bias, dt, xs=xs, next_scale=next_scale)
+        want = _stem_plain(x, p, bias, dt, xs, next_scale)
+        mism = (int((got != want).sum()) if want.dtype == torch.int8
+                else _same_bits(torch, got, want))
+        _emit(phase="int8_stem_vs_plain", conv=i, shape=list(x.shape), x=what,
+              out_dtype=str(got.dtype), rounded_to=str(dt),
+              scale="per-frame" if p.x_scale is None and xs is None else "static",
+              narrow=p.narrow, packing=[p.bk, p.bm, p.s], live_steps=int(p.nsteps.sum()),
+              mismatches=mism)
+        if mism or got.dtype != want.dtype:
+            raise AssertionError(f"stem conv {i}: the stem route differs from its plain "
+                                 f"version in {mism} values ({what} x, {dt}, next scale "
+                                 f"{next_scale})")
 
-    convs = []
-    for i, (x, plan, bias, _, _) in enumerate(log):
-        static = fe._stem_x_scale(i)
-        for dt in (torch.float32, torch.bfloat16):
-            for scale in (None, static):
-                p = dataclasses.replace(plan, x_scale=scale)
-                got = fused_sparse_conv_q_bias_relu(x, p, bias, dt)
-                mism = _same_bits(torch, got, plain(x, p, bias, dt))
-                _emit(phase="int8_stem_vs_plain", conv=i, shape=list(x.shape),
-                      out_dtype=str(dt), scale="per-frame" if scale is None else "static",
-                      narrow=plan.narrow, packing=[plan.bk, plan.bm],
-                      live_steps=int(plan.nsteps.sum()), mismatches=mism)
-                if mism:
-                    raise AssertionError(f"stem conv {i}: the stem route differs from its plain "
-                                         f"version in {mism} values ({dt}, scale {scale})")
-                del got
+    for i, (_, plan, bias, _, _, xs_rec, _) in enumerate(log):
+        nxt = scales[i + 1] if i < 2 else 0.031  # conv2 hands nothing on: a stand-in scale
+        for scale in (None, scales[i]):
+            p = dataclasses.replace(plan, x_scale=scale)
+            for dt, _ in outs:
+                for next_scale in (None, nxt):
+                    check(i, xf[i], p, bias, dt, None, next_scale, "float")
+        if xs_rec is not None:  # conv1 and conv2: the int8 x conv i - 1 handed on
+            for dt, _ in outs:
+                for next_scale in (None, nxt):
+                    check(i, log[i][0], plan, bias, dt, xs_rec, next_scale, "int8")
         torch.cuda.empty_cache()
     # relu on -0.0 and NaN: a negative w_scale makes float(0) * sc = -0.0,
-    # a -0.0 bias keeps it, relu turns it into +0.0; a NaN bias stays NaN; on
-    # a 128-wide packing and on conv0's narrow one
+    # a -0.0 bias keeps it, relu turns it into +0.0; a NaN bias stays NaN
+    # (the float outputs) and the hand-off writes 0 for -0.0 (a NaN is
+    # outside its contract); on conv1's widths (128-wide blocks sent to the
+    # narrow route) and on conv0's narrow packing
     rng = np.random.default_rng(19)
-    for cin, cout in ((128, 128), (48, 256)):
+    for cin, cout in ((256, 256), (48, 256)):
         wq, ws = quantize_weight((rng.normal(size=(3, 3, cin, cout)) * 0.05).astype(np.float32))
         zplan = stem_packing("relu cases", wq, ws, 1, 1)
         zplan = dataclasses.replace(zplan, x_scale=0.05, w_scale=-zplan.w_scale).to(dev)
@@ -1540,24 +1613,80 @@ def _int8_stem_kernels(torch, np, dev, seg, frames_dev, smi) -> dict:
         zb = torch.full((cout,), -0.0, device=dev)
         zb[3], zb[4] = float("nan"), 1.0
         for dt in (torch.float32, torch.bfloat16):
-            got = fused_sparse_conv_q_bias_relu(x.to(dt), zplan, zb, dt)
-            want = fused_sparse_conv_q_bias_relu_reference(x.to(dt), zplan, zb, dt)
-            mism = _same_bits(torch, got, want)
-            neg0 = int((torch.signbit(got) & (got == 0)).sum())
-            _emit(phase="int8_stem_relu_cases", out_dtype=str(dt), narrow=zplan.narrow,
-                  mismatches=mism, nan=int(got.isnan().sum()), negative_zeros=neg0,
-                  zeros=int((got == 0).sum()))
-            if mism or neg0 or not got.isnan().any():
-                raise AssertionError(f"the stem route's relu differs on -0.0/NaN ({dt}, narrow "
-                                     f"{zplan.narrow}): {mism} mismatches, {neg0} negative "
-                                     "zeros")
+            for next_scale in (None, 0.02):
+                b = zb if next_scale is None else torch.where(zb.isnan(), -0.0, zb)
+                got = fused_sparse_conv_q_bias_relu(x.to(dt), zplan, b, dt, next_scale=next_scale)
+                want = _stem_plain(x.to(dt), zplan, b, dt, None, next_scale)
+                if next_scale is None:
+                    mism, neg0 = _same_bits(torch, got, want), int(
+                        (torch.signbit(got) & (got == 0)).sum())
+                    ok = not mism and not neg0 and bool(got.isnan().any())
+                else:
+                    mism, neg0 = int((got != want).sum()), 0
+                    ok = not mism and int((got == 0).sum()) == int((want == 0).sum()) > 0
+                _emit(phase="int8_stem_relu_cases", out_dtype=str(got.dtype),
+                      rounded_to=str(dt), cin=cin, mismatches=mism,
+                      nan=int(got.isnan().sum()) if next_scale is None else None,
+                      negative_zeros=neg0, zeros=int((got == 0).sum()))
+                if not ok:
+                    raise AssertionError(f"the stem route differs on -0.0/NaN ({dt}, next "
+                                         f"scale {next_scale}, cin {cin}): {mism} mismatches, "
+                                         f"{neg0} negative zeros")
+    # the hand-off on .5 ties and clamps: unit 1x1 weights on an int8 x at
+    # scale 1 make v = x + bias exactly, the biases put v / next_scale on
+    # ties, just off them and past 127
+    eye = stem_packing("tie cases", np.eye(128, dtype=np.int8).reshape(1, 1, 128, 128),
+                       np.ones(128, np.float32), 0, 0).to(dev)
+    xq = torch.arange(-127, 128, device=dev, dtype=torch.int8).view(1, 5, 51, 1).expand(
+        1, 5, 51, 128).contiguous()
+    ones = torch.ones(1, device=dev)
+    tb = torch.from_numpy(np.tile(np.array([0.5, -0.5, 0.25, 0.75, 0.0, -0.0, 1e-3, 2.5],
+                                           np.float32), 16)).to(dev)
+    # and random biases over many magnitudes at scales across the range the
+    # kernel's division takes, for its rounding
+    rb = torch.from_numpy((rng.normal(size=128) * 10.0 ** rng.uniform(-3, 3, 128)).astype(
+        np.float32)).to(dev)
+    clamped = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for bias, next_scale in [(tb, c) for c in (1.0, 0.5, 2.0, 0.3)] + [
+                (rb, c) for c in (0.0173, 7.3, 2.0 ** -30, 2.0 ** 20, 0.041)]:
+            got = fused_sparse_conv_q_bias_relu(xq, eye, bias, dt, xs=ones,
+                                                next_scale=next_scale)
+            want = _stem_plain(xq, eye, bias, dt, ones, next_scale)
+            mism = int((got != want).sum())
+            clamped += int((want == 127).sum())
+            _emit(phase="int8_handoff_tie_cases", rounded_to=str(dt), next_scale=next_scale,
+                  biases="ties" if bias is tb else "random", mismatches=mism,
+                  clamped=int((want == 127).sum()), zeros=int((want == 0).sum()))
+            if mism:
+                raise AssertionError(f"the int8 hand-off differs on ties/clamps ({dt}, "
+                                     f"{next_scale}): {mism} mismatches")
+    assert clamped > 0
+    # the whole stem, static (the calibrated frontend) and per frame, against
+    # its plain chain on the card
+    per_frame = copy.copy(fe)
+    per_frame.stem_x_scales, per_frame._stem_chain = None, None
+    xn = tpoly.nhwc_to_nchw(xf[0])
+    stem = {}
+    for label, f in (("static", fe), ("per_frame", per_frame)):
+        with torch.inference_mode():
+            got = tpoly.nchw_to_nhwc(f._stem_convs(xn))
+        want = _plain_stem_chain(torch, f, xf[0])
+        mism = _same_bits(torch, got, want)
+        _emit(phase="int8_stem_chain_vs_plain", scales=label, shape=list(got.shape),
+              dtype=str(got.dtype), mismatches=mism)
+        if mism or got.dtype != fe.dtype:
+            raise AssertionError(f"the {label} int8 stem differs from its plain chain in "
+                                 f"{mism} values")
+        del got, want
+    torch.cuda.empty_cache()
     # conv0's quantize pass: through its packing's map padding it to 64
     # channels (the route's; its -1s are zero vectors), and unpadded
     x0, p0 = log[0][0], log[0][1]
     n0, c0 = x0.shape[0], x0.shape[3]
     chan64, vecs64 = p0.in_chan, p0.in_vecs
     assert p0.narrow and chan64.numel() == 64 and vecs64.tolist()[-2:] == [-1, -1]
-    for scale in (None, fe._stem_x_scale(0)):
+    for scale in (None, scales[0]):
         for chan, vecs in ((None, None), (chan64, vecs64)):
             xq, xs = quantize_activation(x0, scale, chan, vecs=vecs)
             xq_p, xs_p = quantize_activation_reference(select_channels(x0, chan), scale)
@@ -1568,7 +1697,7 @@ def _int8_stem_kernels(torch, np, dev, seg, frames_dev, smi) -> dict:
             if not same:
                 raise AssertionError("conv0's quantize pass differs from its plain version")
             del xq, xq_p
-    s0 = fe._stem_x_scale(0)
+    s0 = scales[0]
     pq_turns = _time_turns(torch, {
         "map64": lambda: quantize_activation(x0, s0, chan64, vecs=vecs64),
         "unpadded": lambda: quantize_activation(x0, s0),
@@ -1583,42 +1712,62 @@ def _int8_stem_kernels(torch, np, dev, seg, frames_dev, smi) -> dict:
                "bound_ms": bound[0], "bound_by": bound[1]}
     _emit(phase="conv0_quantize_time", shape=list(x0.shape), scale="static", turns=pq_turns,
           **conv0_q, card=smi)
-    # each conv's served route (static scale) against cuDNN's bf16 conv + bias
-    # + ReLU, as the bf16 frontend runs it
-    for i, (x, plan, bias, _, _) in enumerate(log):
-        p = dataclasses.replace(plan, x_scale=fe._stem_x_scale(i))
+    # each conv's route as the frontend runs it (static: conv0 and conv1 hand
+    # int8 on, conv1 and conv2 read it), per frame, and static without the
+    # hand-off, against cuDNN's bf16 conv + bias + ReLU as the bf16 frontend
+    # runs it
+    convs = []
+    for i, (xrec, plan, bias, _, _, xs_rec, next_scale) in enumerate(log):
+        p = dataclasses.replace(plan, x_scale=scales[i])
         pd = dataclasses.replace(plan, x_scale=None)
         wp, bias_bf16, plo, phi = fe.convs[i]
+        x = xf[i]
         xn = tpoly.nhwc_to_nchw(x)
         turns = _time_turns(torch, {
-            "route": lambda: fused_sparse_conv_q_bias_relu(x, p, bias, torch.bfloat16),
+            "route": lambda: fused_sparse_conv_q_bias_relu(xrec, plan, bias, torch.bfloat16,
+                                                           xs=xs_rec, next_scale=next_scale),
             "route_per_frame": lambda: fused_sparse_conv_q_bias_relu(x, pd, bias,
                                                                      torch.bfloat16),
+            "route_static_bf16": lambda: fused_sparse_conv_q_bias_relu(x, p, bias,
+                                                                       torch.bfloat16),
             "cudnn": lambda: F.relu_(tpoly._conv(xn, wp, bias_bf16, plo, phi)),
-        }, {"route": 10, "route_per_frame": 10, "cudnn": 10})
+        }, {"route": 10, "route_per_frame": 10, "route_static_bf16": 10, "cudnn": 10})
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        plain(x, p, bias, torch.bfloat16)
+        _stem_plain(xrec, plan, bias, torch.bfloat16, xs_rec, next_scale)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         n, h, w, cin = x.shape
         kh, kw, _, cout = fe.q_convs[i][0].shape
-        # bytes: the bf16 x (its real channels) read once, the int8 weight
-        # (its real channels and taps) and the f32 bias, the bf16 y written
-        # once; operations: the folded conv's products
-        bound = _bound(x.numel() * 2 + kh * kw * cin * cout + cout * 4
-                       + n * h * w * cout * 2, 2 * n * h * w * kh * kw * cin * cout, "int8")
+        # bytes: x (bf16 at conv0, else the int8 x handed on) read once, the
+        # int8 weight (its real channels and taps) and the f32 bias, y (int8
+        # where handed on, else bf16) written once; operations: the folded
+        # conv's products.  Per frame: bf16 x in, bf16 y out.
+        ops = 2 * n * h * w * kh * kw * cin * cout
+        weights = kh * kw * cin * cout + cout * 4
+        bound = _bound(xrec.numel() * xrec.element_size() + weights
+                       + n * h * w * cout * (1 if next_scale is not None else 2), ops, "int8")
+        bound_pf = _bound(x.numel() * 2 + weights + n * h * w * cout * 2, ops, "int8")
         row = {"conv": i, "shape": [n, h, w, cin], "kernel": [kh, kw], "cout": cout,
-               "narrow": plan.narrow, "ms": min(turns["route"]),
-               "per_frame_ms": min(turns["route_per_frame"]),
-               "plain_ms": plain_ms, "library_ms": min(turns["cudnn"]),
-               "bound_ms": bound[0], "bound_by": bound[1]}
+               "narrow": plan.narrow, "x_in": str(xrec.dtype),
+               "out": "int8" if next_scale is not None else "bfloat16",
+               "ms": min(turns["route"]), "per_frame_ms": min(turns["route_per_frame"]),
+               "static_bf16_ms": min(turns["route_static_bf16"]), "plain_ms": plain_ms,
+               "library_ms": min(turns["cudnn"]), "bound_ms": bound[0], "bound_by": bound[1],
+               "per_frame_bound_ms": bound_pf[0], "per_frame_bound_by": bound_pf[1]}
         convs.append(row)
         _emit(phase="int8_stem_time", turns=turns, **row, bound_share=bound[0] / row["ms"],
-              card=smi)
-    del log, x0
+              per_frame_bound_share=bound_pf[0] / row["per_frame_ms"], card=smi)
+    xn = tpoly.nhwc_to_nchw(xf[0])
+    with torch.inference_mode():
+        turns = _time_turns(torch, {"static": lambda: fe._stem_convs(xn),
+                                    "per_frame": lambda: per_frame._stem_convs(xn)},
+                            {"static": 10, "per_frame": 10})
+    stem = {"static_ms": min(turns["static"]), "per_frame_ms": min(turns["per_frame"])}
+    _emit(phase="int8_stem_whole_time", turns=turns, **stem, card=smi)
+    del log, x0, xf
     torch.cuda.empty_cache()
-    return {"err": 0.0, "convs": convs, "conv0_quantize": conv0_q}
+    return {"err": 0.0, "convs": convs, "conv0_quantize": conv0_q, "stem": stem}
 
 
 def _int8_stem_parity_f32(torch, np, params, state, spec, small) -> None:
@@ -1627,9 +1776,12 @@ def _int8_stem_parity_f32(torch, np, params, state, spec, small) -> None:
     CUDA output bit-equal to the CPU plain version on the activation the
     CUDA run gave it; ids agreement >= INT8_PARITY_MIN; the CUDA run's
     counts (zeroed just before, read just after): B3 16 and quantize 16 a
-    forward, absmax 15 (conv0's scale is analytic)."""
+    forward, absmax 15 (conv0's scale is analytic), the stem's three convs
+    on the narrow kernel and the 13 others on the 128-wide one, no
+    hand-off (per-frame scales: each conv quantizes its own x)."""
     from tpuseg_torch.ops.sparse_conv import (
-        fused_sparse_conv_apply_q, fused_sparse_conv_q_bias_relu, quantize_activation)
+        fused_sparse_conv_apply_q, fused_sparse_conv_q_bias_relu, quantize_activation,
+        sparse_conv_q_kernel, sparse_conv_q_narrow_kernel)
     from tpuseg_torch.video.pipeline import VideoSegmenter
 
     ids, log = {}, []
@@ -1639,8 +1791,10 @@ def _int8_stem_parity_f32(torch, np, params, state, spec, small) -> None:
                              quantize_stem=True)
         undo = _record_stem(torch, log) if name == "cuda" else (lambda: None)
         torch.cuda.synchronize()
-        fused_sparse_conv_apply_q.launches = 0
+        for f in (fused_sparse_conv_apply_q, sparse_conv_q_kernel, sparse_conv_q_narrow_kernel):
+            f.launches = 0
         quantize_activation.launches = quantize_activation.absmax_launches = 0
+        fused_sparse_conv_q_bias_relu.handoff_launches = 0
         try:
             ids[name] = seg.run(small, need_color=False)["ids"]
         finally:
@@ -1649,10 +1803,15 @@ def _int8_stem_parity_f32(torch, np, params, state, spec, small) -> None:
             torch.cuda.synchronize()
             counts = {"b3": fused_sparse_conv_apply_q.launches,
                       "quantize": quantize_activation.launches,
-                      "absmax": quantize_activation.absmax_launches}
+                      "absmax": quantize_activation.absmax_launches,
+                      "sparse_conv_q_kernel": sparse_conv_q_kernel.launches,
+                      "sparse_conv_q_narrow_kernel": sparse_conv_q_narrow_kernel.launches,
+                      "handoff": fused_sparse_conv_q_bias_relu.handoff_launches}
     checked = 0
-    for x, plan, bias, dt, y in log:
-        want = fused_sparse_conv_q_bias_relu(x.cpu(), plan.to("cpu"), bias.cpu(), dt)
+    for x, plan, bias, dt, y, xs, next_scale in log:
+        want = fused_sparse_conv_q_bias_relu(x.cpu(), plan.to("cpu"), bias.cpu(), dt,
+                                             xs=None if xs is None else xs.cpu(),
+                                             next_scale=next_scale)
         if _same_bits(torch, y.cpu(), want):
             raise AssertionError("int8 stem conv: CUDA output differs from the CPU plain "
                                  "version on the same activation")
@@ -1660,7 +1819,9 @@ def _int8_stem_parity_f32(torch, np, params, state, spec, small) -> None:
     agree = _agreement(ids["cuda"], ids["cpu"])
     per_forward = B3_PER_FORWARD["dense"] + B3_STEM_PER_FORWARD
     want = {"b3": 2 * per_forward, "quantize": 2 * per_forward,  # run()'s untimed call + 1
-            "absmax": 2 * (per_forward - 1)}
+            "absmax": 2 * (per_forward - 1),
+            "sparse_conv_q_kernel": 2 * B3_PER_FORWARD["dense"],
+            "sparse_conv_q_narrow_kernel": 2 * B3_STEM_PER_FORWARD, "handoff": 0}
     _emit(phase="int8_stem_parity_f32", tf32=False, size=list(small[0].shape[:2]),
           frames=len(small), stem_conv_calls_bit_equal=checked, ids_agreement=agree,
           limit=INT8_PARITY_MIN, launches=counts, want=want)
@@ -1676,7 +1837,10 @@ def _int8_stem_full(torch, np, dev, params, state, spec, frames, no_stem_ids, be
                     frames_dev, smi) -> dict:
     """Phase 21: bench.py's int8_stem mode (dense, quantize + quantize_stem,
     calibrated on the first 8 frames): run() at batch 8 with every count
-    zeroed just before and read just after; ids agreement with the int8 run
+    zeroed just before and read just after (a forward: the stem's three
+    convs on the narrow kernel, conv0 and conv1 handing int8 on, so one
+    quantize pass, conv0's through its map; the 13 stage convs on the
+    128-wide kernel with their passes); ids agreement with the int8 run
     without the stem; the device rate at batch 32; the frontend's time, bf16
     against the int8 stem, in turns, and one profiled call of each.
     -> launches and numbers."""
@@ -1698,10 +1862,12 @@ def _int8_stem_full(torch, np, dev, params, state, spec, frames, no_stem_ids, be
         f.launches = 0
     quantize_activation.launches = quantize_activation.absmax_launches = 0
     quantize_activation.map_launches = 0
+    fused_sparse_conv_q_bias_relu.handoff_launches = 0
     res = serve.run(frames, need_color=False)
     torch.cuda.synchronize()
     got = {"b3": fused_sparse_conv_apply_q.launches,
            "b3_stem": fused_sparse_conv_q_bias_relu.launches,
+           "handoff": fused_sparse_conv_q_bias_relu.handoff_launches,
            "sparse_conv_q_kernel": sparse_conv_q_kernel.launches,
            "sparse_conv_q_narrow_kernel": sparse_conv_q_narrow_kernel.launches,
            "quantize": quantize_activation.launches,
@@ -1710,10 +1876,11 @@ def _int8_stem_full(torch, np, dev, params, state, spec, frames, no_stem_ids, be
            "b2": fused_sparse_conv_apply.launches, "upsample_argmax": upsample_argmax.launches}
     want = {"b3": (B3_PER_FORWARD["dense"] + B3_STEM_PER_FORWARD) * forwards,
             "b3_stem": B3_STEM_PER_FORWARD * forwards,
-            # conv0 on the narrow kernel, the rest on the 128-wide one
-            "sparse_conv_q_kernel": (B3_PER_FORWARD["dense"] + B3_STEM_PER_FORWARD - 1)
-            * forwards, "sparse_conv_q_narrow_kernel": forwards,
-            "quantize": (B3_PER_FORWARD["dense"] + B3_STEM_PER_FORWARD) * forwards,
+            "handoff": (B3_STEM_PER_FORWARD - 1) * forwards,  # conv0 -> conv1 -> conv2
+            # the stem on the narrow kernel, the stage convs on the 128-wide one
+            "sparse_conv_q_kernel": B3_PER_FORWARD["dense"] * forwards,
+            "sparse_conv_q_narrow_kernel": B3_STEM_PER_FORWARD * forwards,
+            "quantize": (B3_PER_FORWARD["dense"] + 1) * forwards,
             "absmax": 0, "quantize_map": forwards,  # conv0 through its padding map
             "b2": 0, "upsample_argmax": forwards}
     out = res["ids"]
@@ -2964,21 +3131,24 @@ def _trained_fidelity(torch, out_dir, smi) -> dict:
     [0, 100], the train stage's val mIoU >= FIDELITY_TRAIN_MIN, the int8 rows
     >= INT8_TRAINED_MIN against their exact baseline, the kernels
     launched where their modes ran, and each B3 launch on one of its two
-    kernels (the narrow one for the stem's conv0 alone)."""
+    kernels (the narrow one for the stem's convs alone, the calibrated stem
+    handing int8 on from two of its three)."""
     from tpuseg_torch.tools import trained_fidelity
 
     counters = _counters()
     qpass = counters["quantize_activation"]
+    stem_route = counters["fused_sparse_conv_q_bias_relu"]
     stages, launches = {}, {}
     for stage, flags in FIDELITY_STAGES:
         _zero_counts(torch, *counters.values())
-        qpass.map_launches = 0
+        qpass.map_launches = stem_route.handoff_launches = 0
         t0 = time.perf_counter()
         _, text = _quiet(trained_fidelity.main, ["--stage", stage, "--out", out_dir] + flags)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches[stage] = {k: f.launches for k, f in counters.items()}
         launches[stage]["quantize_map"] = qpass.map_launches
+        launches[stage]["handoff"] = stem_route.handoff_launches
         with open(f"{out_dir}/report.json") as fh:
             stages[stage] = next(r for r in json.load(fh) if r["stage"] == stage)
         _emit(phase="trained_fidelity", stage=stage, seconds=round(seconds, 1),
@@ -3012,15 +3182,20 @@ def _trained_fidelity(torch, out_dir, smi) -> dict:
     if any(missing.values()):
         raise AssertionError(f"kernels not launched in their stages: {missing}")
     # each B3 launch on one of its two kernels; the narrow one only for the
-    # stem's conv0, once a stem forward
+    # stem's convs, all three; every stem forward calibrated (the served
+    # int8_stem_calib mode, and calibrate_scales through it), so conv0 and
+    # conv1 hand int8 on and only conv0 quantizes its x
     for st, c in launches.items():
+        stem = c["fused_sparse_conv_q_bias_relu"]
         if (c["sparse_conv_q_kernel"] + c["sparse_conv_q_narrow_kernel"]
-                != c["fused_sparse_conv_apply_q"] or c["sparse_conv_q_narrow_kernel"]
-                * FRONTEND_STEM_CONVS != c["fused_sparse_conv_q_bias_relu"]):
+                != c["fused_sparse_conv_apply_q"] or c["sparse_conv_q_narrow_kernel"] != stem
+                or c["handoff"] * FRONTEND_STEM_CONVS != stem * (FRONTEND_STEM_CONVS - 1)
+                or c["quantize_activation"] + c["handoff"] != c["fused_sparse_conv_apply_q"]):
             raise AssertionError(f"trained_fidelity {st}: B3's kernels {c}")
     _emit(phase="trained_fidelity_gates", train_val_miou=stages["train"]["val_miou"],
           int8_agreement=int8, gt_miou_range=[min(mious), max(mious)], card=smi)
-    total = {k: sum(launches[st][k] for st in launches) for k in [*counters, "quantize_map"]}
+    total = {k: sum(launches[st][k] for st in launches)
+             for k in [*counters, "quantize_map", "handoff"]}
     return {"stages": stages, "launches": launches, "total": total}
 
 
@@ -3615,7 +3790,7 @@ BENCH_METRICS = {  # mode -> the metric names it prints, in order (bench_sparse.
     "conv1split": ["conv1split/split1d_numerics_ok", "conv1split/split2d_numerics_ok",
                    "conv1split_ms"],
 }
-FRONTEND_STEM_CONVS = 3  # B3's stem route in both int8 rows
+FRONTEND_STEM_CONVS = 3  # B3's stem route in both int8 rows, on the narrow kernel
 FRONTEND_STAGE3_CONVS = 5  # B3's narrow route in int8_stem_stage3
 TRAINER_B2_CONVS = 10
 BENCH_LOOPS = 2  # each time_loop: the untimed loop and one timed
@@ -3635,6 +3810,7 @@ def _bench_counters():
         sc.sparse_conv_q_narrow_kernel,
         *(getattr(sc, name) for name in B7_ENTRIES))}
     out["absmax"] = (sc.quantize_activation, "absmax_launches")
+    out["handoff"] = (sc.fused_sparse_conv_q_bias_relu, "handoff_launches")
     out["narrow_b3"] = (quant_conv_apply, "narrow_launches")
     out["quantize_map"] = (sc.quantize_activation, "map_launches")
     return out
@@ -3795,8 +3971,10 @@ def _bench_modes(torch, np, dev, smi) -> dict:
         _emit(phase="bench_sparse_mode", mode=m, seconds=round(seconds[m], 3),
               launches={k: v for k, v in launches[m].items() if v},
               loops=[{k: v for k, v in lp.items() if v} for lp in b.loops], rows=b.rows)
-        if launches[m]["quantize_activation"] != launches[m]["fused_sparse_conv_apply_q"]:
-            raise AssertionError(f"bench_sparse {m}: quantize {launches[m]} != B3")
+        # each B3 launch quantizes its x, but where the stem hands int8 on
+        if (launches[m]["quantize_activation"] + launches[m]["handoff"]
+                != launches[m]["fused_sparse_conv_apply_q"]):
+            raise AssertionError(f"bench_sparse {m}: quantize + hand-offs {launches[m]} != B3")
     # each loop's launches, from the rows' plans where the row has any
     frame = BENCH_LOOPS * bs.MODEL_INNER  # frames through one model / frontend loop
     plan_rows = results["model"]
@@ -3805,18 +3983,19 @@ def _bench_modes(torch, np, dev, smi) -> dict:
     _check_loops("model", benches["model"].loops, [
         {"upsample_argmax": frame, **{k: frame * v for k, v in _plan_launches(plans).items()}}
         for _, plans in plan_rows])
-    # conv0's narrow packing quantizes its 48 channels through its padding
-    # map and runs on the narrow kernel, conv1 and conv2 on the 128-wide one
+    # the stem's three convs on the narrow kernel under FRONTEND_XS, static:
+    # conv0 quantizes its 48 channels through its padding map, then hands
+    # conv1 its int8 x, conv1 hands conv2; the stage-3 convs quantize their own
     stem = {"fused_sparse_conv_q_bias_relu": frame * FRONTEND_STEM_CONVS, "quantize_map": frame,
-            "sparse_conv_q_kernel": frame * (FRONTEND_STEM_CONVS - 1)}
+            "handoff": frame * (FRONTEND_STEM_CONVS - 1)}
     b3_stage3 = frame * (FRONTEND_STEM_CONVS + FRONTEND_STAGE3_CONVS)
     _check_loops("frontend", benches["frontend"].loops, [
         {}, {**stem, "fused_sparse_conv_apply_q": frame * FRONTEND_STEM_CONVS,
-             "quantize_activation": frame * FRONTEND_STEM_CONVS,
-             "sparse_conv_q_narrow_kernel": frame},
-        {**stem, "fused_sparse_conv_apply_q": b3_stage3, "quantize_activation": b3_stage3,
-         "narrow_b3": frame * FRONTEND_STAGE3_CONVS,
-         "sparse_conv_q_narrow_kernel": frame * (1 + FRONTEND_STAGE3_CONVS)}])
+             "quantize_activation": frame, "sparse_conv_q_narrow_kernel": frame
+             * FRONTEND_STEM_CONVS},
+        {**stem, "fused_sparse_conv_apply_q": b3_stage3,
+         "quantize_activation": frame * (1 + FRONTEND_STAGE3_CONVS),
+         "narrow_b3": frame * FRONTEND_STAGE3_CONVS, "sparse_conv_q_narrow_kernel": b3_stage3}])
     train = BENCH_LOOPS * bs.TRAIN_INNER
     _check_loops("train", benches["train"].loops, [{}, {"sparse_conv_train_forward": train}])
     trainer = BENCH_LOOPS * bs.TRAINER_INNER * TRAINER_B2_CONVS
@@ -4938,11 +5117,13 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
     if b3_wide + b3_narrow != b3_launches:
         raise AssertionError(f"B3: {b3_launches} launches by its entry points, {b3_wide} on "
                              f"its 128-wide kernel and {b3_narrow} on the narrow one")
-    # the stem route: conv0 on the narrow kernel, once a stem forward (as
-    # phases 21, 34 and 40 check), conv1 and conv2 on the 128-wide one
+    # the stem route: its three convs on the narrow kernel (as phases 21, 34
+    # and 40 check), counted in its own row apart from B3's other narrow convs
     stem_launches = (stem_full["launches"]["b3_stem"] + fid["fused_sparse_conv_q_bias_relu"]
                      + bench["frontend"]["fused_sparse_conv_q_bias_relu"])
-    stem_wide = stem_launches * (FRONTEND_STEM_CONVS - 1) // FRONTEND_STEM_CONVS
+    if not 0 < stem_launches <= b3_narrow:
+        raise AssertionError(f"the stem route's {stem_launches} launches are not among the "
+                             f"narrow kernel's {b3_narrow}")
     stem_conv1 = stem_k["convs"][1]  # the stem route's main shape: the 256->256 conv
     # the quantize_map row: the pass through layer.6.1.conv1's map (384 live)
     qmap_main = next(k for k in map_times if k.startswith(QUANTIZE_MAP_MAIN))
@@ -4954,7 +5135,7 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
         entry("sparse_conv", b2_src, f"{sc_src}:270", b2_launches, b2_err, b2_ms,
               b2_plain_ms, b2_bound, b2_cudnn_ms),
         entry("sparse_conv_q", "tpuseg_torch/csrc/sparse_conv_q.cu", f"{sc_src}:1294",
-              b3_wide - stem_wide, b3_err, b3_ms, b3_plain_ms, b3_bound, None),
+              b3_wide, b3_err, b3_ms, b3_plain_ms, b3_bound, None),
         entry("quantize", "tpuseg_torch/csrc/quantize.cu", f"{sc_src}:1312-1324",
               q_launches - map_launches, quantize_err, q_ms, q_plain_ms, q_bound, None),
         s4("bsr_matmul_xw", b2_src, f"{sc_src}:84", b4_err),
@@ -4964,8 +5145,8 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
            b56_err["bsr_matmul_gathered"]),
     ] + [s4(name, b2_src, f"{sc_src}:{line}", b7_err[name])
          for name, (_, _, line) in B7_ENTRIES.items()] + [
-        timed("sparse_conv_q_stem", "tpuseg_torch/csrc/sparse_conv_q.cu",
-              "tpuseg/ops/polyphase.py:349-359", stem_wide, stem_conv1),
+        timed("sparse_conv_q_stem", "tpuseg_torch/csrc/sparse_conv_q_narrow.cu",
+              "tpuseg/ops/polyphase.py:349-359", stem_launches, stem_conv1),
         timed("frame_deltas", "tpuseg_torch/csrc/temporal.cu", "tpuseg/video/pipeline.py:670-678",
               budget["launches"]["frame_deltas"] + fid["frame_deltas"],
               temporal_k["frame_deltas"]),
@@ -4989,7 +5170,7 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
               t["library_ms"])
         for name, t in train_k.items()] + [
         timed("sparse_conv_q_narrow", "tpuseg_torch/csrc/sparse_conv_q_narrow.cu",
-              f"{sc_src}:1294", b3_narrow, cls_clis["narrow"]),
+              f"{sc_src}:1294", b3_narrow - stem_launches, cls_clis["narrow"]),
         entry("quantize_map", "tpuseg_torch/csrc/quantize.cu",
               "tpuseg/models/sparse_exec.py:71", map_launches, quantize_err,
               map_times[qmap_main]["ms"], map_times[qmap_main]["plain_ms"],

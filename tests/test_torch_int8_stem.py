@@ -112,16 +112,17 @@ def _direct_int_conv(xq, wq, pad_lo, pad_hi):
 
 @pytest.mark.parametrize("conv", [0, 1, 2])
 def test_stem_packing_equals_direct_int_conv(conv):
-    """B3's stem packing (conv0: 48 channels in a narrow packing, K = 64,
-    N = 128, x padded to 64 through its map; conv2: the 2x2 pad (1, 0) conv
-    as a 3x3 'same' conv) gives the folded conv's integer sum exactly,
-    through the plain version and on the padded operand; dead taps of conv2
-    are no live steps."""
+    """B3's stem packing (every conv on the narrow route; conv0: 48
+    channels, K = 64, N = 128, x padded to 64 through its map; conv1 and
+    conv2: K = 128, S = 2, N = 128; conv2: the 2x2 pad (1, 0) conv as a 3x3
+    'same' conv) gives the folded conv's integer sum exactly, through the
+    plain version and on the padded operand; dead taps of conv2 are no live
+    steps."""
     _, tfe = _frontends("f32")
     wq, ws = (t.numpy() for t in tfe.q_convs[conv])
     _, _, plo, phi = tfe.convs[conv]
     plan = stem_packing(f"conv{conv}", wq, ws, plo, phi)
-    assert plan.narrow == (conv == 0) and plan.kernel == 3 and plan.cin == wq.shape[2]
+    assert plan.narrow and plan.narrow_route and plan.kernel == 3 and plan.cin == wq.shape[2]
     assert (plan.bk, plan.bm) == ((64, 128) if conv == 0 else (128, 128))
     if conv == 2:  # only taps (p, q) in {0, 1}^2 of the 3x3 kernel are walked
         live = plan.steps[0, :int(plan.nsteps[0])] // plan.s

@@ -181,11 +181,14 @@ def test_narrow_widths_and_packing_limits():
 
 
 @pytest.mark.parametrize("kb,bn,mode", [(32, 16, 1), (64, 64, 2), (64, 32, 3), (128, 16, 2),
-                                        (16, 16, 0), (96, 64, 0), (32, 48, 0), (64, 128, 1)])
+                                        (16, 16, 0), (96, 64, 0), (32, 48, 0), (64, 128, 1),
+                                        (32, 16, 4), (64, 64, 5), (128, 64, 4), (64, 32, 5),
+                                        (128, 32, 5), (96, 128, 4)])
 def test_narrow_host_entry_raises_on_unsupported(kb, bn, mode):
     """The host entry (``_launch_b3`` on a narrow packing) raises
     ``ValueError`` for a (K, N, epilogue) without an instance, before it
-    builds or launches anything; the instances callers use pass."""
+    builds or launches anything (the int8 hand-off's modes 4 and 5 exist at
+    N = 128 alone); the instances callers use pass."""
     with pytest.raises(ValueError, match="no instance"):
         b3_narrow_instance(kb, bn, mode)
     if kb in (32, 64, 128) and bn in (16, 32, 64, 128):  # a packing int8_packing makes
@@ -194,8 +197,8 @@ def test_narrow_host_entry_raises_on_unsupported(kb, bn, mode):
         assert (packed.bk, packed.bm, packed.narrow) == (kb, bn, True)
         xq = torch.zeros((1, 4, 4, cin), dtype=torch.int8)
         with pytest.raises(ValueError, match="no instance"):
-            _launch_b3(xq, torch.ones(1), packed, torch.zeros(bn), bool(mode & 1),
-                       bool(mode & 2))
+            _launch_b3(xq, torch.ones(1), packed, torch.zeros(bn), bool(mode & 1), mode >= 2,
+                       0.02 if mode >= 4 else None)
     for kb in (32, 64, 128):
         for bn, mode in B3_NARROW_INSTANCES:
             b3_narrow_instance(kb, bn, mode)
@@ -330,21 +333,29 @@ def test_compact_sparse_q_carries_its_vectors():
 
 
 def _dispatch_packings():
-    """(packing, narrow) pairs: r20's 16-wide conv, conv0's 48 -> 256 and a
-    128-wide conv."""
+    """r20's 16-wide conv and conv0's 48 -> 256 (narrow), a 128-wide conv,
+    and the int8 stem's conv1 (256 -> 256, 3x3) and conv2 (256 -> 128, its
+    2x2 pad (1, 0) embedded in the 3x3) from ``stem_packing``: 128-wide
+    blocks, sent to the narrow route by the plan's ``narrow_route``."""
     rng = np.random.default_rng(11)
     out = []
     for cin, cout in ((16, 16), (48, 256), (128, 128)):
         w = (rng.normal(size=(3, 3, cin, cout)) * 0.1).astype(np.float32)
         out.append(int8_packing("c", *quantize_weight(w), 1, 1))
+    for k, (plo, phi), cout in ((3, (1, 1), 256), (2, (1, 0), 128)):
+        w = (rng.normal(size=(k, k, 256, cout)) * 0.1).astype(np.float32)
+        out.append(stem_packing("c", *quantize_weight(w), plo, phi))
     return out
 
 
-@pytest.mark.parametrize("which", [0, 1, 2])
+@pytest.mark.parametrize("which", [0, 1, 2, 3, 4])
 def test_launch_b3_hands_each_packing_to_one_kernel(which, monkeypatch):
     """``_launch_b3`` calls the narrow kernel's launcher for a narrow
-    packing and the 128-wide kernel's otherwise, once, with the epilogue
-    mode and an output cout wide; so each kernel's launches count apart."""
+    packing (the stem's 128-wide ones included) and the 128-wide kernel's
+    otherwise, once, with the epilogue mode and an output cout wide; so
+    each kernel's launches count apart.  The stem's packings take relu(y +
+    bias) as bf16 (mode 3) and its int8 hand-off from bf16 (mode 5, int8
+    out, the scale passed on) on the narrow kernel."""
     packed = _dispatch_packings()[which]
     calls = []
     for name in ("sparse_conv_q_kernel", "sparse_conv_q_narrow_kernel"):
@@ -352,14 +363,17 @@ def test_launch_b3_hands_each_packing_to_one_kernel(which, monkeypatch):
     monkeypatch.setattr(sc, "_on_device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(sc, "_raw_stream", lambda dev: 0)
     xq = torch.zeros((1, 4, 5, packed.cin), dtype=torch.int8)
-    relu = packed.cout == 256  # conv0's epilogue, relu(y + bias) as bf16
+    relu = which in (1, 3, 4)  # the stem's epilogue, relu(y + bias) as bf16
     bias = torch.zeros(packed.cout) if relu else None
     out = _launch_b3(xq, torch.ones(1), packed, bias, relu, relu)
     want = "sparse_conv_q_narrow_kernel" if packed.narrow else "sparse_conv_q_kernel"
-    assert packed.narrow == (which < 2)
+    assert packed.narrow == (which != 2) and packed.narrow_route == (which > 2)
     assert [(c[0], c[1]) for c in calls] == [(want, 3 if relu else 0)]
     assert calls[0][2] is out and out.shape == (1, 4, 5, packed.cout)
     assert out.dtype == (torch.bfloat16 if relu else torch.float32)
+    if which > 2:
+        out = _launch_b3(xq, torch.ones(1), packed, bias, True, True, 0.05)
+        assert calls[1][:2] == (want, 5) and calls[1][2] is out and out.dtype == torch.int8
 
 
 class _FakeLib:
@@ -389,7 +403,7 @@ def test_b3_kernel_launchers_count_their_own_launches(err, monkeypatch):
     monkeypatch.setattr(_build, "load_library", lambda: lib)
     monkeypatch.setattr(sc.sparse_conv_q_kernel, "launches", 0)
     monkeypatch.setattr(sc.sparse_conv_q_narrow_kernel, "launches", 0)
-    narrow, _, wide = _dispatch_packings()
+    narrow, _, wide = _dispatch_packings()[:3]
     for packed, launcher in ((narrow, sc.sparse_conv_q_narrow_kernel),
                              (wide, sc.sparse_conv_q_kernel)):
         xq = torch.zeros((1, 4, 5, packed.cin), dtype=torch.int8)

@@ -4,6 +4,7 @@ and neighbours.
 
     python -m tpuseg_torch.ab_sparse_conv [--old OLD_sparse_conv.cu]
         [--old-q OLD_sparse_conv_q.cu] [--old-quantize OLD_quantize.cu]
+        [--old-stem OLD_sparse_conv_q.cu OLD_sparse_conv_q_narrow.cu]
         [--old-bsr OLD_bsr_matmul.cu] [--old-up OLD_upsample_argmax.cu] [--skip-fps]
 
 Each option is a copy of that source from another commit, e.g.
@@ -49,10 +50,24 @@ batch-32 shapes of ``chip_smoke.py``:
   at its batch-32 input, per-frame and static, conv0's pass (the old build
   through its -1 map to 128 channels, the new one unpadded) and the
   unmapped served pass of ``layer.6.1.conv2``.
-- ``--old-q`` and ``--old-quantize`` both also time the 128-wide served
-  int8 step at ``layer.6.1.conv2`` and, unless ``--skip-fps``, the device
-  fps at batch 32 of ``int8_stem`` (dense int8 calibrated, with the int8
-  stem) and of ``sparse_int8`` under the Pallas lowering with each build.
+- ``--old-stem`` (B3's two kernels, ``sparse_conv_q.cu`` and
+  ``sparse_conv_q_narrow.cu``, from a build before the int8 stem's
+  hand-off): the old build runs B3 as it did (its ``_launch_b3``: a
+  packing by its channels to the 128-wide or the narrow copy) and the int8
+  stem conv by conv, each quantizing its own x and writing bf16
+  (``per_conv_stem``: conv1 and conv2 on the 128-wide kernel).  It times,
+  on the inputs a calibrated bf16 batch-32 int8-stem frontend gives its
+  three convs (1024x2048 shapes frames): each conv's route static (the new
+  build as the frontend runs it, handing int8 on; the old one on the bf16
+  x, writing bf16) and per frame, the whole stem static and per frame and
+  the int8 frontend's ms a batch, the old and new outputs compared bit for
+  bit where they compute the same thing (the per-frame convs, the stems,
+  the frontend); then the unmapped quantize pass at ``layer.6.1.conv2``.
+- ``--old-q``, ``--old-quantize`` and ``--old-stem`` also time the
+  128-wide served int8 step at ``layer.6.1.conv2`` and, unless
+  ``--skip-fps``, the device fps at batch 32 of ``int8_stem`` (dense int8
+  calibrated, with the int8 stem) and of ``sparse_int8`` under the Pallas
+  lowering with each build.
 - ``--old-bsr`` (kernels B5/B6, ``bsr_matmul.cu``): ``bsr_matmul`` and
   ``bsr_matmul_gathered`` at x (512, 2**20) with the 512x512 87.5 % W,
   beside ``torch.mm(..., out_dtype=torch.float32)``.
@@ -99,6 +114,9 @@ P32 = 32 * 128 * 256
 # per kernel: (source, C entry points, a parameter only the newer interface has)
 SOURCES = {"b2": ("sparse_conv.cu", ("tpuseg_sparse_conv",), "const void* nsteps"),
            "b3": ("sparse_conv_q.cu", ("tpuseg_sparse_conv_q",), "const void* nsteps"),
+           "stem_q": ("sparse_conv_q.cu", ("tpuseg_sparse_conv_q",), "const void* nsteps"),
+           "stem_narrow": ("sparse_conv_q_narrow.cu", ("tpuseg_sparse_conv_q_narrow",),
+                           "float next_scale"),
            "quantize": ("quantize.cu", ("tpuseg_absmax", "tpuseg_quantize"),
                         "const void* vecs"),
            "bsr": ("bsr_matmul.cu", ("tpuseg_bsr_matmul",), "int nnzb"),
@@ -241,6 +259,64 @@ def old_quantize(fns, _newer: bool):
     return quantize
 
 
+def old_stem_b3(q, narrow):
+    """The ``_launch_b3`` of a build before the int8 stem's hand-off, on
+    its two B3 copies (``q``, ``narrow``: (C function, newer ABI?) each):
+    a packing whose blocks are 128 wide over channels that divide by 128
+    goes to the 128-wide copy (epilogue modes 0-3), any other to the
+    narrow copy (its entry without the hand-off's scale)."""
+    q_fn, narrow_fn = q[0], narrow[0]
+    if narrow[1]:
+        raise ValueError("--old-stem takes a narrow kernel from before the int8 hand-off")
+    q_fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    narrow_fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+
+    def launch(xq, xs, plan, bias, bf16_out, relu=False, next_scale=None):
+        if next_scale is not None:
+            raise ValueError("the old build has no int8 hand-off")
+        mode = 2 * int(relu) + int(bf16_out)
+        n, h, w, cin = xq.shape
+        out = torch.empty((n, h, w, plan.cout), device=xq.device,
+                          dtype=torch.bfloat16 if bf16_out else torch.float32)
+        ptrs = (None if bias is None else bias.data_ptr(), out.data_ptr())
+        if (plan.bk, plan.bm) == (128, 128) and plan.cin % 128 == 0 and plan.cout % 128 == 0:
+            err = q_fn(xq.data_ptr(), plan.vals_k.data_ptr(), plan.rows.data_ptr(),
+                       plan.steps.data_ptr(), plan.nsteps.data_ptr(), plan.w_scale.data_ptr(),
+                       xs.data_ptr(), *ptrs, n, h, w, cin, plan.cout, plan.s, plan.kernel,
+                       plan.dilation, mode, _stream(xq))
+        else:
+            err = narrow_fn(xq.data_ptr(), plan.vals_k.data_ptr(), plan.steps.data_ptr(),
+                            plan.nsteps.data_ptr(), plan.w_scale.data_ptr(), xs.data_ptr(),
+                            *ptrs, n, h, w, cin, plan.cout, plan.s, plan.kernel, plan.dilation,
+                            plan.bk, plan.bm, *sc.b3_narrow_tile(n, h, w), mode, _stream(xq))
+        if err != 0:
+            raise RuntimeError(f"old B3 launch failed ({err})")
+        return out
+
+    return launch
+
+
+def per_conv_stem(fe, x):
+    """``PolyphaseFrontend._stem_convs`` as builds before the int8 stem's
+    hand-off ran it: each stem conv quantizes its own x (at its scale) and
+    writes the frontend dtype, through the stem route the module uses."""
+    import dataclasses
+
+    from tpuseg_torch.ops import polyphase
+
+    if not fe.int8_stem:
+        for wp, bias, plo, phi in fe.convs:
+            x = torch.nn.functional.relu_(polyphase._conv(x, wp, bias, plo, phi))
+        return x
+    x = polyphase.nchw_to_nhwc(x)
+    for i, (plan, bias) in enumerate(fe.q_plans):
+        xs = fe._stem_x_scale(i)
+        if plan.x_scale != xs:
+            plan = dataclasses.replace(plan, x_scale=xs)
+        x = polyphase.fused_sparse_conv_q_bias_relu(x, plan, bias, fe.dtype)
+    return polyphase.nhwc_to_nchw(x)
+
+
 _PADDED = {}
 
 
@@ -345,7 +421,8 @@ class Kernels:
         self.new = {"b2": sc._launch_b2, "b3": sc._launch_b3, "bsr": bsr._launch,
                     "up": up._launch, "quantize": sc.quantize_activation,
                     "route": drn._sparse_conv_bias_bf16, "qconv": quant.quant_conv_apply,
-                    "stem": polyphase.fused_sparse_conv_q_bias_relu}
+                    "stem": polyphase.fused_sparse_conv_q_bias_relu,
+                    "stem_convs": polyphase.PolyphaseFrontend._stem_convs}
         self.old = {}
         if "b2" in olds:
             self.old["b2"] = old_b2(*olds["b2"])
@@ -367,6 +444,10 @@ class Kernels:
                 return padded_route(x, plan, bias.float(), True, out_dtype == torch.bfloat16)
 
             self.old["qconv"], self.old["stem"] = qconv, stem
+            self.old["stem_convs"] = per_conv_stem
+        if "stem_q" in olds:
+            self.old["b3"] = old_stem_b3(olds["stem_q"], olds["stem_narrow"])
+            self.old["stem_convs"] = per_conv_stem
         if "quantize" in olds:
             self.old["quantize"] = old_quantize(*olds["quantize"])
         if "bsr" in olds:
@@ -388,6 +469,7 @@ class Kernels:
         sc.quantize_activation = funcs["quantize"]
         self.quant.quant_conv_apply = funcs["qconv"]
         self.poly.fused_sparse_conv_q_bias_relu = funcs["stem"]
+        self.poly.PolyphaseFrontend._stem_convs = funcs["stem_convs"]
         skip = {k for kinds in self.no_route for k in kinds} if which == "old" else set()
         route = self.new["route"]
         self.drn._sparse_conv_bias_bf16 = (
@@ -616,11 +698,90 @@ def _quantize_turns(kernels: Kernels, pallas_plans: dict, folded: dict, gen, dev
     return {"live_channels": live, "turns": turns, "new_over_old": _median_ratios(turns)}
 
 
+def _stem_turns(kernels: Kernels, seg, frames) -> dict:
+    """``--old-stem``: the int8 stem's routes with each build, in turns, on
+    the inputs the calibrated int8-stem frontend ``seg.stem_fn`` gives its
+    three convs on ``frames`` (recorded with the new build): each conv
+    static (new: as the frontend runs it, handing int8 on; old: on the bf16
+    x the conv before wrote, writing bf16) and per frame (both builds on
+    that bf16 x), the whole stem static and per frame, and the int8
+    frontend; the two builds' outputs compared bit for bit where both
+    compute the same tensor."""
+    import copy
+    import dataclasses
+
+    from tpuseg_torch.ops import polyphase as poly
+
+    fe = seg.stem_fn
+    log = []
+    orig = poly.fused_sparse_conv_q_bias_relu
+
+    def record(x, plan, bias, out_dtype, *, xs=None, next_scale=None):
+        log.append((x, plan, bias, xs, next_scale))
+        return orig(x, plan, bias, out_dtype, xs=xs, next_scale=next_scale)
+
+    kernels.use("new")
+    poly.fused_sparse_conv_q_bias_relu = record
+    try:
+        with torch.inference_mode():
+            fe(frames)
+    finally:
+        poly.fused_sparse_conv_q_bias_relu = orig
+    scales = [fe._stem_x_scale(i) for i in range(len(log))]
+    # the float x each conv reads without the hand-off: conv0's, then the
+    # bf16 output of the conv before
+    xf = [log[0][0]]
+    for i in range(len(log) - 1):
+        p = dataclasses.replace(log[i][1], x_scale=scales[i])
+        xf.append(sc.fused_sparse_conv_q_bias_relu(xf[i], p, log[i][2], torch.bfloat16))
+    fns, shapes = {}, {}
+    for i, (xrec, plan, bias, xs, nxt) in enumerate(log):
+        ps = dataclasses.replace(plan, x_scale=scales[i])
+        pd = dataclasses.replace(plan, x_scale=None)
+
+        def static(x=xf[i], xrec=xrec, plan=plan, ps=ps, bias=bias, xs=xs, nxt=nxt):
+            if kernels.active == "new":
+                return sc.fused_sparse_conv_q_bias_relu(xrec, plan, bias, torch.bfloat16, xs=xs,
+                                                        next_scale=nxt)
+            return sc.fused_sparse_conv_q_bias_relu(x, ps, bias, torch.bfloat16)
+
+        fns[f"conv{i}_static"] = static
+        fns[f"conv{i}_per_frame"] = (lambda x=xf[i], pd=pd, bias=bias:
+                                     sc.fused_sparse_conv_q_bias_relu(x, pd, bias,
+                                                                      torch.bfloat16))
+        shapes[f"conv{i}"] = {"x": list(xf[i].shape), "new_x_in": str(xrec.dtype),
+                              "new_out": "int8" if nxt is not None else "bfloat16",
+                              "packing": [plan.bk, plan.bm, plan.s],
+                              "live_steps": int(plan.nsteps.sum())}
+    per_frame = copy.copy(fe)
+    per_frame.stem_x_scales, per_frame._stem_chain = None, None
+    xn = poly.nhwc_to_nchw(xf[0])
+    fns["stem_static"] = lambda: fe._stem_convs(xn)
+    fns["stem_per_frame"] = lambda: per_frame._stem_convs(xn)
+    fns["frontend_int8"] = lambda: fe(frames)
+    same = {}
+    with torch.inference_mode():
+        for name, fn in fns.items():
+            if name.endswith("_static") and name.startswith("conv"):
+                continue  # int8 against bf16: not the same tensor
+            kernels.use("old")
+            old = fn()
+            kernels.use("new")
+            same[name] = bool(torch.equal(old, fn()))
+            del old
+        turns = ab(kernels, fns, iters=5, rounds=2)
+    return {"shapes": shapes, "scales": scales, "old_equals_new": same, "turns": turns,
+            "new_over_old": _median_ratios(turns)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", help="the other commit's sparse_conv.cu (kernel B2)")
     ap.add_argument("--old-q", help="the other commit's sparse_conv_q.cu (kernel B3)")
     ap.add_argument("--old-quantize", help="the other commit's quantize.cu (B3's quantize pass)")
+    ap.add_argument("--old-stem", nargs=2, metavar=("Q", "NARROW"),
+                    help="sparse_conv_q.cu and sparse_conv_q_narrow.cu of a commit before the "
+                         "int8 stem's hand-off (B3's stem route)")
     ap.add_argument("--old-bsr", help="the other commit's bsr_matmul.cu (kernels B5/B6)")
     ap.add_argument("--old-up", help="the other commit's upsample_argmax.cu (kernel B1)")
     ap.add_argument("--skip-fps", action="store_true", help="kernel times only")
@@ -628,8 +789,13 @@ def main(argv=None) -> int:
     copies = {k: v for k, v in (("b2", args.old), ("b3", args.old_q),
                                 ("quantize", args.old_quantize), ("bsr", args.old_bsr),
                                 ("up", args.old_up)) if v}
+    if args.old_stem:
+        if args.old_q:
+            ap.error("--old-stem and --old-q both replace B3: give one")
+        copies["stem_q"], copies["stem_narrow"] = args.old_stem
     if not copies:
-        ap.error("give at least one of --old, --old-q, --old-quantize, --old-bsr, --old-up")
+        ap.error("give at least one of --old, --old-q, --old-quantize, --old-stem, --old-bsr, "
+                 "--old-up")
     if not torch.cuda.is_available():
         print("ab_sparse_conv: no CUDA card", file=sys.stderr)
         return 1
@@ -648,7 +814,7 @@ def main(argv=None) -> int:
     kernels = Kernels(olds)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    int8 = {"b3", "quantize"} & set(olds)
+    int8 = {"b3", "quantize", "stem_q"} & set(olds)
     if ({"b2"} | int8) & set(olds):
         params, masked, state, spec, folded, plans = _served()
         bias = folded["layer.6.1.conv2.bias"].to(dev, torch.bfloat16)
@@ -720,9 +886,12 @@ def main(argv=None) -> int:
               live_steps=qplan.nsteps.tolist(), turns=turns, card=smi)
         del xq, xs
     if int8:
-        # the 128-wide served int8 step, which neither redesign touches
+        # the 128-wide served int8 step, which no redesign of the int8 stem
+        # or the narrow route touches, and its unmapped quantize pass
         qplan = sc.quantize_fused_plan(plans["pallas"]["layer.6.1.conv2"]).to(dev)
-        turns = ab(kernels, {"served_int8_w128": lambda: served_step(qplan)}, iters=10, rounds=2)
+        turns = ab(kernels, {"served_int8_w128": lambda: served_step(qplan),
+                             "unmapped_quantize": lambda: sc.quantize_activation(x, None)},
+                   iters=10, rounds=2)
         _emit(phase="served_int8_w128", conv="layer.6.1.conv2", shape=list(BATCH32),
               turns=turns, new_over_old=_median_ratios(turns), card=smi)
     if "b3" in olds:
@@ -731,6 +900,18 @@ def main(argv=None) -> int:
         _emit(phase="quantize_maps", **_quantize_turns(kernels, plans["pallas"], folded, gen,
                                                        dev, x), card=smi)
     del x
+    if "stem_q" in olds:
+        from tpuseg_torch.data.shapes import shapes_video
+
+        stem_frames = list(shapes_video(32, FULL, seed=0)[0])
+        seg = VideoSegmenter(params, state, spec, MEAN, STD, device=dev,
+                             compute_dtype=torch.bfloat16, batch=32, quantize=True,
+                             quantize_stem=True, calib_frames=stem_frames[:8])
+        fd = torch.from_numpy(np.stack(stem_frames).reshape(32, FULL[0], -1)).to(dev)
+        _emit(phase="stem_routes", size=list(FULL), batch=32,
+              **_stem_turns(kernels, seg, fd), card=smi)
+        del seg, fd, stem_frames
+        torch.cuda.empty_cache()
     if "b3" in olds:
         # each of the 13 dense int8 convs at its batch-32 input: the quantize
         # pass and B3 alone (f32 out), old and new, and the new kernel's

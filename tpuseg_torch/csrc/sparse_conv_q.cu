@@ -16,13 +16,11 @@
 // and the bf16 bytes that often) and passes the N per-frame scales as a
 // device array.  |acc| <= 127^2 * k*k*S*128, below 2^31 for every packing the
 // wrapper admits, so the int32 sum is exact and y is bit-equal to an exact
-// plain version.  The epilogue has four modes: 0 writes the f32 y; 1, for the
+// plain version.  The epilogue has two modes: 0 writes the f32 y; 1, for the
 // served bf16 path, bf16(float(bf16(y)) + float(bias[o])) with a bf16 bias,
 // each step rounded to nearest even (the cast-then-bias order of tpuseg's
-// served convs); 2 and 3, for the int8 stem (tpuseg/ops/polyphase.py:357-359),
-// relu(y + bias[o]) with an f32 bias, the add rounded on its own and relu as
-// tpuseg's jnp.maximum(v, 0) (-0.0 becomes +0.0, a NaN stays), written as f32
-// (2) or rounded once to bf16 (3).
+// served convs).  The int8 stem's relu epilogues run on the narrow route
+// (sparse_conv_q_narrow.cu).
 //
 // Zero tiles are skipped, as in sparse_conv.cu: each packing carries, per
 // out-block, its live (tap, slot) steps t*S + s (`steps`, the nonzero int8
@@ -118,15 +116,6 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, u
 // epilogue modes (the C entry's `mode`)
 constexpr int kF32 = 0;        // float(acc) * sc
 constexpr int kBf16Bias = 1;   // bf16(float(bf16(y)) + bias), bias bf16 or none
-constexpr int kReluF32 = 2;    // relu(y + bias), bias f32
-constexpr int kReluBf16 = 3;   // bf16(relu(y + bias)), bias f32
-
-// tpuseg's relu(v) = jnp.maximum(v, 0) on v = y + b: -0.0 gives +0.0, a NaN
-// stays a NaN (fmaxf would return 0 for it)
-__device__ __forceinline__ float relu_add(float y, float b) {
-  const float v = __fadd_rn(y, b);
-  return v <= 0.0f ? 0.0f : v;
-}
 
 // Write one m64 accumulator (rows r, r + 8 of the warp's 16) of a tile in
 // epilogue mode kMode (no add without a bias in mode 1: +0.0 would turn -0.0
@@ -144,10 +133,6 @@ __device__ __forceinline__ void store_acc(const int (&d)[64], int r, int valid, 
     for (int j = 0; j < 16; ++j) {
       float y0 = __fmul_rn(__int2float_rn(d[j * 4 + 2 * half]), sc[2 * j]);
       float y1 = __fmul_rn(__int2float_rn(d[j * 4 + 2 * half + 1]), sc[2 * j + 1]);
-      if (kMode == kReluF32 || kMode == kReluBf16) {
-        y0 = relu_add(y0, bv[2 * j]);
-        y1 = relu_add(y1, bv[2 * j + 1]);
-      }
       if (kMode == kBf16Bias) {
         __nv_bfloat16 b0 = __float2bfloat16_rn(y0);
         __nv_bfloat16 b1 = __float2bfloat16_rn(y1);
@@ -157,9 +142,6 @@ __device__ __forceinline__ void store_acc(const int (&d)[64], int r, int valid, 
         }
         *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + base + j * 8) =
             __halves2bfloat162(b0, b1);
-      } else if (kMode == kReluBf16) {
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + base + j * 8) =
-            __halves2bfloat162(__float2bfloat16_rn(y0), __float2bfloat16_rn(y1));
       } else {
         *reinterpret_cast<float2*>(static_cast<float*>(out) + base + j * 8) =
             make_float2(y0, y1);
@@ -302,8 +284,8 @@ sparse_conv_q_kernel(const __grid_constant__ CUtensorMap xmap,
 // xq (n, h, w, cin) int8 NHWC; vals_k (nmb, k*k*s, 128 out, 128 in) int8;
 // rows (nmb, s), steps (nmb, k*k*s), nsteps (nmb,) int32; w_scale (cout,)
 // and x_scale (n,) f32; out (n, h, w, cout) and bias by the epilogue mode:
-// 0 f32 out, no bias; 1 bf16 out, bias (cout,) bf16 or null; 2 f32 out and
-// 3 bf16 out, bias (cout,) f32.
+// 0 f32 out, no bias; 1 bf16 out, bias (cout,) bf16 or null.  Any other mode
+// is rejected.
 extern "C" int tpuseg_sparse_conv_q(const void* xq, const void* vals_k, const void* rows,
                                     const void* steps, const void* nsteps, const void* w_scale,
                                     const void* x_scale, const void* bias, void* out, int n,
@@ -316,8 +298,7 @@ extern "C" int tpuseg_sparse_conv_q(const void* xq, const void* vals_k, const vo
       ((uintptr_t)steps & 3u) != 0 || ((uintptr_t)nsteps & 3u) != 0 ||
       ((uintptr_t)w_scale & 3u) != 0 || ((uintptr_t)x_scale & 3u) != 0 ||
       ((uintptr_t)bias & 3u) != 0 || steps == nullptr || nsteps == nullptr || mode < kF32 ||
-      mode > kReluBf16 || (mode == kF32 && bias != nullptr) ||
-      (mode >= kReluF32 && bias == nullptr)) {
+      mode > kBf16Bias || (mode == kF32 && bias != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   Geom g;
@@ -348,10 +329,7 @@ extern "C" int tpuseg_sparse_conv_q(const void* xq, const void* vals_k, const vo
     return (int)cudaErrorInvalidValue;
   }
   decltype(&sparse_conv_q_kernel<kF32>) kernel =
-      mode == kF32         ? sparse_conv_q_kernel<kF32>
-      : mode == kBf16Bias  ? sparse_conv_q_kernel<kBf16Bias>
-      : mode == kReluF32   ? sparse_conv_q_kernel<kReluF32>
-                           : sparse_conv_q_kernel<kReluBf16>;
+      mode == kF32 ? sparse_conv_q_kernel<kF32> : sparse_conv_q_kernel<kBf16Bias>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return (int)e;

@@ -146,12 +146,12 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,                  # nsteps (nmb,) int32
         ctypes.c_void_p,                  # w_scale (nmb, 1, 128) f32
         ctypes.c_void_p,                  # x_scale (N,) f32, per frame
-        ctypes.c_void_p,                  # bias (Cout,): none (mode 0), bf16|none (1), f32 (2, 3)
-        ctypes.c_void_p,                  # out (N, H, W, Cout) f32 (modes 0, 2), or bf16 (1, 3)
+        ctypes.c_void_p,                  # bias (Cout,): none (mode 0), bf16|none (1)
+        ctypes.c_void_p,                  # out (N, H, W, Cout) f32 (mode 0), or bf16 (1)
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n h w
         ctypes.c_int, ctypes.c_int,       # cin cout
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # s kernel dilation
-        ctypes.c_int,                     # mode: 0 y, 1 bf16(bf16(y) + bias), 2/3 relu(y + bias)
+        ctypes.c_int,                     # mode: 0 y, 1 bf16(bf16(y) + bias)
         ctypes.c_void_p,                  # cudaStream_t
     ]
     lib.tpuseg_sparse_conv_q.restype = ctypes.c_int
@@ -162,14 +162,15 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,                  # nsteps (nmb,) int32
         ctypes.c_void_p,                  # w_scale (nmb, 1, bn) f32
         ctypes.c_void_p,                  # x_scale (N,) f32, per frame
-        ctypes.c_void_p,                  # bias (Cout,) f32 (modes 2, 3) or null (0)
-        ctypes.c_void_p,                  # out (N, H, W, Cout) f32 (modes 0, 2), or bf16 (3)
+        ctypes.c_void_p,                  # bias (Cout,) f32 (modes 2-5) or null (0)
+        ctypes.c_void_p,                  # out (N, H, W, Cout) f32 (0, 2), bf16 (3), int8 (4, 5)
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n h w
         ctypes.c_int, ctypes.c_int,       # cin cout
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # s kernel dilation
         ctypes.c_int, ctypes.c_int,       # kb (K per step), bn (N per out-block)
         ctypes.c_int, ctypes.c_int,       # the tile: image rows R, images G
-        ctypes.c_int,                     # mode: 0 y, 2/3 relu(y + bias)
+        ctypes.c_int,                     # mode: 0 y, 2/3 relu(y + bias), 4/5 its int8 hand-off
+        ctypes.c_float,                   # the hand-off's static scale (modes 4, 5), else 0
         ctypes.c_void_p,                  # cudaStream_t
     ]
     lib.tpuseg_sparse_conv_q_narrow.restype = ctypes.c_int

@@ -18,9 +18,12 @@ does (``tpuseg/ops/polyphase.py:297-360``): weights quantized per output
 channel from the folded weights as cast to the compute dtype, x per conv
 with conv0's analytic scale, static scales from ``calibrate_stem_scales`` or
 per-frame ones, and the epilogue ``relu(float(acc) * (xs * ws) + bias)``
-cast to the compute dtype.  Each conv is kernel B3 on its stem packing
-(``tpuseg_torch.ops.quant.stem_packing``) through
-``fused_sparse_conv_q_bias_relu``.  Stage 3 stays float, as in ``tpuseg``.
+cast to the compute dtype.  Each conv is kernel B3's narrow route on its
+stem packing (``tpuseg_torch.ops.quant.stem_packing``) through
+``fused_sparse_conv_q_bias_relu``; where the next conv's scale is static,
+the conv writes that conv's int8 x itself (the quantization ``tpuseg`` runs
+at the next conv's start is elementwise on this conv's output), so the
+next conv runs no quantize pass.  Stage 3 stays float, as in ``tpuseg``.
 
 ``tpuseg``'s other folds are here too, in numpy as there (bit-equal):
 ``fold_conv_poly_general`` (a folded-grid stride), ``fold_stem_weights``
@@ -278,7 +281,7 @@ class PolyphaseFrontend:
 
     ``int8_stem=True`` adds ``q_convs`` (``tpuseg``'s (w_q, w_scale) per
     conv, HWIO int8 and (O,) f32, on the host), ``q_plans`` (per conv B3's
-    packing and the f32 bias, on ``device``; conv0's is narrow),
+    packing and the f32 bias, on ``device``; all on B3's narrow route),
     ``conv0_x_scale`` (analytic with ``normalize``, else None: per frame)
     and ``stem_x_scales`` (None until ``calibrate_stem_scales``).
     """
@@ -305,6 +308,7 @@ class PolyphaseFrontend:
         self.q_convs, self.q_plans = [], []
         self.conv0_x_scale = None
         self.stem_x_scales: list | None = None
+        self._stem_chain = None  # (scales, steps, scale vectors): _stem_steps
         for name, (stride, pad, fi, fo) in zip(STEM_CONVS, specs):
             wp, plo, phi = fold_conv_poly(_hwio(params[f"{name}.weight"]), stride, pad, fi, fo)
             bias = np.tile(params[f"{name}.bias"].float().cpu().numpy(), fo * fo)
@@ -338,6 +342,7 @@ class PolyphaseFrontend:
             out.normalize = tuple(t.to(device) for t in self.normalize)
         out.convs = [(w.to(device), b.to(device), plo, phi) for w, b, plo, phi in self.convs]
         out.q_plans = [(plan.to(device), bias.to(device)) for plan, bias in self.q_plans]
+        out._stem_chain = None
         return out
 
     def _input(self, x: torch.Tensor) -> torch.Tensor:
@@ -357,19 +362,45 @@ class PolyphaseFrontend:
             return self.stem_x_scales[i]
         return None
 
+    def _stem_steps(self) -> list:
+        """Per stem conv ``(plan, bias, next_scale)``: its packing with its
+        scale (``_stem_x_scale``) and the next conv's static scale, or None
+        where that conv's scale is per frame or it is the last (then this
+        conv writes the frontend dtype, else that conv's int8 x).  Built
+        once while the scales stay (``calibrate_stem_scales`` sets them
+        after construction), with the (N,) scale vectors the handed-on x
+        carries (``_scale_vector``)."""
+        scales = tuple(self._stem_x_scale(i) for i in range(len(self.q_plans)))
+        if self._stem_chain is None or self._stem_chain[0] != scales:
+            steps = [(plan if plan.x_scale == xs else dataclasses.replace(plan, x_scale=xs),
+                      bias, (scales + (None,))[i + 1])
+                     for i, ((plan, bias), xs) in enumerate(zip(self.q_plans, scales))]
+            self._stem_chain = (scales, steps, {})
+        return self._stem_chain[1]
+
+    def _scale_vector(self, i: int, n: int) -> torch.Tensor:
+        """Conv i's static scale as the (n,) f32 scales of the int8 x
+        handed to it (the Python float rounded to f32, as ``tpuseg``'s
+        ``jnp.float32``), made once per (conv, batch size)."""
+        scales, _, vectors = self._stem_chain
+        if (i, n) not in vectors:
+            vectors[i, n] = torch.full((n,), scales[i], dtype=torch.float32, device=self.device)
+        return vectors[i, n]
+
     def _stem_convs(self, x: torch.Tensor) -> torch.Tensor:
         """The three folded stem convs on NCHW (channels_last) x; int8
-        (B3 through ``fused_sparse_conv_q_bias_relu``) with ``int8_stem``."""
+        (B3 through ``fused_sparse_conv_q_bias_relu``) with ``int8_stem``,
+        each conv handing the next its int8 x where that conv's scale is
+        static (``_stem_steps``)."""
         if not self.int8_stem:
             for wp, bias, plo, phi in self.convs:
                 x = F.relu_(_conv(x, wp, bias, plo, phi))
             return x
-        x = nchw_to_nhwc(x)
-        for i, (plan, bias) in enumerate(self.q_plans):
-            xs = self._stem_x_scale(i)
-            if plan.x_scale != xs:
-                plan = dataclasses.replace(plan, x_scale=xs)
-            x = fused_sparse_conv_q_bias_relu(x, plan, bias, self.dtype)
+        x, xs = nchw_to_nhwc(x), None
+        for i, (plan, bias, next_scale) in enumerate(self._stem_steps()):
+            x = fused_sparse_conv_q_bias_relu(x, plan, bias, self.dtype, xs=xs,
+                                              next_scale=next_scale)
+            xs = None if next_scale is None else self._scale_vector(i + 1, x.shape[0])
         return nhwc_to_nchw(x)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:

@@ -221,14 +221,17 @@ def stem_packing(name: str, w_q: np.ndarray, w_scale: np.ndarray, pad_lo: int, p
                  x_scale: float | None = None) -> FusedSparseConvQ:
     """B3's packing of a folded int8 stem conv (HWIO ``w_q``, stride 1,
     padding ``(pad_lo, pad_hi)`` on both axes): ``int8_packing`` of the
-    conv as an odd "same" kernel.  A kernel that keeps the grid but is even
-    or padded asymmetrically (conv2: 2x2, pad (1, 0)) is embedded in the odd
-    "same" kernel of ``max(pad_lo, pad_hi)`` padding (``embed_same``); the
-    taps it adds are zero, so their tiles are not live steps (the packing's
-    steps come from its nonzero tiles) and B3 walks conv2's 4 taps of the 9.
-    conv0's 48 input channels make a narrow packing (K = 64, x padded to 64
-    through its map).  Raises ``ValueError``, naming the conv, on a shape
-    B3 cannot take this way."""
+    conv as an odd "same" kernel, with ``narrow_route`` set: every stem
+    conv runs on B3's narrow kernel, which has the stem's epilogues (relu,
+    and the int8 hand-off to the next conv).  A kernel that keeps the grid
+    but is even or padded asymmetrically (conv2: 2x2, pad (1, 0)) is
+    embedded in the odd "same" kernel of ``max(pad_lo, pad_hi)`` padding
+    (``embed_same``); the taps it adds are zero, so their tiles are not
+    live steps (the packing's steps come from its nonzero tiles) and B3
+    walks conv2's 4 taps of the 9.  conv0's 48 input channels take K = 64,
+    x padded to 64 through its map; conv1 and conv2 K = 128 over S = 2
+    slots, N = 128.  Raises ``ValueError``, naming the conv, on a shape B3
+    cannot take this way."""
     kh, kw, cin, cout = w_q.shape
     if kh != kw or pad_lo + pad_hi != kh - 1 or min(pad_lo, pad_hi) < 0:
         raise ValueError(
@@ -236,7 +239,8 @@ def stem_packing(name: str, w_q: np.ndarray, w_scale: np.ndarray, pad_lo: int, p
             f"{pad_hi}) does not fit kernel B3: it needs a square kernel that keeps the grid "
             f"(pad_lo + pad_hi = kernel - 1)")
     w_same, pad = embed_same(w_q, pad_lo, pad_hi)
-    return int8_packing(name, w_same, w_scale, 1, pad, x_scale)
+    return dataclasses.replace(int8_packing(name, w_same, w_scale, 1, pad, x_scale),
+                               narrow_route=True)
 
 
 # tpuseg's eligibility rule (its build_quant_plans defaults, the only

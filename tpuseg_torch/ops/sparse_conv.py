@@ -74,17 +74,23 @@ integer conv and the epilogue ``float(acc) * (x_scale[n] * w_scale[o])``.
   float(bias))``; ``fused_sparse_conv_q_bias_bf16_reference`` is the cast
   and bias passes it replaces (``cast_bias_bf16``).
 - ``fused_sparse_conv_q_bias_relu``: the int8 stem's route
-  (``tpuseg/ops/polyphase.py:349-359``): the same launches write
-  ``relu(y + bias)`` in f32, as f32 or rounded once to bf16, with
-  ``tpuseg``'s relu (``relu_tpuseg``); its plain version is
-  ``fused_sparse_conv_q_bias_relu_reference``.
+  (``tpuseg/ops/polyphase.py:349-359``) on B3's narrow kernel: the same
+  launches write ``relu(y + bias)`` in f32, as f32 or rounded once to bf16,
+  with ``tpuseg``'s relu (``relu_tpuseg``); its plain version is
+  ``fused_sparse_conv_q_bias_relu_reference``.  Under a static scale of the
+  next stem conv it hands that conv its int8 x instead (``next_scale``:
+  the next conv's quantization of the rounded output, in the epilogue;
+  plain version ``fused_sparse_conv_q_bias_relu_int8_out_reference``), and
+  it takes such an int8 x with its scales (``xs``; plain version
+  ``fused_sparse_conv_q_bias_relu_int8_in_reference``), so no quantize
+  pass runs between the stem's convs.
 - B3's narrow route (``csrc/sparse_conv_q_narrow.cu``): a ``narrow``
   packing (``ops/quant.py::int8_packing`` of a conv whose channels do not
-  divide by 128: the zoo's, the int8 stem's conv0, the frontend's stage-3
-  convs) runs K of 32, 64 or 128 channels a step (x padded to whole steps
-  through the packing's map) and N of 16-128 a block; ``b3_narrow_tile``
-  is its tile, and
-  ``b3_narrow_instance`` raises on an epilogue it has no instance for.
+  divide by 128: the zoo's, the frontend's stage-3 convs; and every int8
+  stem conv, which ``stem_packing`` sends there by ``narrow_route``) runs K
+  of 32, 64 or 128 channels a step (x padded to whole steps through the
+  packing's map) and N of 16-128 a block; ``b3_narrow_tile`` is its tile,
+  and ``b3_narrow_instance`` raises on an epilogue it has no instance for.
 - ``channel_map_vectors``: a channel map's vector descriptor (contiguous,
   zero or gathered 8-channel vectors), built once with the map, through
   which the quantize kernels read it; ``select_channels_by_vectors`` is its
@@ -714,7 +720,12 @@ class FusedSparseConvQ:
     into the padded int8 operand (the -1s are zero vectors: nothing is
     read), which B3 reads in whole K-wide steps; the plain version reads
     the unpadded x.  A TMA box wider than x's channels would zero-fill them
-    instead, which the H100 runs slower (``PERF.md``)."""
+    instead, which the H100 runs slower (``PERF.md``).
+
+    ``narrow_route`` sends a packing to the narrow route whatever its
+    widths: ``ops/quant.py::stem_packing`` sets it on the int8 stem's
+    convs, whose epilogues (relu, the int8 hand-off) only the narrow kernel
+    has; B3's served packings keep the 128-wide kernel."""
 
     vals: torch.Tensor     # (nmb, T*S*bk, bm) int8
     w_scale: torch.Tensor  # (nmb, 1, bm) f32 per-output-channel
@@ -734,6 +745,7 @@ class FusedSparseConvQ:
     nsteps: torch.Tensor | None = None  # (nmb,) int32
     in_chan: torch.Tensor | None = None  # (S*bk,) int32 padding map of a narrow packing
     in_vecs: torch.Tensor | None = None  # (S*bk/8,) int32: its channel_map_vectors
+    narrow_route: bool = False  # the narrow route whatever the widths (the int8 stem)
 
     def __post_init__(self):
         nmb, tsk, bm = self.vals.shape
@@ -748,9 +760,11 @@ class FusedSparseConvQ:
 
     @property
     def narrow(self) -> bool:
-        """Whether B3 runs this packing on its narrow route: anything but
-        128-wide blocks over channels that divide by 128."""
-        return (self.bk, self.bm) != (BK, BM) or self.cin % BK != 0 or self.cout % BM != 0
+        """Whether B3 runs this packing on its narrow route: a packing
+        with ``narrow_route``, and anything but 128-wide blocks over
+        channels that divide by 128."""
+        return (self.narrow_route or (self.bk, self.bm) != (BK, BM) or self.cin % BK != 0
+                or self.cout % BM != 0)
 
     def to(self, device) -> "FusedSparseConvQ":
         """The plan with its tensors on ``device`` (dtypes unchanged)."""
@@ -959,11 +973,18 @@ def dequantize(acc: torch.Tensor, xs: torch.Tensor, w_scale: torch.Tensor) -> to
 
 def fused_sparse_conv_q_reference(x: torch.Tensor, plan: FusedSparseConvQ) -> torch.Tensor:
     """Plain version of B3: quantize x (``quantize_activation_reference``),
-    rebuild the dense HWIO int8 weight from ``vals``/``rows`` (padded slots
-    add zeros; a narrow packing's rows and columns past cin and cout are
-    cut off), compute the integer conv exactly (``int_conv_exact``), apply
-    the epilogue.  NHWC in, f32 out."""
-    xq, xs = quantize_activation_reference(x, plan.x_scale)
+    then ``fused_sparse_conv_q_int8_reference``.  NHWC in, f32 out."""
+    return fused_sparse_conv_q_int8_reference(*quantize_activation_reference(x, plan.x_scale),
+                                              plan)
+
+
+def fused_sparse_conv_q_int8_reference(xq: torch.Tensor, xs: torch.Tensor,
+                                       plan: FusedSparseConvQ) -> torch.Tensor:
+    """Plain version of B3 on a quantized x (int8 NHWC ``xq``, its (N,) f32
+    scales ``xs``): rebuild the dense HWIO int8 weight from ``vals``/``rows``
+    (padded slots add zeros; a narrow packing's rows and columns past cin
+    and cout are cut off), compute the integer conv exactly
+    (``int_conv_exact``), apply the epilogue.  f32 out."""
     k, S, bk, bm = plan.kernel, plan.s, plan.bk, plan.bm
     nmb = -(-plan.cout // bm)
     vals = plan.vals.to(torch.float64).reshape(nmb, k, k, S, bk, bm)
@@ -985,10 +1006,15 @@ def cast_bias_bf16(y: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
     return y if bias is None else y + bias.to(device=y.device, dtype=torch.bfloat16)
 
 
-def _check_q(x: torch.Tensor, plan: FusedSparseConvQ, chan: torch.Tensor | None) -> None:
+def _check_q(x: torch.Tensor, plan: FusedSparseConvQ, chan: torch.Tensor | None,
+             quantized: bool = False) -> None:
+    """Raise unless float (``quantized``: int8) NHWC ``x``, read through
+    ``chan``, fits ``plan``."""
     if x.dim() != 4:
         raise ValueError(f"x must be (N, H, W, Cin), got shape {tuple(x.shape)}")
-    if x.dtype not in _DTYPE_CODE:
+    if quantized and x.dtype != torch.int8:
+        raise TypeError(f"a quantized x must be int8, got {x.dtype}")
+    if not quantized and x.dtype not in _DTYPE_CODE:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be NHWC-contiguous")
@@ -1039,8 +1065,15 @@ def _check_q(x: torch.Tensor, plan: FusedSparseConvQ, chan: torch.Tensor | None)
 
 B3_TILE_PIXELS = 256  # output pixels a CTA of B3 computes
 # (N, epilogue mode) of the narrow route's instances: f32 y at every width
-# (the zoo, the frontend's stage-3 convs), relu(y + bias) at 128 (conv0)
-B3_NARROW_INSTANCES = frozenset({(16, 0), (32, 0), (64, 0), (128, 0), (128, 2), (128, 3)})
+# (the zoo, the frontend's stage-3 convs); at 128 the int8 stem's relu(y +
+# bias) as f32 or bf16 (2, 3) and its int8 hand-off from either (4, 5)
+B3_NARROW_INSTANCES = frozenset({(16, 0), (32, 0), (64, 0), (128, 0), (128, 2), (128, 3),
+                                 (128, 4), (128, 5)})
+B3_WIDE_MODES = (0, 1)  # the 128-wide kernel's epilogues: f32 y, bf16 + bias
+# the int8 hand-off's scales: where the narrow kernel's division is IEEE's
+# (csrc/sparse_conv_q_narrow.cu div_rn); absmax / 127 for any finite absmax
+# >= 1e-8 lies inside
+HANDOFF_SCALES = (2.0 ** -100, 2.0 ** 100)
 
 
 def b3_narrow_tile(n: int, h: int, w: int) -> tuple[int, int]:
@@ -1060,8 +1093,9 @@ def b3_narrow_tile(n: int, h: int, w: int) -> tuple[int, int]:
 def b3_narrow_instance(kb: int, bn: int, mode: int) -> None:
     """Raise ``ValueError`` unless the narrow route has an instance for K
     = ``kb``, N = ``bn`` and epilogue ``mode`` (0 f32 y, 1 bf16 + bias,
-    2/3 relu(y + bias) as f32/bf16): the combinations its callers launch,
-    ``B3_NARROW_INSTANCES``, at K in (32, 64, 128)."""
+    2/3 relu(y + bias) as f32/bf16, 4/5 its int8 hand-off from f32/bf16):
+    the combinations its callers launch, ``B3_NARROW_INSTANCES``, at K in
+    (32, 64, 128)."""
     if kb not in (32, 64, BK) or (bn, mode) not in B3_NARROW_INSTANCES:
         raise ValueError(f"B3's narrow route has no instance for K={kb}, N={bn}, epilogue "
                          f"mode {mode}; it has K in (32, 64, 128) with (N, mode) in "
@@ -1069,25 +1103,38 @@ def b3_narrow_instance(kb: int, bn: int, mode: int) -> None:
 
 
 def _launch_b3(xq: torch.Tensor, xs: torch.Tensor, plan: FusedSparseConvQ,
-               bias: torch.Tensor | None, bf16_out: bool, relu: bool = False) -> torch.Tensor:
+               bias: torch.Tensor | None, bf16_out: bool, relu: bool = False,
+               next_scale: float | None = None) -> torch.Tensor:
     """One launch of kernel B3 on int8 NHWC ``xq`` and its (N,) scales
     ``xs``, checked by the caller: ``sparse_conv_q_kernel`` for 128-wide
-    packings, ``sparse_conv_q_narrow_kernel`` for narrow ones (which
-    raises, before any launch, on an epilogue it has no instance for:
-    ``b3_narrow_instance``).  Writes the f32 y, or with ``bf16_out`` the
-    bf16 ``bf16(float(bf16(y)) + float(bias))`` (bias bf16); with ``relu``
-    ``relu(y + bias)`` (bias f32) as f32, or rounded to bf16 with
-    ``bf16_out``."""
+    packings (epilogues ``B3_WIDE_MODES``), ``sparse_conv_q_narrow_kernel``
+    for narrow ones; either raises, before any launch, on an epilogue its
+    kernel has no instance for (``b3_narrow_instance``).  Writes the f32 y,
+    or with ``bf16_out`` the bf16 ``bf16(float(bf16(y)) + float(bias))``
+    (bias bf16); with ``relu`` ``relu(y + bias)`` (bias f32) as f32, or
+    rounded to bf16 with ``bf16_out``; with ``relu`` and ``next_scale`` its
+    int8 hand-off at that static scale, from the f32 or the bf16 value."""
     mode = 2 * int(relu) + int(bf16_out)
+    if next_scale is not None:
+        if not relu:
+            raise ValueError("B3's int8 hand-off follows the relu epilogue")
+        mode += 2
     if plan.narrow:
         b3_narrow_instance(plan.bk, plan.bm, mode)
+    elif mode not in B3_WIDE_MODES:
+        raise ValueError(f"B3's 128-wide kernel has epilogue modes {B3_WIDE_MODES}, not "
+                         f"{mode}: the int8 stem's packings run on the narrow route")
     n, h, w, _ = xq.shape
     dev = xq.device
-    out = torch.empty((n, h, w, plan.cout), dtype=torch.bfloat16 if bf16_out else torch.float32,
-                      device=dev)
-    kernel = sparse_conv_q_narrow_kernel if plan.narrow else sparse_conv_q_kernel
+    dtype = (torch.int8 if next_scale is not None else torch.bfloat16 if bf16_out
+             else torch.float32)
+    out = torch.empty((n, h, w, plan.cout), dtype=dtype, device=dev)
     with _on_device(dev):
-        kernel(xq, xs, plan, bias, mode, out, _raw_stream(dev))
+        if plan.narrow:
+            sparse_conv_q_narrow_kernel(xq, xs, plan, bias, mode, out, _raw_stream(dev),
+                                        0.0 if next_scale is None else next_scale)
+        else:
+            sparse_conv_q_kernel(xq, xs, plan, bias, mode, out, _raw_stream(dev))
     return out
 
 
@@ -1116,11 +1163,12 @@ sparse_conv_q_kernel.launches = 0
 
 def sparse_conv_q_narrow_kernel(xq: torch.Tensor, xs: torch.Tensor, plan: FusedSparseConvQ,
                                 bias: torch.Tensor | None, mode: int, out: torch.Tensor,
-                                stream: int) -> None:
+                                stream: int, next_scale: float = 0.0) -> None:
     """One launch of ``csrc/sparse_conv_q_narrow.cu`` (B3 on a narrow
-    packing) into ``out`` with epilogue ``mode``, counted in
+    packing) into ``out`` with epilogue ``mode`` (``next_scale``: the int8
+    hand-off's static scale in modes 4 and 5, else 0), counted in
     ``sparse_conv_q_narrow_kernel.launches`` whichever entry point called
-    it (``quant_conv_apply`` or the int8 stem's conv0); raises if the
+    it (``quant_conv_apply`` or the int8 stem's convs); raises if the
     launch fails."""
     from tpuseg_torch.ops._build import load_library
 
@@ -1130,7 +1178,7 @@ def sparse_conv_q_narrow_kernel(xq: torch.Tensor, xs: torch.Tensor, plan: FusedS
         xq.data_ptr(), plan.vals_k.data_ptr(), plan.steps.data_ptr(), plan.nsteps.data_ptr(),
         plan.w_scale.data_ptr(), xs.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), n, h, w, cin, plan.cout, plan.s, plan.kernel, plan.dilation, plan.bk,
-        plan.bm, *b3_narrow_tile(n, h, w), mode, stream)
+        plan.bm, *b3_narrow_tile(n, h, w), mode, float(next_scale), stream)
     _raise_on(lib, "sparse_conv_q_narrow", err)
     sparse_conv_q_narrow_kernel.launches += 1
 
@@ -1140,14 +1188,14 @@ sparse_conv_q_narrow_kernel.launches = 0
 
 def _b3_cuda(x: torch.Tensor, plan: FusedSparseConvQ, chan: torch.Tensor | None,
              bias: torch.Tensor | None, bf16_out: bool, vecs: torch.Tensor | None = None,
-             relu: bool = False) -> torch.Tensor:
+             relu: bool = False, next_scale: float | None = None) -> torch.Tensor:
     """The CUDA half of every B3 entry point: quantize x through ``chan``,
     or a narrow packing's own padding map (``quantize_activation``'s
     kernels), then one B3 launch."""
     if chan is None and plan.in_chan is not None:
         chan, vecs = plan.in_chan, plan.in_vecs
     xq, xs = quantize_activation(x, plan.x_scale, chan, vecs=vecs)
-    return _launch_b3(xq, xs, plan, bias, bf16_out, relu)
+    return _launch_b3(xq, xs, plan, bias, bf16_out, relu, next_scale)
 
 
 def fused_sparse_conv_apply_q(x: torch.Tensor, plan: FusedSparseConvQ,
@@ -1222,36 +1270,95 @@ def fused_sparse_conv_q_bias_relu_reference(x: torch.Tensor, plan: FusedSparseCo
     """Plain version of the int8 stem's route: B3's f32 y
     (``fused_sparse_conv_q_reference``), then the f32 bias added and
     ``relu_tpuseg`` in f32, then one cast to ``out_dtype``."""
-    y = fused_sparse_conv_q_reference(x, plan)
+    return _bias_relu(fused_sparse_conv_q_reference(x, plan), bias, out_dtype)
+
+
+def _bias_relu(y: torch.Tensor, bias: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """The stem route's epilogue after B3's f32 y, in plain PyTorch."""
     return relu_tpuseg(y + bias.to(device=y.device, dtype=torch.float32)).to(out_dtype)
 
 
+def fused_sparse_conv_q_bias_relu_int8_in_reference(xq: torch.Tensor, xs: torch.Tensor,
+                                                    plan: FusedSparseConvQ, bias: torch.Tensor,
+                                                    out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the stem route on a quantized x (the previous
+    conv's hand-off): int8 NHWC ``xq`` with its (N,) f32 scales ``xs``
+    through ``fused_sparse_conv_q_int8_reference``, then the bias, relu and
+    cast of ``fused_sparse_conv_q_bias_relu_reference``."""
+    return _bias_relu(fused_sparse_conv_q_int8_reference(xq, xs, plan), bias, out_dtype)
+
+
+def fused_sparse_conv_q_bias_relu_int8_out_reference(
+        x: torch.Tensor, plan: FusedSparseConvQ, bias: torch.Tensor, out_dtype: torch.dtype,
+        next_scale: float, *, xs: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of the stem route's int8 hand-off: the route's output
+    in ``out_dtype`` (on float x, or with ``xs`` on an int8 x), then the
+    next conv's quantization of it at the static scale ``next_scale``
+    (``quantize_activation_reference``: ``tpuseg``'s division of the
+    dtype-rounded output by the scale, round half to even, clip).  int8 out."""
+    y = (fused_sparse_conv_q_bias_relu_reference(x, plan, bias, out_dtype) if xs is None
+         else fused_sparse_conv_q_bias_relu_int8_in_reference(x, xs, plan, bias, out_dtype))
+    return quantize_activation_reference(y, next_scale)[0]
+
+
 def fused_sparse_conv_q_bias_relu(x: torch.Tensor, plan: FusedSparseConvQ, bias: torch.Tensor,
-                                  out_dtype: torch.dtype) -> torch.Tensor:
+                                  out_dtype: torch.dtype, *, xs: torch.Tensor | None = None,
+                                  next_scale: float | None = None) -> torch.Tensor:
     """The int8 stem's conv (``tpuseg/ops/polyphase.py:349-359``):
     ``relu(float(acc) * (x_scale * w_scale) + bias)`` in f32, each step
     rounded on its own, cast to ``out_dtype`` (f32 or bf16): (N, H, W, Cout).
     ``bias`` is taken as f32 (a bf16 bias converts exactly).
 
-    On a CUDA tensor the quantize kernels and one B3 launch write it (B3's
-    epilogue modes 2 and 3; conv0's narrow packing on the narrow route),
-    counted in ``fused_sparse_conv_apply_q.launches`` with B3's other routes
-    and in ``fused_sparse_conv_q_bias_relu.launches``; on a CPU tensor it
-    runs ``fused_sparse_conv_q_bias_relu_reference``."""
-    _check_q(x, plan, None)
+    ``x`` is float NHWC, quantized at ``plan.x_scale`` (None: per frame);
+    or, with ``xs`` (its (N,) f32 scales), the int8 x a previous conv
+    handed on, cin channels wide.  With ``next_scale`` (the next stem
+    conv's static scale, a Python float, rounded to f32 as ``tpuseg``'s
+    ``jnp.float32`` does) the result is that conv's int8 x instead:
+    ``clip(round(float(out_dtype(v)) / next_scale), -127, 127)``.
+
+    On a CUDA tensor the quantize kernels (for float x) and one launch of
+    B3's narrow kernel write it (epilogue modes 2 and 3, or the hand-off's
+    4 and 5), counted in ``fused_sparse_conv_apply_q.launches`` with B3's
+    other routes, in ``fused_sparse_conv_q_bias_relu.launches``, and the
+    hand-offs in ``fused_sparse_conv_q_bias_relu.handoff_launches`` too; on
+    a CPU tensor it runs the plain version of its case
+    (``fused_sparse_conv_q_bias_relu_reference``, ``..._int8_in_reference``
+    or ``..._int8_out_reference``)."""
+    quantized = xs is not None
+    _check_q(x, plan, None, quantized)
     if bias.dim() != 1 or bias.shape[0] != plan.cout:
         raise ValueError(f"bias must be ({plan.cout},), got {tuple(bias.shape)}")
     if out_dtype not in _DTYPE_CODE:
         raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if quantized and (xs.dtype != torch.float32 or tuple(xs.shape) != (x.shape[0],)
+                      or xs.device != x.device or not xs.is_contiguous()):
+        raise ValueError(f"xs must be x's contiguous f32 scales ({x.shape[0]},) on its device")
+    if quantized and plan.in_chan is not None:
+        raise ValueError("an int8 x is cin channels wide: a packing with a padding map "
+                         "quantizes its own x")
+    if next_scale is not None and not HANDOFF_SCALES[0] <= next_scale <= HANDOFF_SCALES[1]:
+        raise ValueError(f"the hand-off takes a static scale in [2**-100, 2**100] (any the "
+                         f"stem calibrates), got {next_scale}")
     if x.device.type == "cpu":
+        if next_scale is not None:
+            return fused_sparse_conv_q_bias_relu_int8_out_reference(x, plan, bias, out_dtype,
+                                                                    next_scale, xs=xs)
+        if quantized:
+            return fused_sparse_conv_q_bias_relu_int8_in_reference(x, xs, plan, bias, out_dtype)
         return fused_sparse_conv_q_bias_relu_reference(x, plan, bias, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     b = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    out = _b3_cuda(x, plan, None, b, out_dtype == torch.bfloat16, relu=True)
+    bf16_out = out_dtype == torch.bfloat16
+    if quantized:
+        out = _launch_b3(x, xs, plan, b, bf16_out, True, next_scale)
+    else:
+        out = _b3_cuda(x, plan, None, b, bf16_out, relu=True, next_scale=next_scale)
     fused_sparse_conv_apply_q.launches += 1
     fused_sparse_conv_q_bias_relu.launches += 1
+    fused_sparse_conv_q_bias_relu.handoff_launches += next_scale is not None
     return out
 
 
 fused_sparse_conv_q_bias_relu.launches = 0
+fused_sparse_conv_q_bias_relu.handoff_launches = 0
