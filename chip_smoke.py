@@ -138,13 +138,17 @@ Phases (any failed check raises and the exit code is non-zero):
      frontend bf16 vs int8 stem in turns and one profiled call of each;
  22. K3 (``frame_deltas``) bit-equal to its plain version on the 32 shapes
      frames and 32 random full-size frames, timed against it and tpuseg's
-     expression in eager PyTorch; K4 (``budget_select``) equal to its plain
-     version under budget pressure, from n_keyed = 0, on ties;
+     expression in eager PyTorch; the budgeted selection's one launch
+     (``frame_deltas_budget``, K4's scan in K3's last block) equal to K3's
+     and K4's plain versions on both, one launch a call, and K4's time as
+     that launch's less K3's alone, in turns; K4 alone (``budget_select``)
+     equal to its plain version under budget pressure, from n_keyed = 0, on
+     ties, at budget 1 and = batch;
  23. bench.py's sparse_int8_budget8 (block128reg_87.50, gathered, int8
      calibrated, batch 32, K = 8, 64 shapes frames of seed 1, threshold
      ``drift_threshold``): run() with exact counts (a batch: B3 13, B1 1,
-     K3 1, K4 1, B2 0), the promoted count equal to the CPU plain selection,
-     ``benchmark_adaptive_device_fps``;
+     the K3 + K4 launch 1, K3 and K4 alone 0, B2 0), the promoted count
+     equal to the CPU plain selection, ``benchmark_adaptive_device_fps``;
  24. dense bf16 with temporal_interval=4: B1 once a batch, each frame's ids
      its keyframe's, the device rate at batch 32;
  25. K5 (``keyframe_select``), K6 (``estimate_block_shifts``), K7
@@ -162,7 +166,7 @@ Phases (any failed check raises and the exit code is non-zero):
      selection, ``benchmark_adaptive_device_fps``;
  28. the sequential adaptive mode, dense bf16, batch 8: promotions equal
      K5's plain version on the CPU, one forward a batch of exactly the
-     promoted frames, K5 batch + 1 launches a batch, the adaptive rate;
+     promoted frames, K5 one launch a batch, the adaptive rate;
  29. yuv420 with a 512x1024 -> 1024x2048 device resize and 5-bit ids at
      batch 8: K8 and B1 once a batch, ids equal the unpacked run's,
      device color and overlay equal their reconstruction, bytes up and down
@@ -1915,11 +1919,16 @@ def _int8_stem_full(torch, np, dev, params, state, spec, frames, no_stem_ids, be
 def _temporal_kernels(torch, np, dev, frames, smi) -> dict:
     """Phase 22: K3 (``frame_deltas``) bit-equal to its plain version on the
     32 shapes frames and on 32 random 1024x2048 frames, then timed against
-    it and against tpuseg's expression in eager PyTorch; K4
-    (``budget_select``) equal to its plain version on random deltas under
-    budget pressure, from n_keyed = 0, and on ties with the threshold."""
+    it and against tpuseg's expression in eager PyTorch; the budgeted
+    mode's one launch (``frame_deltas_budget``: K3 with K4's scan in its
+    last block) equal to K3's and K4's plain versions in turn on the same
+    frames, one launch a call; K4 alone (``budget_select``) equal to its
+    plain version on crafted deltas: budget pressure, n_keyed = 0, ties
+    with the threshold, budget 1 and budget = batch.  K4's time is the fused
+    entry's less K3's alone, the two timed in turns."""
     from tpuseg_torch.ops.temporal import (
-        budget_select, budget_select_reference, frame_deltas, frame_deltas_reference)
+        budget_select, budget_select_reference, frame_deltas, frame_deltas_budget,
+        frame_deltas_budget_reference, frame_deltas_reference)
 
     h, w = FULL
     gen = torch.Generator(device=dev)
@@ -1937,6 +1946,27 @@ def _temporal_kernels(torch, np, dev, frames, smi) -> dict:
               d_first=got[:3].tolist())
         if not same:
             raise AssertionError(f"K3 differs from its plain version on {label} frames")
+    # the fused entry: (frames, carried drift, count, threshold, K)
+    fused_cases = {
+        "shapes, fresh carry": (batches["shapes"], 0.0, 0, 2.5, 8),
+        "shapes, budget pressure": (batches["shapes"], 0.7, 3, 0.5, 4),
+        "random, carried": (batches["random"], 1.5, 5, 120.0, 8),
+        "random, budget = batch": (batches["random"], 0.0, 0, 80.0, 32),
+    }
+    for label, (fb, acc, n, thresh, k) in fused_cases.items():
+        a = torch.tensor([acc], dtype=torch.float32, device=dev)
+        nk = torch.tensor([n], dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        before = frame_deltas_budget.launches
+        got = frame_deltas_budget(fb, prev, a, nk, thresh, k)
+        launched = frame_deltas_budget.launches - before
+        want = frame_deltas_budget_reference(fb, prev, a, nk, thresh, k)
+        same = all(torch.equal(g, r) for g, r in zip(got, want))
+        _emit(phase="k3_k4_fused_vs_plain", case=label, budget=k, thresh=thresh,
+              promoted=int(want[1].sum()), equal=same, launches=launched)
+        if not same or launched != 1:
+            raise AssertionError(f"K3 + K4 in one launch differs from the plain versions "
+                                 f"({label}) or launched {launched} times")
     fb = batches["random"]
 
     def eager():  # tpuseg's expression (pipeline.py:670-678) in eager PyTorch
@@ -1944,16 +1974,20 @@ def _temporal_kernels(torch, np, dev, frames, smi) -> dict:
         return torch.mean(torch.abs(fb.to(torch.int16) - prevs.to(torch.int16)).float(),
                           dim=(1, 2))
 
+    a = torch.zeros((1,), device=dev)
+    nk = torch.zeros((1,), dtype=torch.int32, device=dev)
     turns = _time_turns(torch, {"kernel": lambda: frame_deltas(fb, prev),
+                                "fused": lambda: frame_deltas_budget(fb, prev, a, nk, 2.5, 8),
                                 "plain": lambda: frame_deltas_reference(fb, prev),
                                 "library": eager},
-                        {"kernel": 20, "plain": 5, "library": 5})
+                        {"kernel": 50, "fused": 50, "plain": 5, "library": 5})
     # bytes: every frame and the carried one read once, d written; one
     # |difference| an element at the CUDA cores' rate
     k3_bound = _bound((fb.shape[0] + 1) * prev.numel() + fb.shape[0] * 4, fb.numel(), "f32")
     k3 = {"ms": min(turns["kernel"]), "plain_ms": min(turns["plain"]),
           "library_ms": min(turns["library"]), "bound_ms": k3_bound[0], "bound_by": k3_bound[1]}
-    _emit(phase="k3_time", shape=list(fb.shape), turns=turns, **k3, card=smi)
+    _emit(phase="k3_time", shape=list(fb.shape), turns=turns, **k3,
+          fused_ms=min(turns["fused"]), card=smi)
     rng = np.random.default_rng(22)
     cases = [  # (label, d, acc0, n_keyed, thresh, K)
         ("budget pressure", rng.random(32) * 6, 0.7, 3, 2.5, 8),
@@ -1975,14 +2009,22 @@ def _temporal_kernels(torch, np, dev, frames, smi) -> dict:
     d = torch.from_numpy((rng.random(32) * 6).astype(np.float32)).to(dev)
     a = torch.zeros((1,), device=dev)
     nk = torch.zeros((1,), dtype=torch.int32, device=dev)
-    turns = _time_turns(torch, {"kernel": lambda: budget_select(d, a, nk, 2.5, 8),
-                                "plain": lambda: budget_select_reference(d, a, nk, 2.5, 8)},
-                        {"kernel": 50, "plain": 10})
+    k4_turns = _time_turns(torch, {"alone": lambda: budget_select(d, a, nk, 2.5, 8),
+                                   "plain": lambda: budget_select_reference(d, a, nk, 2.5, 8)},
+                           {"alone": 50, "plain": 10})
     # bytes: d, the carry and the outputs (flags, fwd_idx, keyslot, carry)
     k4_bound = _bound(32 * 4 + 8 + 32 + 8 * 4 + 32 * 4 + 8, 32 * 4, "f32")
-    k4 = {"ms": min(turns["kernel"]), "plain_ms": min(turns["plain"]), "library_ms": None,
-          "bound_ms": k4_bound[0], "bound_by": k4_bound[1]}
-    _emit(phase="k4_time", batch=32, budget=8, turns=turns, **k4, card=smi)
+    # K4 runs in K3's last block: its time is what that launch adds to K3's
+    k4 = {"ms": min(turns["fused"]) - min(turns["kernel"]), "plain_ms": min(k4_turns["plain"]),
+          "library_ms": None, "bound_ms": k4_bound[0], "bound_by": k4_bound[1]}
+    device = {name: _profile_kernels(torch, lambda fn=fn: [fn() for _ in range(10)])
+              for name, fn in (("k3", lambda: frame_deltas(fb, prev)),
+                               ("fused", lambda: frame_deltas_budget(fb, prev, a, nk, 2.5, 8)))}
+    _emit(phase="k4_time", batch=32, budget=8, fused_turns=turns["fused"],
+          k3_turns=turns["kernel"], alone_turns=k4_turns["alone"],
+          alone_ms=min(k4_turns["alone"]), **k4,
+          device_ms={name: p["total_ms"] / 10 for name, p in device.items()},
+          device_kernels={name: p["top"] for name, p in device.items()}, card=smi)
     del batches, fb
     torch.cuda.empty_cache()
     return {"frame_deltas": k3, "budget_select": k4}
@@ -2027,13 +2069,14 @@ def _budget_full(torch, np, dev, masked, state, spec, gplans, calib, inputs, smi
     under the gathered lowering, int8 calibrated on 8 frames, batch 32,
     K = 8, threshold ``drift_threshold`` of 64 shapes frames of seed 1;
     ``inputs`` from ``_budget_inputs``): run() with every count zeroed just
-    before and read just after (per batch B3 13, B1 1, K3 1, K4 1, B2 0), its
-    promoted count equal to the CPU plain selection on the same frames, then
-    ``benchmark_adaptive_device_fps`` on them."""
+    before and read just after (per batch B3 13, B1 1, the K3 + K4 launch 1,
+    K3 and K4 alone 0, B2 0), its promoted count equal to the CPU plain
+    selection on the same frames, then ``benchmark_adaptive_device_fps`` on
+    them."""
     from tpuseg_torch.ops.sparse_conv import (
         fused_sparse_conv_apply, fused_sparse_conv_apply_q, quantize_activation,
         sparse_conv_q_kernel, sparse_conv_q_narrow_kernel)
-    from tpuseg_torch.ops.temporal import budget_select, frame_deltas
+    from tpuseg_torch.ops.temporal import budget_select, frame_deltas, frame_deltas_budget
     from tpuseg_torch.ops.upsample import upsample_argmax
     from tpuseg_torch.video.pipeline import VideoSegmenter
 
@@ -2043,7 +2086,8 @@ def _budget_full(torch, np, dev, masked, state, spec, gplans, calib, inputs, smi
                          batch=BUDGET_BATCH, exec_plans=gplans, quantize=True, calib_frames=calib,
                          temporal_thresh=thresh, temporal_budget=BUDGET_K)
     counters = (fused_sparse_conv_apply_q, fused_sparse_conv_apply, upsample_argmax,
-                frame_deltas, budget_select, sparse_conv_q_kernel, sparse_conv_q_narrow_kernel)
+                frame_deltas, budget_select, frame_deltas_budget, sparse_conv_q_kernel,
+                sparse_conv_q_narrow_kernel)
     torch.cuda.synchronize()
     for f in counters:
         f.launches = 0
@@ -2058,7 +2102,7 @@ def _budget_full(torch, np, dev, masked, state, spec, gplans, calib, inputs, smi
             "sparse_conv_q_kernel": B3_PER_FORWARD["gathered"] * forwards,
             "sparse_conv_q_narrow_kernel": 0,
             "fused_sparse_conv_apply": 0, "upsample_argmax": forwards,
-            "frame_deltas": forwards, "budget_select": forwards,
+            "frame_deltas": 0, "budget_select": 0, "frame_deltas_budget": forwards,
             "quantize_activation": B3_PER_FORWARD["gathered"] * forwards, "absmax": 0}
     out = res["ids"]
     assert out.shape == (len(frames),) + FULL and out.dtype == np.uint8, (out.shape, out.dtype)
@@ -2144,15 +2188,21 @@ def _raises_on_strided(fn) -> bool:
 def _new_kernels(torch, np, dev, frames, smi) -> dict:
     """Phase 25: K5 (``keyframe_select``), K6 (``estimate_block_shifts``),
     K7 (``warp_ids``) and K8 (``i420_to_rgb_flat``) bit-equal to their plain
-    versions on the card: K5 from n_keyed = 0, on a scene cut, on a diff
-    exactly at the threshold and on the 32 shapes frames; K6 on integer luma
+    versions on the card: K5 (every output) from n_keyed = 0, on a scene
+    cut, on a diff exactly at the threshold, on the 32 shapes frames (four
+    chunks), on 17 of them (a ragged last chunk), on promotions at a chunk's
+    last and first frames and on frames of 63x97 bytes (not a multiple of
+    16: the byte path), one launch a call; K6 on integer luma
     with a known translation and on the serving luma (the shapes frames'
     pooled luma against their interval-4 keyframes'); K7 on the seam and
     range cases of tests/test_video.py:460 and on (32, 1024, 2048) ids with
     shifts in [-6, 6]; K8 on 0/255 planes, random planes and the shapes
     frames as I420.  A strided input must raise.  Then each in turns against
     its plain version (and K5 against tpuseg's f32-mean scan in eager
-    PyTorch) at its serving shape, with its bound."""
+    PyTorch) at its serving shape, with its bound; K5 as the sequential mode
+    serves it, under inference mode, back to back and with its promoted
+    count read on the host after each call, its device time from
+    ``torch.profiler``, and back to back outside inference mode."""
     from tpuseg_torch.ops.temporal import keyframe_select, keyframe_select_reference
     from tpuseg_torch.video.autotune import drift_threshold
     from tpuseg_torch.video.flow import (
@@ -2174,6 +2224,7 @@ def _new_kernels(torch, np, dev, frames, smi) -> dict:
         return torch.tensor([n], dtype=torch.int32, device=dev)
 
     a, b = u8(64, 96), u8(64, 96)
+    odd_a, odd_b = u8(63, 97), u8(63, 97)
     k5_cases = {  # label -> (frames, carried, n_keyed, thresh)
         "n_keyed = 0, static": (torch.stack([a, a, a]), a, 0, 5.0),
         "scene cut": (torch.stack([a, a, b, b]), a, 1, 5.0),
@@ -2181,16 +2232,27 @@ def _new_kernels(torch, np, dev, frames, smi) -> dict:
                           torch.full_like(a, 10), 1, 2.0),
         "shapes 32 frames": (fb, fb[0], 0, thresh),
         "shapes, carried": (fb[8:16], fb[3], 2, thresh),
+        "shapes 17 frames, carried": (fb[:17], fb[20], 1, thresh),
+        "cuts on a chunk's last frames": (torch.stack([a] * 7 + [b] * 8 + [a] * 2), a, 1, 5.0),
+        "cuts on a chunk's first frames": (torch.stack([a] * 8 + [b] * 8 + [a]), a, 1, 5.0),
+        "63x97 bytes, 17 frames": (torch.stack([odd_a] * 5 + [odd_b] * 7 + [odd_a] * 5),
+                                   odd_b, 0, 5.0),
     }
     for label, (x, carried, n, t) in k5_cases.items():
+        torch.cuda.synchronize()
+        before = keyframe_select.launches
         got = keyframe_select(x, carried, n_keyed(n), t)
+        launched = keyframe_select.launches - before
         want = keyframe_select_reference(x, carried, n_keyed(n), t)
         count = int(want[4])
         same = (_equal_outputs(torch, got[:2] + got[3:], want[:2] + want[3:])
                 and torch.equal(got[2][:count], want[2][:count]))
-        _emit(phase="k5_vs_plain", case=label, frames=x.shape[0], promoted=count, equal=same)
-        if not same:
-            raise AssertionError(f"K5 differs from its plain version ({label})")
+        _emit(phase="k5_vs_plain", case=label, frames=x.shape[0], frame_bytes=carried.numel(),
+              promoted=count, promoted_at=want[2][:count].tolist(), equal=same,
+              launches=launched)
+        if not same or launched != 1:
+            raise AssertionError(f"K5 differs from its plain version ({label}) or launched "
+                                 f"{launched} times")
     # K6: tests/test_video.py:316's translation at block 8, and the serving luma
     img = torch.from_numpy(rng.integers(0, 256, size=(2, 32, 32)).astype(np.float32)).to(dev)
     luma = pooled_luma(fb)
@@ -2257,8 +2319,9 @@ def _new_kernels(torch, np, dev, frames, smi) -> dict:
             raise AssertionError(f"{name} took a strided input without raising")
     _emit(phase="strided_inputs_raise", kernels=list(strided))
 
-    # times at the serving shapes, in turns, with each bound
-    fb8, kf = fb[:SEQ_BATCH], fb[SEQ_BATCH]
+    # times at the serving shapes, in turns, with each bound; K5's count
+    # lies on the device already, as in the sequential mode's carry
+    fb8, kf, nk0 = fb[:SEQ_BATCH], fb[SEQ_BATCH], n_keyed(0)
 
     def k5_eager():  # tpuseg's scan (pipeline.py:614-634) in eager PyTorch
         key, n = kf, 0
@@ -2274,8 +2337,8 @@ def _new_kernels(torch, np, dev, frames, smi) -> dict:
     times = {}
     specs = {  # name -> (kernel, plain, library or None, iters, bytes, f32 operations)
         "keyframe_select": (
-            lambda: keyframe_select(fb8, kf, n_keyed(0), thresh),
-            lambda: keyframe_select_reference(fb8, kf, n_keyed(0), thresh), k5_eager, (10, 2),
+            lambda: keyframe_select(fb8, kf, nk0, thresh),
+            lambda: keyframe_select_reference(fb8, kf, nk0, thresh), k5_eager, (50, 2),
             (SEQ_BATCH + 1) * kf.numel() + kf.numel() + SEQ_BATCH * 13, SEQ_BATCH * kf.numel()),
         "estimate_block_shifts": (
             lambda: estimate_block_shifts(ks, cs), lambda: estimate_block_shifts_reference(ks, cs),
@@ -2293,14 +2356,31 @@ def _new_kernels(torch, np, dev, frames, smi) -> dict:
         iters = {"kernel": it_k, "plain": it_p}
         if library is not None:
             fns["library"], iters["library"] = library, it_p
-        turns = _time_turns(torch, fns, iters)
+        extra = {}
+        if name == "keyframe_select":
+            # as _sequential_step serves it: under inference mode, and with
+            # the promoted count read after each call; and its device time
+            fns["with_count_read"] = lambda: int(keyframe_select(fb8, kf, nk0, thresh)[4])
+            iters["with_count_read"] = it_k
+            extra["outside_inference_mode"] = _time_turns(torch, {"kernel": kern}, {"kernel": it_k})
+            for _ in range(3):  # one profiler run here once recorded no device activity
+                prof = _profile_kernels(torch, lambda: [kern() for _ in range(10)])
+                if prof["top"]:
+                    break
+            extra["device_ms"] = prof["total_ms"] / 10 if prof["top"] else None
+            extra["device_kernels"] = prof["top"]
+            with torch.inference_mode():
+                turns = _time_turns(torch, fns, iters)
+            extra["with_count_read_ms"] = min(turns["with_count_read"])
+        else:
+            turns = _time_turns(torch, fns, iters)
         bound = _bound(nbytes, ops, "f32")
         row = {"ms": min(turns["kernel"]), "plain_ms": min(turns["plain"]),
                "library_ms": min(turns["library"]) if library is not None else None,
                "bound_ms": bound[0], "bound_by": bound[1]}
         times[name] = row
         _emit(phase="new_kernel_time", kernel=name, id=FLOW_ENTRIES[name][0], turns=turns, **row,
-              card=smi)
+              **extra, card=smi)
     del fb, ids_full, luma, ks, i420
     torch.cuda.empty_cache()
     return times
@@ -2355,11 +2435,11 @@ def _interval_warp_full(torch, np, dev, params, state, spec, frames, smi) -> dic
 def _budget_warp_full(torch, np, dev, masked, state, spec, gplans, calib, inputs, smi) -> dict:
     """Phase 27: phase 23's sparse_int8_budget8 with temporal_nearest and
     temporal_warp: run() with counts zeroed just before and read just after
-    (a batch: B3 13, B1 1, K3 1, K4 1, K6 1, K7 1), the promotions equal to
-    the CPU plain selection (nearest and warp leave the choice as it is),
-    ``benchmark_adaptive_device_fps``."""
+    (a batch: B3 13, B1 1, the K3 + K4 launch 1, K6 1, K7 1; K3 and K4
+    alone 0), the promotions equal to the CPU plain selection (nearest and
+    warp leave the choice as it is), ``benchmark_adaptive_device_fps``."""
     from tpuseg_torch.ops.sparse_conv import fused_sparse_conv_apply_q
-    from tpuseg_torch.ops.temporal import budget_select, frame_deltas
+    from tpuseg_torch.ops.temporal import budget_select, frame_deltas, frame_deltas_budget
     from tpuseg_torch.ops.upsample import upsample_argmax
     from tpuseg_torch.video.flow import estimate_block_shifts, warp_ids
     from tpuseg_torch.video.pipeline import VideoSegmenter
@@ -2370,7 +2450,7 @@ def _budget_warp_full(torch, np, dev, masked, state, spec, gplans, calib, inputs
                          temporal_thresh=inputs["thresh"], temporal_budget=BUDGET_K,
                          temporal_nearest=True, temporal_warp=True)
     counters = (fused_sparse_conv_apply_q, upsample_argmax, frame_deltas, budget_select,
-                estimate_block_shifts, warp_ids)
+                frame_deltas_budget, estimate_block_shifts, warp_ids)
     _zero_counts(torch, *counters)
     res = seg.run(frames, need_color=False)
     torch.cuda.synchronize()
@@ -2378,6 +2458,7 @@ def _budget_warp_full(torch, np, dev, masked, state, spec, gplans, calib, inputs
     forwards = 1 + len(frames) // BUDGET_BATCH
     want = {f.__name__: forwards for f in counters}
     want["fused_sparse_conv_apply_q"] = B3_PER_FORWARD["gathered"] * forwards
+    want["frame_deltas"] = want["budget_select"] = 0
     assert res["ids"].shape == (len(frames),) + FULL
     dev_res = seg.benchmark_adaptive_device_fps(frames, reps=2)
     del seg
@@ -2399,8 +2480,8 @@ def _sequential_full(torch, np, dev, params, state, spec, frames, smi) -> dict:
     shapes frames, threshold ``drift_threshold`` of the first 8: the
     promotions equal K5's plain version on the CPU (chained over the
     batches from a fresh carry); each batch one forward of exactly its
-    promoted frames (recorded), K5 launched batch + 1 times a batch and B1
-    once a batch that promotes; the adaptive device rate."""
+    promoted frames (recorded), K5 launched once a batch and B1 once a
+    batch that promotes; the adaptive device rate."""
     from tpuseg_torch.ops.temporal import keyframe_select, keyframe_select_reference
     from tpuseg_torch.ops.upsample import upsample_argmax
     from tpuseg_torch.video.autotune import drift_threshold
@@ -2426,7 +2507,7 @@ def _sequential_full(torch, np, dev, params, state, spec, frames, smi) -> dict:
     seg.ids_for = orig
     batches = len(frames) // SEQ_BATCH
     run_sizes = [c for c in [cpu_counts[0]] + cpu_counts if c]  # the untimed first call + batches
-    want = {"keyframe_select": (batches + 1) * (SEQ_BATCH + 1), "upsample_argmax": len(run_sizes)}
+    want = {"keyframe_select": batches + 1, "upsample_argmax": len(run_sizes)}
     dev_res = seg.benchmark_adaptive_device_fps(frames, reps=2)
     del seg
     torch.cuda.empty_cache()
@@ -3089,12 +3170,14 @@ PRETRAINED_SIZE = (128, 256)
 def _counters():
     """{name: wrapper} of every launch counter on the served and trained
     paths (B1, B2 served and in training, B3's entry points and its two
-    kernels, the stem route, the quantize pass, K3-K8)."""
+    kernels, the stem route, the quantize pass, K3-K8 and the K3 + K4
+    launch)."""
     from tpuseg_torch.ops import sparse_train as tst
     from tpuseg_torch.ops.sparse_conv import (
         fused_sparse_conv_apply, fused_sparse_conv_apply_q, fused_sparse_conv_q_bias_relu,
         quantize_activation, sparse_conv_q_kernel, sparse_conv_q_narrow_kernel)
-    from tpuseg_torch.ops.temporal import budget_select, frame_deltas, keyframe_select
+    from tpuseg_torch.ops.temporal import (
+        budget_select, frame_deltas, frame_deltas_budget, keyframe_select)
     from tpuseg_torch.ops.upsample import upsample_argmax
     from tpuseg_torch.video.flow import estimate_block_shifts, warp_ids
     from tpuseg_torch.video.yuv import i420_to_rgb_flat
@@ -3102,8 +3185,8 @@ def _counters():
     fns = (upsample_argmax, fused_sparse_conv_apply, tst.sparse_conv_train_forward,
            tst.sparse_conv_train_dgrad, fused_sparse_conv_apply_q, fused_sparse_conv_q_bias_relu,
            sparse_conv_q_kernel, sparse_conv_q_narrow_kernel,
-           quantize_activation, frame_deltas, budget_select, keyframe_select,
-           estimate_block_shifts, warp_ids, i420_to_rgb_flat)
+           quantize_activation, frame_deltas, budget_select, frame_deltas_budget,
+           keyframe_select, estimate_block_shifts, warp_ids, i420_to_rgb_flat)
     return {f.__name__: f for f in fns}
 
 
@@ -3130,9 +3213,10 @@ def _trained_fidelity(torch, out_dir, smi) -> dict:
     seconds.  Gates: the exact rows agree with themselves, every GT mIoU in
     [0, 100], the train stage's val mIoU >= FIDELITY_TRAIN_MIN, the int8 rows
     >= INT8_TRAINED_MIN against their exact baseline, the kernels
-    launched where their modes ran, and each B3 launch on one of its two
-    kernels (the narrow one for the stem's convs alone, the calibrated stem
-    handing int8 on from two of its three)."""
+    launched where their modes ran (the budgeted modes' selection in one
+    launch, K4 never alone), and each B3 launch on one of its two kernels
+    (the narrow one for the stem's convs alone, the calibrated stem handing
+    int8 on from two of its three)."""
     from tpuseg_torch.tools import trained_fidelity
 
     counters = _counters()
@@ -3173,14 +3257,17 @@ def _trained_fidelity(torch, out_dir, smi) -> dict:
     need = {"compress": ("sparse_conv_train_forward", "sparse_conv_train_dgrad"),
             "fidelity": ("upsample_argmax", "fused_sparse_conv_apply_q",
                          "fused_sparse_conv_q_bias_relu", "quantize_activation",
-                         "frame_deltas", "budget_select", "estimate_block_shifts", "warp_ids",
-                         "i420_to_rgb_flat"),
-            "compose": ("upsample_argmax", "fused_sparse_conv_apply_q", "frame_deltas",
-                        "budget_select"),
-            "budget_curve": ("upsample_argmax", "frame_deltas", "budget_select")}
+                         "frame_deltas", "frame_deltas_budget", "estimate_block_shifts",
+                         "warp_ids", "i420_to_rgb_flat"),
+            "compose": ("upsample_argmax", "fused_sparse_conv_apply_q", "frame_deltas_budget"),
+            "budget_curve": ("upsample_argmax", "frame_deltas_budget")}
     missing = {st: [k for k in ks if not launches[st][k] > 0] for st, ks in need.items()}
     if any(missing.values()):
         raise AssertionError(f"kernels not launched in their stages: {missing}")
+    # the budgeted modes select in one launch: K4 never runs alone
+    if any(c["budget_select"] for c in launches.values()):
+        raise AssertionError(f"K4 launched alone in a stage: "
+                             f"{ {st: c['budget_select'] for st, c in launches.items()} }")
     # each B3 launch on one of its two kernels; the narrow one only for the
     # stem's convs, all three; every stem forward calibrated (the served
     # int8_stem_calib mode, and calibrate_scales through it), so conv0 and
@@ -5147,13 +5234,16 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
          for name, (_, _, line) in B7_ENTRIES.items()] + [
         timed("sparse_conv_q_stem", "tpuseg_torch/csrc/sparse_conv_q_narrow.cu",
               "tpuseg/ops/polyphase.py:349-359", stem_launches, stem_conv1),
+        # K3 alone (interval nearest reuse), and the budgeted modes' one
+        # launch of K3 with K4's scan in its last block, in K4's row
         timed("frame_deltas", "tpuseg_torch/csrc/temporal.cu", "tpuseg/video/pipeline.py:670-678",
-              budget["launches"]["frame_deltas"] + fid["frame_deltas"],
+              interval_warp["launches"]["frame_deltas"] + fid["frame_deltas"],
               temporal_k["frame_deltas"]),
         timed("budget_select", "tpuseg_torch/csrc/temporal.cu",
               "tpuseg/video/pipeline.py:680-704",
-              budget["launches"]["budget_select"] + fid["budget_select"],
-              temporal_k["budget_select"]),
+              budget["launches"]["frame_deltas_budget"]
+              + budget_warp["launches"]["frame_deltas_budget"] + fid["frame_deltas_budget"]
+              + fid["budget_select"], temporal_k["budget_select"]),
     ] + [timed(name, source, replaces, launched + fid[name], new_k[name])
          for name, launched in (
              ("keyframe_select", sequential["launches"]["keyframe_select"]),

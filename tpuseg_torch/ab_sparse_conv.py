@@ -5,7 +5,8 @@ and neighbours.
     python -m tpuseg_torch.ab_sparse_conv [--old OLD_sparse_conv.cu]
         [--old-q OLD_sparse_conv_q.cu] [--old-quantize OLD_quantize.cu]
         [--old-stem OLD_sparse_conv_q.cu OLD_sparse_conv_q_narrow.cu]
-        [--old-bsr OLD_bsr_matmul.cu] [--old-up OLD_upsample_argmax.cu] [--skip-fps]
+        [--old-bsr OLD_bsr_matmul.cu] [--old-up OLD_upsample_argmax.cu]
+        [--old-temporal OLD_temporal.cu] [--skip-fps]
 
 Each option is a copy of that source from another commit, e.g.
 ``git show <commit>:tpuseg_torch/csrc/sparse_conv_q.cu > _scratch/old_q.cu``
@@ -68,6 +69,18 @@ batch-32 shapes of ``chip_smoke.py``:
   ``--skip-fps``, the device fps at batch 32 of ``int8_stem`` (dense int8
   calibrated, with the int8 stem) and of ``sparse_int8`` under the Pallas
   lowering with each build.
+- ``--old-temporal`` (K3, K4 and K5, ``temporal.cu``, from a build before
+  K5's one launch; ``old_temporal``: the parent's wrappers, K3 and K4 two
+  launches, K5 a launch a frame and a copy, after three fills): K5 at
+  ``(8, 1024, 6144)``, back to back and with its promoted count read after
+  each call as the sequential mode serves it, and the budgeted selection
+  at ``(32, 1024, 6144)`` (the old build's K3 and K4 against the new one
+  launch), the two builds' outputs compared; unless ``--skip-fps``, the
+  sequential mode's adaptive device fps (dense bf16, batch 8, the 32
+  shapes frames of seed 0, ``drift_threshold`` of the first 8) and
+  ``sparse_int8_budget8``'s (block128reg_87.50 gathered, int8 calibrated
+  on 8 frames, batch 32, K = 8, 64 shapes frames of seed 1) through
+  ``benchmark_adaptive_device_fps`` with each build.
 - ``--old-bsr`` (kernels B5/B6, ``bsr_matmul.cu``): ``bsr_matmul`` and
   ``bsr_matmul_gathered`` at x (512, 2**20) with the 512x512 87.5 % W,
   beside ``torch.mm(..., out_dtype=torch.float32)``.
@@ -120,7 +133,9 @@ SOURCES = {"b2": ("sparse_conv.cu", ("tpuseg_sparse_conv",), "const void* nsteps
            "quantize": ("quantize.cu", ("tpuseg_absmax", "tpuseg_quantize"),
                         "const void* vecs"),
            "bsr": ("bsr_matmul.cu", ("tpuseg_bsr_matmul",), "int nnzb"),
-           "up": ("upsample_argmax.cu", ("tpuseg_upsample_argmax",), "void* stream")}
+           "up": ("upsample_argmax.cu", ("tpuseg_upsample_argmax",), "void* stream"),
+           "temporal": ("temporal.cu", ("tpuseg_frame_deltas", "tpuseg_budget_select",
+                                        "tpuseg_keyframe_select"), "tpuseg_frame_deltas_budget")}
 SERVING_LOGITS = (32, 128, 256, 19)
 
 
@@ -399,6 +414,59 @@ def old_up(fn, _newer: bool):
     return launch
 
 
+def old_temporal(fns, newer: bool) -> dict:
+    """The budgeted selection and K5 as builds before K5's one launch ran
+    them, on the old copy's three entries (``fns``): K3 then K4, each
+    allocating its outputs; K5 after zero-filling its sums, finish counters
+    and ``fwd_idx``, a launch a frame and one copy.  name -> a function with
+    the new wrapper's signature."""
+    if newer:
+        raise ValueError("--old-temporal takes a temporal.cu from before K5's one launch")
+    deltas, select, keyframe = fns
+    p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    deltas.argtypes = [p, p, p, p, i32, i64, p]
+    select.argtypes = [p, p, p, f32, i32, i32, p, p, p, p, p, p]
+    keyframe.argtypes = [p] * 6 + [f32, i32, i64] + [p] * 6
+    lib = _build.load_library()  # its error strings
+
+    def frame_deltas_budget(frames, prev, acc0, n_keyed, thresh, budget):
+        n, dev = frames.shape[0], frames.device
+        sums = torch.zeros((n + 1,), dtype=torch.int64, device=dev)
+        d = torch.empty((n,), dtype=torch.float32, device=dev)
+        sc._raise_on(lib, "old frame_deltas", deltas(
+            frames.data_ptr(), prev.data_ptr(), sums.data_ptr(), d.data_ptr(), n, prev.numel(),
+            _stream(frames)))
+        flags = torch.empty((n,), dtype=torch.bool, device=dev)
+        fwd_idx = torch.empty((budget,), dtype=torch.int32, device=dev)
+        keyslot = torch.empty((n,), dtype=torch.int32, device=dev)
+        acc_out = torch.empty((1,), dtype=torch.float32, device=dev)
+        n_out = torch.empty((1,), dtype=torch.int32, device=dev)
+        sc._raise_on(lib, "old budget_select", select(
+            d.data_ptr(), acc0.data_ptr(), n_keyed.data_ptr(), float(thresh), budget, n,
+            flags.data_ptr(), fwd_idx.data_ptr(), keyslot.data_ptr(), acc_out.data_ptr(),
+            n_out.data_ptr(), _stream(frames)))
+        return d, flags, fwd_idx, keyslot, acc_out, n_out
+
+    def keyframe_select(frames, carried, n_keyed, thresh):
+        nb, dev = frames.shape[0], frames.device
+        state = torch.empty((3,), dtype=torch.int32, device=dev)
+        sums = torch.zeros((nb,), dtype=torch.int64, device=dev)
+        done = torch.zeros((nb,), dtype=torch.int32, device=dev)
+        flags = torch.empty((nb,), dtype=torch.bool, device=dev)
+        keyslot = torch.empty((nb,), dtype=torch.int32, device=dev)
+        fwd_idx = torch.zeros((nb,), dtype=torch.int32, device=dev)
+        diffs = torch.empty((nb,), dtype=torch.float32, device=dev)
+        new_kf = torch.empty_like(carried)
+        sc._raise_on(lib, "old keyframe_select", keyframe(
+            frames.data_ptr(), carried.data_ptr(), n_keyed.data_ptr(), state.data_ptr(),
+            sums.data_ptr(), done.data_ptr(), float(thresh), nb, carried.numel(),
+            flags.data_ptr(), keyslot.data_ptr(), fwd_idx.data_ptr(), diffs.data_ptr(),
+            new_kf.data_ptr(), _stream(frames)))
+        return flags, keyslot, fwd_idx, diffs, state[2:3], state[1:2], new_kf
+
+    return {"frame_deltas_budget": frame_deltas_budget, "keyframe_select": keyframe_select}
+
+
 def _quantize_plain(x, x_scale, chan=None):
     """The PyTorch quantize pass, with the channel map the kernels take."""
     return sc.quantize_activation_reference(
@@ -415,15 +483,20 @@ class Kernels:
     def __init__(self, olds: dict):
         from tpuseg_torch.models import drn
         from tpuseg_torch.ops import polyphase, quant
+        from tpuseg_torch.video import pipeline
 
-        self.drn, self.quant, self.poly = drn, quant, polyphase
+        self.drn, self.quant, self.poly, self.pipe = drn, quant, polyphase, pipeline
         self.active = "new"
         self.new = {"b2": sc._launch_b2, "b3": sc._launch_b3, "bsr": bsr._launch,
                     "up": up._launch, "quantize": sc.quantize_activation,
                     "route": drn._sparse_conv_bias_bf16, "qconv": quant.quant_conv_apply,
                     "stem": polyphase.fused_sparse_conv_q_bias_relu,
-                    "stem_convs": polyphase.PolyphaseFrontend._stem_convs}
+                    "stem_convs": polyphase.PolyphaseFrontend._stem_convs,
+                    "keyframe_select": pipeline.keyframe_select,
+                    "frame_deltas_budget": pipeline.frame_deltas_budget}
         self.old = {}
+        if "temporal" in olds:
+            self.old.update(old_temporal(*olds["temporal"]))
         if "b2" in olds:
             self.old["b2"] = old_b2(*olds["b2"])
         if "b3" in olds:
@@ -470,6 +543,8 @@ class Kernels:
         self.quant.quant_conv_apply = funcs["qconv"]
         self.poly.fused_sparse_conv_q_bias_relu = funcs["stem"]
         self.poly.PolyphaseFrontend._stem_convs = funcs["stem_convs"]
+        self.pipe.keyframe_select = funcs["keyframe_select"]
+        self.pipe.frame_deltas_budget = funcs["frame_deltas_budget"]
         skip = {k for kinds in self.no_route for k in kinds} if which == "old" else set()
         route = self.new["route"]
         self.drn._sparse_conv_bias_bf16 = (
@@ -774,6 +849,106 @@ def _stem_turns(kernels: Kernels, seg, frames) -> dict:
             "new_over_old": _median_ratios(turns)}
 
 
+SEQ_BATCH = 8  # the sequential adaptive mode's batch (chip_smoke.py phase 28)
+
+
+def _temporal_turns(kernels: Kernels, frames: list, dev) -> dict:
+    """``--old-temporal``: K5 on 8 of the 32 shapes ``frames`` against the
+    9th as the carried keyframe (n_keyed on the device, as the sequential
+    mode carries it), back to back and with the promoted count read after
+    each call; the budgeted selection (K3 + K4) on all 32 against a zero
+    carried frame, K = 8; in turns (old, new, new, old) twice, after the
+    two builds' outputs are compared."""
+    from tpuseg_torch.video.autotune import drift_threshold
+
+    h, w = FULL
+    fb = torch.from_numpy(np.stack(frames).reshape(len(frames), h, -1)).to(dev)
+    fb8, kf = fb[:SEQ_BATCH], fb[SEQ_BATCH]
+    thresh = drift_threshold(frames[:SEQ_BATCH])[0]
+    nk0 = torch.zeros((1,), dtype=torch.int32, device=dev)
+    prev = torch.zeros((h, w * 3), dtype=torch.uint8, device=dev)
+    acc0 = torch.zeros((1,), dtype=torch.float32, device=dev)
+    pipe = kernels.pipe
+    fns = {"k5": lambda: pipe.keyframe_select(fb8, kf, nk0, thresh),
+           "k5_count_read": lambda: int(pipe.keyframe_select(fb8, kf, nk0, thresh)[4]),
+           "k3_k4": lambda: pipe.frame_deltas_budget(fb, prev, acc0, nk0, thresh, 8)}
+    same = {}
+    with torch.inference_mode():
+        for name in ("k5", "k3_k4"):
+            kernels.use("old")
+            old = fns[name]()
+            kernels.use("new")
+            new = fns[name]()
+            if name == "k5":  # fwd_idx past the promoted count is unspecified
+                count = int(new[4])
+                old, new = (old[:2] + (old[2][:count],) + old[3:],
+                            new[:2] + (new[2][:count],) + new[3:])
+            same[name] = all(torch.equal(a, b) for a, b in zip(old, new))
+        turns = ab(kernels, fns, iters=50, rounds=2)
+        device = {}
+        for which in ("old", "new"):
+            kernels.use(which)
+            device[which] = {name: _device_ms(fns[name]) for name in ("k5", "k3_k4")}
+        kernels.use("new")
+    return {"k5_shape": list(fb8.shape), "k3_k4_shape": list(fb.shape), "thresh": thresh,
+            "old_equals_new": same, "turns": turns, "new_over_old": _median_ratios(turns),
+            "device": device}
+
+
+def _device_ms(fn, calls: int = 10) -> dict:
+    """Device ms a call of ``fn`` (``torch.profiler`` over ``calls`` calls,
+    after a warm one): the sum over kernels and memsets, and each kernel
+    name's share."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = {e.key[:80]: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
+             if e.self_device_time_total > 0 and not e.key.startswith("aten::")}
+    return {"ms": sum(times.values()), "by_kernel": times}
+
+
+def _adaptive_fps_turns(kernels: Kernels, params, masked, state, spec, gathered) -> dict:
+    """``--old-temporal``'s served rates: ``benchmark_adaptive_device_fps``
+    of the sequential mode (dense bf16, batch 8, the 32 shapes frames of
+    seed 0, ``drift_threshold`` of the first 8) and of
+    ``sparse_int8_budget8`` (block128reg_87.50 gathered, int8 calibrated on
+    8 frames, batch 32, K = 8, 64 shapes frames of seed 1), with the old and
+    the new build in turns (old, new, new, old)."""
+    from tpuseg_torch.data.shapes import shapes_video
+    from tpuseg_torch.video.autotune import drift_threshold
+    from tpuseg_torch.video.pipeline import VideoSegmenter
+
+    seq_frames = list(shapes_video(32, FULL, seed=0)[0])
+    budget_frames = list(shapes_video(64, FULL, seed=1)[0])
+    runs = {
+        "sequential": (VideoSegmenter(
+            params, state, spec, MEAN, STD, device="cuda", compute_dtype=torch.bfloat16,
+            batch=SEQ_BATCH, temporal_thresh=drift_threshold(seq_frames[:SEQ_BATCH])[0]),
+            seq_frames),
+        "sparse_int8_budget8": (VideoSegmenter(
+            masked, state, spec, MEAN, STD, device="cuda", compute_dtype=torch.bfloat16,
+            batch=32, exec_plans=gathered, quantize=True, calib_frames=seq_frames[:8],
+            temporal_thresh=drift_threshold(budget_frames)[0], temporal_budget=8),
+            budget_frames),
+    }
+    fps = {f"{name}_{which}": [] for name in runs for which in ("old", "new")}
+    rates = {}
+    for which in ("old", "new", "new", "old"):
+        kernels.use(which)
+        for name, (seg, fr) in runs.items():
+            res = seg.benchmark_adaptive_device_fps(fr)
+            fps[f"{name}_{which}"].append(res["device_fps"])
+            rates.setdefault(name, set()).add(res["promotion_rate"])
+    kernels.use("new")
+    return {"device_fps": fps, "promotion_rates": {k: sorted(v) for k, v in rates.items()},
+            "new_over_old": {name: float(np.median(fps[f"{name}_new"])
+                                         / np.median(fps[f"{name}_old"])) for name in runs}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", help="the other commit's sparse_conv.cu (kernel B2)")
@@ -784,18 +959,20 @@ def main(argv=None) -> int:
                          "int8 stem's hand-off (B3's stem route)")
     ap.add_argument("--old-bsr", help="the other commit's bsr_matmul.cu (kernels B5/B6)")
     ap.add_argument("--old-up", help="the other commit's upsample_argmax.cu (kernel B1)")
+    ap.add_argument("--old-temporal", help="temporal.cu of a commit before K5's one launch "
+                                           "(K3, K4 and K5)")
     ap.add_argument("--skip-fps", action="store_true", help="kernel times only")
     args = ap.parse_args(argv)
     copies = {k: v for k, v in (("b2", args.old), ("b3", args.old_q),
                                 ("quantize", args.old_quantize), ("bsr", args.old_bsr),
-                                ("up", args.old_up)) if v}
+                                ("up", args.old_up), ("temporal", args.old_temporal)) if v}
     if args.old_stem:
         if args.old_q:
             ap.error("--old-stem and --old-q both replace B3: give one")
         copies["stem_q"], copies["stem_narrow"] = args.old_stem
     if not copies:
         ap.error("give at least one of --old, --old-q, --old-quantize, --old-stem, --old-bsr, "
-                 "--old-up")
+                 "--old-up, --old-temporal")
     if not torch.cuda.is_available():
         print("ab_sparse_conv: no CUDA card", file=sys.stderr)
         return 1
@@ -815,7 +992,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     int8 = {"b3", "quantize", "stem_q"} & set(olds)
-    if ({"b2"} | int8) & set(olds):
+    if ({"b2", "temporal"} | int8) & set(olds):
         params, masked, state, spec, folded, plans = _served()
         bias = folded["layer.6.1.conv2.bias"].to(dev, torch.bfloat16)
     else:
@@ -911,6 +1088,13 @@ def main(argv=None) -> int:
         _emit(phase="stem_routes", size=list(FULL), batch=32,
               **_stem_turns(kernels, seg, fd), card=smi)
         del seg, fd, stem_frames
+        torch.cuda.empty_cache()
+    if "temporal" in olds:
+        from tpuseg_torch.data.shapes import shapes_video
+
+        _emit(phase="temporal_select", size=list(FULL),
+              **_temporal_turns(kernels, list(shapes_video(32, FULL, seed=0)[0]), dev),
+              card=smi)
         torch.cuda.empty_cache()
     if "b3" in olds:
         # each of the 13 dense int8 convs at its batch-32 input: the quantize
@@ -1038,6 +1222,11 @@ def main(argv=None) -> int:
         kernels.use("new")
         _emit(phase="int8_dense_profile", device_ms_by_kernel=prof, card=smi)
         del segs
+        torch.cuda.empty_cache()
+    if "temporal" in olds:
+        _emit(phase="adaptive_device_fps", size=list(FULL),
+              **_adaptive_fps_turns(kernels, params, masked, state, spec, plans["gathered"]),
+              card=smi)
         torch.cuda.empty_cache()
     if "up" in olds:
         # dense bf16 device fps at batch 32 with each B1 build, and one

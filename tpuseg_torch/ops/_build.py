@@ -212,6 +212,19 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,                  # cudaStream_t
     ]
     lib.tpuseg_frame_deltas.restype = ctypes.c_int
+    lib.tpuseg_frame_deltas_budget.argtypes = [
+        *lib.tpuseg_frame_deltas.argtypes[:-1],  # K3's, but the stream
+        ctypes.c_void_p,                  # acc_in (1,) f32
+        ctypes.c_void_p,                  # n_in (1,) int32
+        ctypes.c_float, ctypes.c_int,     # thresh, K
+        ctypes.c_void_p,                  # flags (B,) bool
+        ctypes.c_void_p,                  # fwd_idx (K,) int32
+        ctypes.c_void_p,                  # keyslot (B,) int32
+        ctypes.c_void_p,                  # acc_out (1,) f32
+        ctypes.c_void_p,                  # n_out (1,) int32
+        ctypes.c_void_p,                  # cudaStream_t
+    ]
+    lib.tpuseg_frame_deltas_budget.restype = ctypes.c_int
     lib.tpuseg_budget_select.argtypes = [
         ctypes.c_void_p,                  # d (B,) f32
         ctypes.c_void_p,                  # acc_in (1,) f32
@@ -230,8 +243,8 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,                  # carried keyframe (H, W*3) uint8
         ctypes.c_void_p,                  # n_in (1,) int32
         ctypes.c_void_p,                  # state (3,) int32: keyframe index, n, promotions
-        ctypes.c_void_p,                  # sums (B,) uint64, zeroed
-        ctypes.c_void_p,                  # done (B,) uint32, zeroed
+        ctypes.c_void_p,                  # partials: uint64 scratch, not zeroed
+        ctypes.c_longlong,                # its length (tpuseg_keyframe_select_partials)
         ctypes.c_float, ctypes.c_int,     # thresh, B
         ctypes.c_longlong,                # bytes per frame
         ctypes.c_void_p,                  # flags (B,) bool
@@ -242,6 +255,8 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,                  # cudaStream_t
     ]
     lib.tpuseg_keyframe_select.restype = ctypes.c_int
+    lib.tpuseg_keyframe_select_partials.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    lib.tpuseg_keyframe_select_partials.restype = ctypes.c_int
     lib.tpuseg_block_shifts.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p,  # key, cur luma (B, hs, ws) f32
         ctypes.c_void_p, ctypes.c_void_p,  # dy, dx (B, hs/block, ws/block) int32

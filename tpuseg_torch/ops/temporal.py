@@ -1,7 +1,7 @@
 """Temporal serving's keyframe choice (the XLA work of
 ``tpuseg/video/pipeline.py::program_budget``, ``:670-704``, and of
-``program_adaptive``'s scan, ``:614-638``), as three hand-written CUDA kernels
-in ``tpuseg_torch/csrc/temporal.cu``, each with its plain PyTorch version
+``program_adaptive``'s scan, ``:614-638``), as hand-written CUDA kernels in
+``tpuseg_torch/csrc/temporal.cu``, each with its plain PyTorch version
 beside it.
 
 - ``frame_deltas`` (K3): ``d[i] = mean |f[i] - f[i-1]|`` over a batch of
@@ -14,11 +14,15 @@ beside it.
   the threshold, at most ``budget`` a batch) and its slot arithmetic: the
   flags, the forwarded frames' indices ``fwd_idx`` (0 where a slot is not
   filled) and each frame's keyframe slot ``keyslot`` (cumsum(flags) - 1).
+- ``frame_deltas_budget`` (K3 + K4): the budgeted mode's selection in one
+  launch, K4's scan run by K3's last block over the deltas it has just made.
 - ``keyframe_select`` (K5): the sequential adaptive mode's choice, for each
   frame in order the mean |f[i] - kf| against the live keyframe (exact
   integer sum divided in double, as K3), promote when nothing was keyed yet
   or it exceeds the threshold, and the promoted frame becomes the keyframe.
-  It depends only on pixels, so a whole batch is chosen before any forward.
+  It depends only on pixels, so a whole batch is chosen before any forward:
+  one cooperative launch computes the sums of every frame pair the scan can
+  need, chunk by chunk, and runs the scan between grid barriers.
 
 On a CUDA tensor each wrapper launches its kernel on the current stream,
 counts it in ``<wrapper>.launches`` and raises if the launch fails; on a CPU
@@ -27,10 +31,13 @@ tensor it runs the plain version.  Nothing leaves the device.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
-from tpuseg_torch.ops.sparse_conv import _raise_on
+from tpuseg_torch.ops.sparse_conv import _on_device, _raise_on, _raw_stream
 
 
 def _check_frames(frames: torch.Tensor, prev: torch.Tensor) -> None:
@@ -85,16 +92,20 @@ def frame_deltas(frames: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 frame_deltas.launches = 0
 
 
-def _check_select(d, acc0, n_keyed, budget) -> None:
-    if d.dtype != torch.float32 or d.dim() != 1 or d.numel() == 0:
-        raise ValueError(f"d must be a non-empty 1-D f32 tensor, got {d.dtype} {tuple(d.shape)}")
+def _check_carry(acc0, n_keyed, budget, nframes: int, device) -> None:
     if (acc0.dtype != torch.float32 or n_keyed.dtype != torch.int32
             or acc0.numel() != 1 or n_keyed.numel() != 1):
         raise ValueError("acc0 must be one f32 value and n_keyed one int32")
-    if acc0.device != d.device or n_keyed.device != d.device:
-        raise ValueError("d, acc0 and n_keyed must share a device")
-    if not 0 < budget <= d.numel():
-        raise ValueError(f"budget {budget} must be in 1..{d.numel()}")
+    if acc0.device != device or n_keyed.device != device:
+        raise ValueError(f"acc0 and n_keyed must be on {device}")
+    if not 0 < budget <= nframes:
+        raise ValueError(f"budget {budget} must be in 1..{nframes}")
+
+
+def _check_select(d, acc0, n_keyed, budget) -> None:
+    if d.dtype != torch.float32 or d.dim() != 1 or d.numel() == 0:
+        raise ValueError(f"d must be a non-empty 1-D f32 tensor, got {d.dtype} {tuple(d.shape)}")
+    _check_carry(acc0, n_keyed, budget, d.numel(), d.device)
 
 
 def budget_select_reference(d: torch.Tensor, acc0: torch.Tensor, n_keyed: torch.Tensor,
@@ -165,6 +176,78 @@ def budget_select(d: torch.Tensor, acc0: torch.Tensor, n_keyed: torch.Tensor,
 budget_select.launches = 0
 
 
+def frame_deltas_budget_reference(frames: torch.Tensor, prev: torch.Tensor, acc0: torch.Tensor,
+                                  n_keyed: torch.Tensor, thresh: float, budget: int):
+    """Plain version of ``frame_deltas_budget``: ``frame_deltas_reference``,
+    then ``budget_select_reference`` over its deltas."""
+    d = frame_deltas_reference(frames, prev)
+    return (d, *budget_select_reference(d, acc0, n_keyed, thresh, budget))
+
+
+def frame_deltas_budget(frames: torch.Tensor, prev: torch.Tensor, acc0: torch.Tensor,
+                        n_keyed: torch.Tensor, thresh: float, budget: int):
+    """The budgeted mode's selection over a batch of uint8 frames (B, ...)
+    from the carried previous frame ``prev``, drift ``acc0`` and promotion
+    count ``n_keyed``: ``(d (B,) f32, flags (B,) bool, fwd_idx (budget,)
+    int32, keyslot (B,) int32, acc0 (1,) f32, n_keyed (1,) int32)``, as
+    ``frame_deltas`` followed by ``budget_select``.  The inputs are not
+    written.
+
+    On a CUDA tensor (frames and prev contiguous) it makes one launch, K3
+    whose last block runs K4's scan, counted in
+    ``frame_deltas_budget.launches``; the outputs are views of one buffer
+    (with K3's sums, which it zeroes).  On a CPU tensor it runs
+    ``frame_deltas_budget_reference``."""
+    _check_frames(frames, prev)
+    _check_carry(acc0, n_keyed, budget, frames.shape[0], frames.device)
+    if frames.device.type == "cpu":
+        return frame_deltas_budget_reference(frames, prev, acc0, n_keyed, thresh, budget)
+    if frames.device.type != "cuda":
+        raise ValueError(f"unsupported device {frames.device}")
+    if not (frames.is_contiguous() and prev.is_contiguous()):
+        raise ValueError("frames and prev must be contiguous")
+    from tpuseg_torch.ops._build import load_library
+
+    n, dev = frames.shape[0], frames.device
+    sums, d, flags, fwd_idx, keyslot, acc_out, n_out = _budget_buffers(n, budget, dev)
+    sums.zero_()
+    lib = load_library()
+    with _on_device(dev):
+        err = lib.tpuseg_frame_deltas_budget(
+            frames.data_ptr(), prev.data_ptr(), sums.data_ptr(), d.data_ptr(), n, prev.numel(),
+            acc0.data_ptr(), n_keyed.data_ptr(), float(thresh), budget, flags.data_ptr(),
+            fwd_idx.data_ptr(), keyslot.data_ptr(), acc_out.data_ptr(), n_out.data_ptr(),
+            _raw_stream(dev))
+    _raise_on(lib, "frame_deltas_budget", err)
+    frame_deltas_budget.launches += 1
+    return d, flags, fwd_idx, keyslot, acc_out, n_out
+
+
+frame_deltas_budget.launches = 0
+
+
+def _budget_buffers(n: int, budget: int, device) -> tuple:
+    """``frame_deltas_budget``'s K3 sums ((n + 1,) int64) and outputs, views
+    of one int32 buffer split once (less host time than a slice and a view
+    for each output): (sums, d, flags, fwd_idx, keyslot, acc, n_keyed)."""
+    sums, d, fwd_idx, keyslot, acc, nk, flags = torch.empty(
+        (2 * (n + 1) + 2 * n + budget + 2 + -(-n // 4),), dtype=torch.int32,
+        device=device).split_with_sizes([2 * (n + 1), n, budget, n, 1, 1, -(-n // 4)])
+    return (sums.view(torch.int64), d.view(torch.float32), flags.view(torch.bool)[:n], fwd_idx,
+            keyslot, acc.view(torch.float32), nk)
+
+
+def _keyframe_buffers(nb: int, scratch: int, device) -> tuple:
+    """``keyframe_select``'s scratch ((scratch,) int64, first) and small
+    outputs, views of one int32 buffer: (partials, state (3,), flags,
+    keyslot, fwd_idx, diffs)."""
+    partials, state, keyslot, fwd_idx, diffs, flags = torch.empty(
+        (2 * scratch + 3 + 3 * nb + -(-nb // 4),), dtype=torch.int32,
+        device=device).split_with_sizes([2 * scratch, 3, nb, nb, nb, -(-nb // 4)])
+    return (partials.view(torch.int64), state, flags.view(torch.bool)[:nb], keyslot, fwd_idx,
+            diffs.view(torch.float32))
+
+
 def _check_keyframe(frames, carried, n_keyed) -> None:
     _check_frames(frames, carried)
     if n_keyed.dtype != torch.int32 or n_keyed.numel() != 1 or n_keyed.device != frames.device:
@@ -217,8 +300,10 @@ def keyframe_select(frames: torch.Tensor, carried: torch.Tensor, n_keyed: torch.
     unspecified); ``keyframe`` is the live keyframe after the batch, a new
     tensor.  The inputs are not written.
 
-    On a CUDA tensor (both frames contiguous) it launches K5: B + 1 kernel
-    launches, counted in ``keyframe_select.launches``; on a CPU tensor it
+    On a CUDA tensor (both frames contiguous) it makes one cooperative
+    launch of K5, counted in ``keyframe_select.launches``, and raises if the
+    card cannot hold its grid; the small outputs are views of one buffer
+    (with the kernel's scratch, which needs no zeroing).  On a CPU tensor it
     runs ``keyframe_select_reference``."""
     _check_keyframe(frames, carried, n_keyed)
     if frames.device.type == "cpu":
@@ -230,26 +315,31 @@ def keyframe_select(frames: torch.Tensor, carried: torch.Tensor, n_keyed: torch.
     from tpuseg_torch.ops._build import load_library
 
     nb, dev = frames.shape[0], frames.device
-    n_in = n_keyed.reshape(1).contiguous()
-    state = torch.empty((3,), dtype=torch.int32, device=dev)
-    sums = torch.zeros((nb,), dtype=torch.int64, device=dev)
-    done = torch.zeros((nb,), dtype=torch.int32, device=dev)
-    flags = torch.empty((nb,), dtype=torch.bool, device=dev)
-    keyslot = torch.empty((nb,), dtype=torch.int32, device=dev)
-    fwd_idx = torch.zeros((nb,), dtype=torch.int32, device=dev)
-    diffs = torch.empty((nb,), dtype=torch.float32, device=dev)
-    new_kf = torch.empty_like(carried)
     lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with _on_device(dev):
+        scratch = _keyframe_partials(dev.index)
+        partials, state, flags, keyslot, fwd_idx, diffs = _keyframe_buffers(nb, scratch, dev)
+        new_kf = torch.empty_like(carried)
         err = lib.tpuseg_keyframe_select(
-            frames.data_ptr(), carried.data_ptr(), n_in.data_ptr(), state.data_ptr(),
-            sums.data_ptr(), done.data_ptr(), float(thresh), nb, carried.numel(),
-            flags.data_ptr(), keyslot.data_ptr(), fwd_idx.data_ptr(), diffs.data_ptr(),
-            new_kf.data_ptr(), stream)
+            frames.data_ptr(), carried.data_ptr(), n_keyed.data_ptr(), state.data_ptr(),
+            partials.data_ptr(), scratch, float(thresh), nb, carried.numel(), flags.data_ptr(),
+            keyslot.data_ptr(), fwd_idx.data_ptr(), diffs.data_ptr(), new_kf.data_ptr(),
+            _raw_stream(dev))
     _raise_on(lib, "keyframe_select", err)
-    keyframe_select.launches += nb + 1
+    keyframe_select.launches += 1
     return flags, keyslot, fwd_idx, diffs, state[2:3], state[1:2], new_kf
 
 
 keyframe_select.launches = 0
+
+
+@functools.cache
+def _keyframe_partials(index: int) -> int:
+    """The uint64 scratch K5 needs on CUDA device ``index`` (the current
+    one): its pair sums for every block the card holds at once."""
+    from tpuseg_torch.ops._build import load_library
+
+    lib = load_library()
+    count = ctypes.c_longlong(0)
+    _raise_on(lib, "keyframe_select", lib.tpuseg_keyframe_select_partials(ctypes.byref(count)))
+    return count.value

@@ -44,7 +44,7 @@ from tpuseg_torch.ops.polyphase import (
 )
 from tpuseg_torch.ops.quant import build_quant_plans, calibrate_scales
 from tpuseg_torch.ops.idpack import pack_ids, unpack_ids
-from tpuseg_torch.ops.temporal import budget_select, frame_deltas, keyframe_select
+from tpuseg_torch.ops.temporal import frame_deltas, frame_deltas_budget, keyframe_select
 from tpuseg_torch.ops.upsample import upsample_argmax
 from tpuseg_torch.video.flow import estimate_block_shifts, pooled_luma, warp_ids
 from tpuseg_torch.video.yuv import i420_geometry, i420_to_rgb_flat, rgb_to_i420
@@ -537,18 +537,17 @@ class VideoSegmenter:
         """One batch of budgeted temporal serving (``tpuseg``'s
         ``program_budget``, pipeline.py:642-778) -> (ids, image, flags (B,)
         bool, the new carry).  Frame deltas (K3) and the keyframe choice (K4)
-        at decode size, one K-frame forward of the chosen frames, resized
-        (unfilled slots forward frame 0), each frame's ids from its keyframe's
-        slot (with ``temporal_nearest`` the nearer promotion by drift, behind
-        or ahead) or the carried ids before the batch's first keyframe, then
-        warped with ``temporal_warp``.  The carry keeps the unwarped ids.
-        Nothing leaves the device."""
+        at decode size in one launch, one K-frame forward of the chosen
+        frames, resized (unfilled slots forward frame 0), each frame's ids
+        from its keyframe's slot (with ``temporal_nearest`` the nearer
+        promotion by drift, behind or ahead) or the carried ids before the
+        batch's first keyframe, then warped with ``temporal_warp``.  The
+        carry keeps the unwarped ids.  Nothing leaves the device."""
         frames = self._ingest(x)
         prev, key_ids, acc0, n_keyed = carry[:4]
         k = self.temporal_budget
-        d = frame_deltas(frames, prev)
-        flags, fwd_idx, keyslot, acc_new, n_new = budget_select(
-            d, acc0, n_keyed, self.temporal_thresh, k)
+        d, flags, fwd_idx, keyslot, acc_new, n_new = frame_deltas_budget(
+            frames, prev, acc0, n_keyed, self.temporal_thresh, k)
         ids_k = self.ids_for(self._resize(frames.index_select(0, fwd_idx)))
         slot = (budget_nearest_slots(d, fwd_idx, keyslot, acc0, k) if self.temporal_nearest
                 else keyslot)
