@@ -154,13 +154,17 @@ Phases (any failed check raises and the exit code is non-zero):
  25. K5 (``keyframe_select``), K6 (``estimate_block_shifts``), K7
      (``warp_ids``) and K8 (``i420_to_rgb_flat``) bit-equal to their plain
      versions (K5 from n_keyed = 0, a cut, a diff at the threshold, the
-     shapes frames; K6 a known translation and the serving luma; K7 the seam
-     and range cases and (32, 1024, 2048) ids; K8 0/255, random planes, 8
+     shapes frames; K6 a known translation, the serving luma, a constant
+     and a period-2 map (ties), and resized luma agreeing on >= 0.99 of the
+     blocks; K7 the seam and range cases, (32, 1024, 2048) ids, and at scale
+     8 odd shifts, split vectors at the frame's edges, dy seams, shifts
+     outside the radius and a 640-px width; K8 0/255, random planes, 8
      frames at 1024x2048), a strided input raising, and each timed in turns
-     against its plain version with its bound;
+     against its plain version with its bound, and its device time;
  26. interval 4 with nearest and warped reuse, dense bf16, batch 32: run()
      with exact counts a batch (B1, K3, K6, K7 once), the keyframes' ids
-     equal ``ids_for`` on the same 8 frames, the device rate;
+     equal ``ids_for`` on the same 8 frames, the device rate, and device ms
+     by kernel of one batch with and one without the warp;
  27. phase 23's configuration with nearest and warped reuse: exact counts
      (B3 13, B1, K3, K4, K6, K7 once a batch), the promotions equal the CPU
      selection, ``benchmark_adaptive_device_fps``;
@@ -1472,19 +1476,36 @@ def _record_stem(torch, log: list):
     return lambda: setattr(tpoly, "fused_sparse_conv_q_bias_relu", orig)
 
 
-def _profile_kernels(torch, fn) -> dict:
+def _device_kernel_times(torch, fn) -> dict:
     """Device ms per kernel name over one call of ``fn`` (after a warm one),
-    from ``torch.profiler``: the 10 largest and the total."""
+    from ``torch.profiler`` (kernel names only: each also shows under the
+    aten:: op that launched it)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    times = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-             if e.self_device_time_total > 0 and not e.key.startswith("aten::")}
+    return {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+            if e.self_device_time_total > 0 and not e.key.startswith("aten::")}
+
+
+def _profile_kernels(torch, fn) -> dict:
+    """``_device_kernel_times``' 10 largest and the total."""
+    times = _device_kernel_times(torch, fn)
     top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
     return {"total_ms": sum(times.values()), "top": [[k[:80], v] for k, v in top]}
+
+
+def _device_ms(torch, fn, calls: int = 10) -> tuple:
+    """(device ms a call of ``fn`` over ``calls`` calls from ``torch.profiler``,
+    or None where no profiler run recorded device activity; its largest kernels).
+    One profiler run in phase 25 once recorded nothing, so up to three."""
+    for _ in range(3):
+        prof = _profile_kernels(torch, lambda: [fn() for _ in range(calls)])
+        if prof["top"]:
+            return prof["total_ms"] / calls, prof["top"]
+    return None, []
 
 
 def _stem_plain(x, plan, bias, dt, xs=None, next_scale=None):
@@ -2163,6 +2184,10 @@ def _interval_full(torch, np, dev, params, state, spec, frames, smi) -> dict:
 
 # phases 25-30: this slice's kernels and serving modes
 SEQ_BATCH = 8  # the sequential adaptive mode's batch (phase 28)
+# K6's f32 instructions a (pixel, shift): an FADD for the difference and an
+# FADD with |.| on its operand for the sum (cuobjdump -sass of
+# block_shifts_kernel<4, true>); they cannot pair into FMAs
+K6_INSTRUCTIONS = 2
 FLOW_ENTRIES = {  # wrapper -> (kernel, source, tpuseg file:line)
     "keyframe_select": ("K5", "tpuseg_torch/csrc/temporal.cu", "tpuseg/video/pipeline.py:614-638"),
     "estimate_block_shifts": ("K6", "tpuseg_torch/csrc/flow.cu", "tpuseg/video/flow.py:82-142"),
@@ -2253,23 +2278,37 @@ def _new_kernels(torch, np, dev, frames, smi) -> dict:
         if not same or launched != 1:
             raise AssertionError(f"K5 differs from its plain version ({label}) or launched "
                                  f"{launched} times")
-    # K6: tests/test_video.py:316's translation at block 8, and the serving luma
+    # K6: tests/test_video.py:316's translation at block 8, the serving luma,
+    # all SADs tied (a constant map: the first index, rejected by the gate)
+    # and ties between shifts (a period-2 map), bit-equal; resized luma sums
+    # in the kernel's own order and must agree on >= 0.99 of the blocks
     img = torch.from_numpy(rng.integers(0, 256, size=(2, 32, 32)).astype(np.float32)).to(dev)
     luma = pooled_luma(fb)
+    period2 = torch.tensor([0.0, 765.0], device=dev).repeat(*luma.shape[:2], luma.shape[2] // 2)
+    dec = u8(8, 360, 640, 3)
     k6_cases = {
         "translation (2, -3), block 8": (img, torch.roll(img, (2, -3), dims=(1, 2)), 8),
         "serving luma vs interval-4 keyframes": (luma[::4].repeat_interleave(4, 0), luma, 16),
         "serving luma, shifted (1, -2) blocks of 8 px": (
             luma, pooled_luma(torch.roll(fb.view(-1, h, w, 3), (8, -16), dims=(1, 2))), 16),
+        "constant map (every SAD tied)": (torch.full_like(luma, 1000.0),
+                                          torch.full_like(luma, 900.0), 16),
+        "period-2 map (ties between shifts)": (period2, torch.roll(period2, 1, 2) + 1.0, 16),
+        "resized luma, 360x640 onto 32x64": (
+            pooled_luma(dec, grid=(32, 64)),
+            pooled_luma(torch.roll(dec, (8, -8), dims=(1, 2)), grid=(32, 64)), 16),
     }
     for label, (key, cur, blk) in k6_cases.items():
         got = estimate_block_shifts(key.contiguous(), cur.contiguous(), block=blk)
         want = estimate_block_shifts_reference(key.contiguous(), cur.contiguous(), block=blk)
         same = _equal_outputs(torch, got, want)
+        agree = float(np.mean([_agreement(g.cpu().numpy(), v.cpu().numpy())
+                               for g, v in zip(got, want)]))
         _emit(phase="k6_vs_plain", case=label, shape=list(key.shape), block=blk, equal=same,
-              accepted=int((want[0] != 0).sum() + (want[1] != 0).sum()))
-        if not same:
-            raise AssertionError(f"K6 differs from its plain version ({label})")
+              agreement=agree, accepted=int((want[0] != 0).sum() + (want[1] != 0).sum()))
+        if not (agree >= 0.99 if label.startswith("resized") else same):
+            raise AssertionError(f"K6 differs from its plain version ({label}: agreement "
+                                 f"{agree})")
     # K7: the seam/range cases (scale 4: the byte path) and the serving shape
     # (scale 8: the 8-byte path)
     ids32 = torch.from_numpy(rng.integers(0, 19, size=(1, 32, 32)).astype(np.uint8)).to(dev)
@@ -2286,12 +2325,13 @@ def _new_kernels(torch, np, dev, frames, smi) -> dict:
         "seam (scale 4, block 4)": (ids32, seam_dy, seam_dx, 4, 4),
         "out of radius": (ids32, big, seam_dx * 0, 4, 4),
         "serving (32, 1024, 2048)": (ids_full, dyf, dxf, 8, 16),
+        **_k7_vector_cases(torch, np, dev, gen, rng),
     }
     for label, (ids, dy, dx, scale, blk) in k7_cases.items():
         got = warp_ids(ids, dy, dx, scale=scale, block=blk)
         want = warp_ids_reference(ids, dy, dx, scale=scale, block=blk)
         same = torch.equal(got, want)
-        _emit(phase="k7_vs_plain", case=label, shape=list(ids.shape), equal=same,
+        _emit(phase="k7_vs_plain", case=label, shape=list(ids.shape), scale=scale, equal=same,
               moved=int((want != ids).sum()))
         if not same:
             raise AssertionError(f"K7 differs from its plain version ({label})")
@@ -2335,6 +2375,7 @@ def _new_kernels(torch, np, dev, frames, smi) -> dict:
     dyk, dxk = estimate_block_shifts(ks, cs)
     ids_k = ids_full
     times = {}
+    lane_rate = _lane_rate(torch)[0]
     specs = {  # name -> (kernel, plain, library or None, iters, bytes, f32 operations)
         "keyframe_select": (
             lambda: keyframe_select(fb8, kf, nk0, thresh),
@@ -2342,7 +2383,7 @@ def _new_kernels(torch, np, dev, frames, smi) -> dict:
             (SEQ_BATCH + 1) * kf.numel() + kf.numel() + SEQ_BATCH * 13, SEQ_BATCH * kf.numel()),
         "estimate_block_shifts": (
             lambda: estimate_block_shifts(ks, cs), lambda: estimate_block_shifts_reference(ks, cs),
-            None, (20, 3), 2 * ks.numel() * 4 + 2 * dyk.numel() * 4, 81 * 3 * ks.numel()),
+            None, (20, 3), 2 * ks.numel() * 4 + 2 * dyk.numel() * 4, None),
         "warp_ids": (
             lambda: warp_ids(ids_k, dyk, dxk, scale=8, block=16),
             lambda: warp_ids_reference(ids_k, dyk, dxk, scale=8, block=16), None, (20, 2),
@@ -2359,23 +2400,25 @@ def _new_kernels(torch, np, dev, frames, smi) -> dict:
         extra = {}
         if name == "keyframe_select":
             # as _sequential_step serves it: under inference mode, and with
-            # the promoted count read after each call; and its device time
+            # the promoted count read after each call
             fns["with_count_read"] = lambda: int(keyframe_select(fb8, kf, nk0, thresh)[4])
             iters["with_count_read"] = it_k
             extra["outside_inference_mode"] = _time_turns(torch, {"kernel": kern}, {"kernel": it_k})
-            for _ in range(3):  # one profiler run here once recorded no device activity
-                prof = _profile_kernels(torch, lambda: [kern() for _ in range(10)])
-                if prof["top"]:
-                    break
-            extra["device_ms"] = prof["total_ms"] / 10 if prof["top"] else None
-            extra["device_kernels"] = prof["top"]
             with torch.inference_mode():
                 turns = _time_turns(torch, fns, iters)
             extra["with_count_read_ms"] = min(turns["with_count_read"])
         else:
             turns = _time_turns(torch, fns, iters)
-        bound = _bound(nbytes, ops, "f32")
-        row = {"ms": min(turns["kernel"]), "plain_ms": min(turns["plain"]),
+        device_ms, extra["device_kernels"] = _device_ms(torch, kern)
+        if ops is None:  # K6: issued f32 instructions at the lane rate
+            ops_ms = K6_INSTRUCTIONS * 81 * ks.numel() / lane_rate * 1e3
+            bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+            bound = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+            extra["issued_per_pixel_shift"] = K6_INSTRUCTIONS
+        else:
+            bound = _bound(nbytes, ops, "f32")
+        row = {"ms": min(turns["kernel"]), "device_ms": device_ms,
+               "plain_ms": min(turns["plain"]),
                "library_ms": min(turns["library"]) if library is not None else None,
                "bound_ms": bound[0], "bound_by": bound[1]}
         times[name] = row
@@ -2386,10 +2429,73 @@ def _new_kernels(torch, np, dev, frames, smi) -> dict:
     return times
 
 
+def _k7_vector_cases(torch, np, dev, gen, rng) -> dict:
+    """K7's vector-path cases at scale 8, block 16: label -> (ids, dy, dx,
+    scale, block).  Every block's dx odd (sources 8 bytes off 16-byte
+    alignment); odd and +-4 shifts on the first and last block columns
+    (dx = +-1 and +-3 there put one half of a vector's source in the frame
+    and the other's out); neighbouring blocks' dy differing with sources
+    crossing the seam; shifts outside the radius; a 640-px width (a multiple
+    of 128, not of 256)."""
+    ids = torch.randint(0, 19, (4, 512, 2048), generator=gen, device=dev,
+                        dtype=torch.int32).to(torch.uint8)
+    shape = (4, 4, 16)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+
+    edge = rng.choice([-4, 4], size=shape)
+    edge[..., 0] = rng.choice([1, 3, 4], size=shape[:2])
+    edge[..., -1] = rng.choice([-1, -3, -4], size=shape[:2])
+    seam_dy = np.where(np.arange(16) % 2 == 0, 3, -2) * np.ones(shape, np.int64)
+    ids640 = torch.randint(0, 19, (4, 256, 640), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.uint8)
+    return {
+        "odd dx (scale 8)": (ids, t(rng.integers(-4, 5, size=shape)),
+                             t(rng.choice([-3, -1, 1, 3], size=shape)), 8, 16),
+        "edge halves (scale 8)": (ids, t(rng.integers(-4, 5, size=shape)), t(edge), 8, 16),
+        "dy seams (scale 8)": (ids, t(seam_dy), t(rng.choice([-2, -1, 1, 2], size=shape)), 8,
+                               16),
+        "out of radius (scale 8)": (ids, t(rng.choice([-6, -5, -1, 1, 5, 6], size=shape)),
+                                    t(rng.choice([-7, -5, -4, 0, 4, 5, 7], size=shape)), 8, 16),
+        "640-px width (scale 8)": (ids640, t(rng.integers(-6, 7, size=(4, 2, 5))),
+                                   t(rng.integers(-6, 7, size=(4, 2, 5))), 8, 16),
+    }
+
+
 def _zero_counts(torch, *fns):
     torch.cuda.synchronize()
     for f in fns:
         f.launches = 0
+
+
+WARP_PARTS = (  # phase 26's profile: part -> kernel-name fragments
+    ("K6", ("block_shifts",)), ("K7", ("warp_ids",)), ("K3", ("frame_deltas",)),
+    ("pooled_luma reductions", ("reduce_kernel",)),
+    ("gathers", ("indexSelect", "index_select", "gather", "index_elementwise")),
+    ("elementwise and copies", ("elementwise_kernel", "Memcpy", "Memset")))
+
+
+def _warp_profile(torch, seg, x) -> dict:
+    """Device ms by part (``WARP_PARTS``, the rest apart) of one interval
+    batch ``seg._program(x)`` with temporal_warp and one without it (nearest
+    reuse in both), and the warp's cost part by part (the difference)."""
+    out = {}
+    for label, warp in (("warp", True), ("no_warp", False)):
+        seg.temporal_warp = warp
+        times = _device_kernel_times(torch, lambda: seg._program(x))
+        parts = dict.fromkeys([p for p, _ in WARP_PARTS] + ["rest"], 0.0)
+        for name, ms in times.items():
+            part = next((p for p, frags in WARP_PARTS if any(f in name for f in frags)), "rest")
+            parts[part] += ms
+        top = sorted(times.items(), key=lambda kv: -kv[1])[:8]
+        out[label] = {"total_ms": sum(times.values()), "by_part": parts,
+                      "top": [[k[:80], v] for k, v in top]}
+    seg.temporal_warp = True
+    out["warp_cost_ms"] = out["warp"]["total_ms"] - out["no_warp"]["total_ms"]
+    out["warp_cost_by_part"] = {p: out["warp"]["by_part"][p] - out["no_warp"]["by_part"][p]
+                                for p in out["warp"]["by_part"]}
+    return out
 
 
 def _interval_warp_full(torch, np, dev, params, state, spec, frames, smi) -> dict:
@@ -2398,7 +2504,8 @@ def _interval_warp_full(torch, np, dev, params, state, spec, frames, smi) -> dic
     zeroed just before and read just after (a batch: B1 1, K3 1, K6 1, K7 1);
     each keyframe's ids equal ``ids_for`` on the same 8 keyframes, bit for
     bit (the same batch of 8: in bf16 cuDNN may pick another algorithm at
-    another batch size); the device rate at batch 32."""
+    another batch size); the device rate at batch 32; device ms by kernel
+    of one batch of the 32 frames with the warp and one without it."""
     from tpuseg_torch.ops.temporal import frame_deltas
     from tpuseg_torch.ops.upsample import upsample_argmax
     from tpuseg_torch.video.flow import estimate_block_shifts, warp_ids
@@ -2420,10 +2527,14 @@ def _interval_warp_full(torch, np, dev, params, state, spec, frames, smi) -> dic
     keyed = bool(np.array_equal(ids[::4], keys.cpu().numpy()))
     moved = float(np.mean([(ids[i] != ids[i - i % 4]).mean() for i in range(len(ids))]))
     fps = seg.benchmark_device_fps(FULL, inner=8, reps=2)
+    x = torch.from_numpy(np.stack(frames[:32]).reshape(-1, FULL[0], FULL[1] * 3)).to(dev)
+    profile = _warp_profile(torch, seg, x)
+    del x
     del seg
     torch.cuda.empty_cache()
     row = {"launches": got, "want": want, "keyframes_equal_ids_for": keyed,
-           "share_of_ids_moved_by_reuse": moved, "run_fps": res["fps"], "device_fps": fps}
+           "share_of_ids_moved_by_reuse": moved, "run_fps": res["fps"], "device_fps": fps,
+           "profile": profile}
     _emit(phase="interval_nearest_warp_full", size=list(FULL), dtype="bfloat16", batch=32,
           interval=4, frames=res["frames"], **row, card=smi)
     if got != want or not keyed or ids.shape != (len(frames),) + FULL:
@@ -5162,8 +5273,11 @@ def _phases(torch, np, dev, t_start, smi, kind, worker) -> int:
                      (t["bound_ms"], t["bound_by"]), t["library_ms"])
 
     def timed(name, source, replaces, launched, t):
-        return entry(name, source, replaces, launched, 0.0, t["ms"], t["plain_ms"],
-                     (t["bound_ms"], t["bound_by"]), t["library_ms"])
+        e = entry(name, source, replaces, launched, 0.0, t["ms"], t["plain_ms"],
+                  (t["bound_ms"], t["bound_by"]), t["library_ms"])
+        if "device_ms" in t:  # K5-K8: torch.profiler's device time beside back to back
+            e["device_ms"] = t["device_ms"]
+        return e
 
     # B3's entry points and the quantize kernels: the four int8 runs, the
     # int8-stem run and the budgeted run

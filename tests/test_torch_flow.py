@@ -1,9 +1,11 @@
 """Port parity for the flow module (``tpuseg_torch/video/flow.py``): luma
 pooling, K6's and K7's plain versions and the end-to-end warp, against
 ``tpuseg.video.flow`` on the same numpy-seeded inputs (f32, CPU).  A numpy
-transcription of each kernel's loop (``csrc/flow.cu``) is held to
-``tpuseg`` too, so the algorithm the card runs is checked here; the card
-holds the kernels to their plain versions (``chip_smoke.py`` phase 25)."""
+transcription of each kernel's schedule (``csrc/flow.cu``: K6's summation
+and argmin order here, K7's band tiles in ``test_torch_flow_tiles.py``) is
+held to ``tpuseg`` too, so the algorithm the card runs is checked here; the
+card holds the kernels to their plain versions (``chip_smoke.py`` phase
+25)."""
 
 import numpy as np
 import pytest
@@ -27,10 +29,37 @@ def _t(fn, *arrays, **kw):
     return tuple(o.numpy() for o in out) if isinstance(out, tuple) else out.numpy()
 
 
+def _before(a, ia, b, ib):
+    """K6's argmin order: NaN first, then the least value, then the lower
+    index."""
+    na, nb = np.isnan(a), np.isnan(b)
+    if na != nb:
+        return bool(na)
+    if na:
+        return ia < ib
+    return a < b or (a == b and ia < ib)
+
+
+def _argmin_lanes(sad):
+    """K6's argmin in numpy: lane l takes the first least of sad[l],
+    sad[l + 32], ...; five butterfly steps (xor 16, 8, 4, 2, 1) keep the
+    pair that comes first; lane 0's index."""
+    lanes = [(np.float32(np.inf), 2**31 - 1)] * 32
+    for i, v in enumerate(sad):
+        if _before(v, i, *lanes[i % 32]):
+            lanes[i % 32] = (v, i)
+    for off in (16, 8, 4, 2, 1):
+        lanes = [lanes[l ^ off] if _before(*lanes[l ^ off], *lanes[l]) else lanes[l]
+                 for l in range(32)]
+    return lanes[0][1]
+
+
 def _shifts_loop(key, cur, radius=4, block=16, accept_frac=0.7):
-    """K6's loop in numpy f32: per block, thread o sums shift o's |cur - key|
-    row-major over the edge-clamped window; the first least SAD; accepted
-    below f32(accept_frac) x the centre's SAD."""
+    """K6's schedule in numpy f32: for each block and shift, four threads
+    q = 0..3 sum |cur - key| in order over the rows y = q, q + 4, ... of the
+    edge-clamped window, each row left to right; the sums combine as
+    (s0 + s1) + (s2 + s3); the argmin of ``_argmin_lanes``; accepted below
+    f32(accept_frac) x the centre's SAD."""
     b, hs, ws = key.shape
     k = 2 * radius + 1
     dy = np.zeros((b, hs // block, ws // block), np.int32)
@@ -46,14 +75,11 @@ def _shifts_loop(key, cur, radius=4, block=16, accept_frac=0.7):
                 sad = np.empty(k * k, np.float32)
                 for o in range(k * k):
                     oy, ox = divmod(o, k)
-                    s = f32(0)
-                    for v in np.abs(c - win[oy:oy + block, ox:ox + block]).ravel():
-                        s = f32(s + v)
-                    sad[o] = s
-                best = 0
-                for o in range(1, k * k):
-                    if sad[o] < sad[best]:
-                        best = o
+                    d = np.abs(c - win[oy:oy + block, ox:ox + block]).astype(np.float32)
+                    s = [np.cumsum(d[q::4].ravel(), dtype=np.float32)[-1] if q < block else f32(0)
+                         for q in range(4)]
+                    sad[o] = f32(f32(s[0] + s[1]) + f32(s[2] + s[3]))
+                best = _argmin_lanes(sad)
                 if sad[best] < f32(accept_frac) * sad[radius * k + radius]:
                     dy[n, by, bx], dx[n, by, bx] = radius - best // k, radius - best % k
     return dy, dx

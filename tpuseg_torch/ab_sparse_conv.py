@@ -6,7 +6,7 @@ and neighbours.
         [--old-q OLD_sparse_conv_q.cu] [--old-quantize OLD_quantize.cu]
         [--old-stem OLD_sparse_conv_q.cu OLD_sparse_conv_q_narrow.cu]
         [--old-bsr OLD_bsr_matmul.cu] [--old-up OLD_upsample_argmax.cu]
-        [--old-temporal OLD_temporal.cu] [--skip-fps]
+        [--old-temporal OLD_temporal.cu] [--old-flow OLD_flow.cu] [--skip-fps]
 
 Each option is a copy of that source from another commit, e.g.
 ``git show <commit>:tpuseg_torch/csrc/sparse_conv_q.cu > _scratch/old_q.cu``
@@ -81,6 +81,15 @@ batch-32 shapes of ``chip_smoke.py``:
   ``sparse_int8_budget8``'s (block128reg_87.50 gathered, int8 calibrated
   on 8 frames, batch 32, K = 8, 64 shapes frames of seed 1) through
   ``benchmark_adaptive_device_fps`` with each build.
+- ``--old-flow`` (K6 and K7, ``flow.cu``; the C interface is unchanged, so
+  ``old_flow`` launches the copy through the current wrappers' host code):
+  the two builds' outputs compared, then K6 at the serving luma (32, 128,
+  256) f32 (the 32 shapes frames of seed 0 against their interval-4
+  keyframes) and K7 at (32, 1024, 2048) uint8 with K6's shifts and with
+  random shifts in [-6, 6], in turns (old, new, new, old) twice, back to
+  back and as device time (``graph_ms``); unless ``--skip-fps``, the device
+  fps of interval 4 + nearest + warp (dense bf16, batch 32) with each
+  build, beside interval 4 + nearest without the warp.
 - ``--old-bsr`` (kernels B5/B6, ``bsr_matmul.cu``): ``bsr_matmul`` and
   ``bsr_matmul_gathered`` at x (512, 2**20) with the 512x512 87.5 % W,
   beside ``torch.mm(..., out_dtype=torch.float32)``.
@@ -135,7 +144,8 @@ SOURCES = {"b2": ("sparse_conv.cu", ("tpuseg_sparse_conv",), "const void* nsteps
            "bsr": ("bsr_matmul.cu", ("tpuseg_bsr_matmul",), "int nnzb"),
            "up": ("upsample_argmax.cu", ("tpuseg_upsample_argmax",), "void* stream"),
            "temporal": ("temporal.cu", ("tpuseg_frame_deltas", "tpuseg_budget_select",
-                                        "tpuseg_keyframe_select"), "tpuseg_frame_deltas_budget")}
+                                        "tpuseg_keyframe_select"), "tpuseg_frame_deltas_budget"),
+           "flow": ("flow.cu", ("tpuseg_block_shifts", "tpuseg_warp_ids"), "void* stream")}
 SERVING_LOGITS = (32, 128, 256, 19)
 
 
@@ -467,6 +477,39 @@ def old_temporal(fns, newer: bool) -> dict:
     return {"frame_deltas_budget": frame_deltas_budget, "keyframe_select": keyframe_select}
 
 
+def old_flow(fns, _newer: bool) -> dict:
+    """K6 and K7 on the old copy's two entries (``fns``; the C interface is
+    the new one's), with the new wrappers' host code: name -> a function
+    with the new wrapper's signature."""
+    from tpuseg_torch.video import flow
+
+    shifts_fn, warp_fn = fns
+    lib = _build.load_library()
+    shifts_fn.argtypes = lib.tpuseg_block_shifts.argtypes
+    warp_fn.argtypes = lib.tpuseg_warp_ids.argtypes
+
+    def estimate_block_shifts(key_small, cur_small, *, radius=4, block=16, accept_frac=0.7):
+        flow._check_luma(key_small, cur_small, radius, block)
+        b, hs, ws = key_small.shape
+        dy, dx = torch.empty((2, b, hs // block, ws // block), dtype=torch.int32,
+                             device=key_small.device).unbind(0)
+        sc._raise_on(lib, "old estimate_block_shifts", shifts_fn(
+            key_small.data_ptr(), cur_small.data_ptr(), dy.data_ptr(), dx.data_ptr(), b, hs, ws,
+            radius, block, float(accept_frac), _stream(key_small)))
+        return dy, dx
+
+    def warp_ids(key_ids, dy_blocks, dx_blocks, *, scale, block, radius=4):
+        flow._check_warp(key_ids, dy_blocks, dx_blocks, scale, block)
+        b, h, w = key_ids.shape
+        out = torch.empty_like(key_ids)
+        sc._raise_on(lib, "old warp_ids", warp_fn(
+            key_ids.data_ptr(), dy_blocks.data_ptr(), dx_blocks.data_ptr(), out.data_ptr(), b, h,
+            w, scale, block, radius, _stream(key_ids)))
+        return out
+
+    return {"estimate_block_shifts": estimate_block_shifts, "warp_ids": warp_ids}
+
+
 def _quantize_plain(x, x_scale, chan=None):
     """The PyTorch quantize pass, with the channel map the kernels take."""
     return sc.quantize_activation_reference(
@@ -493,10 +536,14 @@ class Kernels:
                     "stem": polyphase.fused_sparse_conv_q_bias_relu,
                     "stem_convs": polyphase.PolyphaseFrontend._stem_convs,
                     "keyframe_select": pipeline.keyframe_select,
-                    "frame_deltas_budget": pipeline.frame_deltas_budget}
+                    "frame_deltas_budget": pipeline.frame_deltas_budget,
+                    "estimate_block_shifts": pipeline.estimate_block_shifts,
+                    "warp_ids": pipeline.warp_ids}
         self.old = {}
         if "temporal" in olds:
             self.old.update(old_temporal(*olds["temporal"]))
+        if "flow" in olds:
+            self.old.update(old_flow(*olds["flow"]))
         if "b2" in olds:
             self.old["b2"] = old_b2(*olds["b2"])
         if "b3" in olds:
@@ -545,6 +592,8 @@ class Kernels:
         self.poly.PolyphaseFrontend._stem_convs = funcs["stem_convs"]
         self.pipe.keyframe_select = funcs["keyframe_select"]
         self.pipe.frame_deltas_budget = funcs["frame_deltas_budget"]
+        self.pipe.estimate_block_shifts = funcs["estimate_block_shifts"]
+        self.pipe.warp_ids = funcs["warp_ids"]
         skip = {k for kinds in self.no_route for k in kinds} if which == "old" else set()
         route = self.new["route"]
         self.drn._sparse_conv_bias_bf16 = (
@@ -895,6 +944,50 @@ def _temporal_turns(kernels: Kernels, frames: list, dev) -> dict:
             "device": device}
 
 
+def _flow_turns(kernels: Kernels, frames: list, dev, gen) -> dict:
+    """``--old-flow``: K6 on the pooled luma of the 32 shapes ``frames``
+    against their interval-4 keyframes' (as phase 25 of ``chip_smoke.py``
+    times it) and K7 on random (32, 1024, 2048) ids with K6's shifts and
+    with random shifts in [-6, 6]; the two builds' outputs compared, then
+    in turns (old, new, new, old) twice, back to back and in CUDA graphs
+    (device time)."""
+    from tpuseg_torch.video.flow import pooled_luma
+
+    h, w = FULL
+    fb = torch.from_numpy(np.stack(frames).reshape(len(frames), h, -1)).to(dev)
+    cs = pooled_luma(fb)
+    ks = cs[::4].repeat_interleave(4, 0).contiguous()
+    del fb
+    ids = torch.randint(0, 19, (32, h, w), generator=gen, device=dev,
+                        dtype=torch.int32).to(torch.uint8)
+    pipe = kernels.pipe
+    dyk, dxk = pipe.estimate_block_shifts(ks, cs)
+    dyr, dxr = (torch.randint(-6, 7, (32, h // 128, w // 128), generator=gen, device=dev,
+                              dtype=torch.int32) for _ in range(2))
+    fns = {"k6": lambda: pipe.estimate_block_shifts(ks, cs),
+           "k7_k6_shifts": lambda: pipe.warp_ids(ids, dyk, dxk, scale=8, block=16),
+           "k7_random_shifts": lambda: pipe.warp_ids(ids, dyr, dxr, scale=8, block=16)}
+    same = {}
+    for name, fn in fns.items():
+        kernels.use("old")
+        old = fn()
+        kernels.use("new")
+        new = fn()
+        old, new = (old, new) if isinstance(old, tuple) else ((old,), (new,))
+        same[name] = all(torch.equal(a, b) for a, b in zip(old, new))
+    turns = ab(kernels, fns, iters=20, rounds=2)
+    graph = {name: {"old": [], "new": []} for name in fns}
+    for which in ("old", "new", "new", "old") * 2:
+        kernels.use(which)
+        for name, fn in fns.items():
+            graph[name][which].append(graph_ms(fn, 20))
+    kernels.use("new")
+    return {"k6_shape": list(cs.shape), "k7_shape": list(ids.shape), "old_equals_new": same,
+            "accepted_k6_shifts": int((dyk != 0).sum() + (dxk != 0).sum()), "turns": turns,
+            "new_over_old": _median_ratios(turns), "graph_turns": graph,
+            "graph_new_over_old": _median_ratios(graph)}
+
+
 def _device_ms(fn, calls: int = 10) -> dict:
     """Device ms a call of ``fn`` (``torch.profiler`` over ``calls`` calls,
     after a warm one): the sum over kernels and memsets, and each kernel
@@ -961,18 +1054,20 @@ def main(argv=None) -> int:
     ap.add_argument("--old-up", help="the other commit's upsample_argmax.cu (kernel B1)")
     ap.add_argument("--old-temporal", help="temporal.cu of a commit before K5's one launch "
                                            "(K3, K4 and K5)")
+    ap.add_argument("--old-flow", help="the other commit's flow.cu (K6 and K7)")
     ap.add_argument("--skip-fps", action="store_true", help="kernel times only")
     args = ap.parse_args(argv)
     copies = {k: v for k, v in (("b2", args.old), ("b3", args.old_q),
                                 ("quantize", args.old_quantize), ("bsr", args.old_bsr),
-                                ("up", args.old_up), ("temporal", args.old_temporal)) if v}
+                                ("up", args.old_up), ("temporal", args.old_temporal),
+                                ("flow", args.old_flow)) if v}
     if args.old_stem:
         if args.old_q:
             ap.error("--old-stem and --old-q both replace B3: give one")
         copies["stem_q"], copies["stem_narrow"] = args.old_stem
     if not copies:
         ap.error("give at least one of --old, --old-q, --old-quantize, --old-stem, --old-bsr, "
-                 "--old-up, --old-temporal")
+                 "--old-up, --old-temporal, --old-flow")
     if not torch.cuda.is_available():
         print("ab_sparse_conv: no CUDA card", file=sys.stderr)
         return 1
@@ -1094,6 +1189,13 @@ def main(argv=None) -> int:
 
         _emit(phase="temporal_select", size=list(FULL),
               **_temporal_turns(kernels, list(shapes_video(32, FULL, seed=0)[0]), dev),
+              card=smi)
+        torch.cuda.empty_cache()
+    if "flow" in olds:
+        from tpuseg_torch.data.shapes import shapes_video
+
+        _emit(phase="flow_kernels", size=list(FULL),
+              **_flow_turns(kernels, list(shapes_video(32, FULL, seed=0)[0]), dev, gen),
               card=smi)
         torch.cuda.empty_cache()
     if "b3" in olds:
@@ -1227,6 +1329,20 @@ def main(argv=None) -> int:
         _emit(phase="adaptive_device_fps", size=list(FULL),
               **_adaptive_fps_turns(kernels, params, masked, state, spec, plans["gathered"]),
               card=smi)
+        torch.cuda.empty_cache()
+    if "flow" in olds:
+        # interval 4 + nearest + warp with each K6/K7 build, beside the
+        # same without the warp
+        def interval(warp):
+            return VideoSegmenter(params, state, spec, MEAN, STD, device=dev,
+                                  compute_dtype=torch.bfloat16, batch=32, temporal_interval=4,
+                                  temporal_nearest=True, temporal_warp=warp)
+
+        fps = _fps_turns(kernels, {"interval4_nearest_warp": interval(True)},
+                         {"interval4_nearest": interval(False)})
+        _emit(phase="warp_device_fps", size=list(FULL), batch=32, device_fps=fps,
+              new_over_old=float(np.median(fps["interval4_nearest_warp_new"])
+                                 / np.median(fps["interval4_nearest_warp_old"])), card=smi)
         torch.cuda.empty_cache()
     if "up" in olds:
         # dense bf16 device fps at batch 32 with each B1 build, and one

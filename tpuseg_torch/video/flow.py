@@ -11,9 +11,13 @@ gathers the keyframe's ids along it.
 - ``estimate_block_shifts``: kernel K6 (``csrc/flow.cu``), the SAD of every
   (2r+1)^2 shift of the edge-replicated keyframe luma per block, argmin
   (first index on ties), accepted where it beats the zero shift by the
-  margin ``accept_frac``.
+  margin ``accept_frac``.  A CTA takes a run of blocks of one block row;
+  four threads share each (block, row offset)'s rows, summing every column
+  offset at once, and combine by shuffles; a warp a block takes the argmin
+  by shuffles.
 - ``warp_ids``: kernel K7 (``csrc/flow.cu``), ``tpuseg``'s separable
-  roll + select passes as one gather per pixel.
+  roll + select passes as one gather per pixel, a CTA a band of 2 rows with
+  its block row's shifts in shared memory, 16-byte vectors at scale 8.
 
 On a CUDA tensor each kernel's wrapper launches it on the current stream and
 counts it in ``<wrapper>.launches``; on a CPU tensor it runs the plain
@@ -25,7 +29,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tpuseg_torch.ops.sparse_conv import _raise_on
+from tpuseg_torch.ops import _build
+from tpuseg_torch.ops.sparse_conv import _on_device, _raise_on, _raw_stream
 
 
 def downsample_luma(frames_u8: torch.Tensor, h: int, w: int, factor: int) -> torch.Tensor:
@@ -100,27 +105,25 @@ def estimate_block_shifts(key_small: torch.Tensor, cur_small: torch.Tensor, *,
     ``accept_frac`` x the zero shift's SAD, else (0, 0).
 
     On a CUDA tensor it launches K6 (counted in
-    ``estimate_block_shifts.launches``); on a CPU tensor it runs
-    ``estimate_block_shifts_reference``."""
+    ``estimate_block_shifts.launches``); dy and dx are views of one buffer.
+    On a CPU tensor it runs ``estimate_block_shifts_reference``."""
     _check_luma(key_small, cur_small, radius, block)
-    if key_small.device.type == "cpu":
+    dev = key_small.device
+    if dev.type == "cpu":
         return estimate_block_shifts_reference(key_small, cur_small, radius=radius, block=block,
                                                accept_frac=accept_frac)
-    if key_small.device.type != "cuda":
-        raise ValueError(f"unsupported device {key_small.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     if not (key_small.is_contiguous() and cur_small.is_contiguous()):
         raise ValueError("luma maps must be contiguous")
-    from tpuseg_torch.ops._build import load_library
-
     b, hs, ws = key_small.shape
-    dy = torch.empty((b, hs // block, ws // block), dtype=torch.int32, device=key_small.device)
-    dx = torch.empty_like(dy)
-    lib = load_library()
-    with torch.cuda.device(key_small.device):
-        stream = torch.cuda.current_stream(key_small.device).cuda_stream
+    dy, dx = torch.empty((2, b, hs // block, ws // block), dtype=torch.int32,
+                         device=dev).unbind(0)
+    lib = _build.load_library()
+    with _on_device(dev):
         err = lib.tpuseg_block_shifts(key_small.data_ptr(), cur_small.data_ptr(), dy.data_ptr(),
                                       dx.data_ptr(), b, hs, ws, radius, block, float(accept_frac),
-                                      stream)
+                                      _raw_stream(dev))
     _raise_on(lib, "estimate_block_shifts", err)
     estimate_block_shifts.launches += 1
     return dy, dx
@@ -179,22 +182,20 @@ def warp_ids(key_ids: torch.Tensor, dy_blocks: torch.Tensor, dx_blocks: torch.Te
     On a CUDA tensor it launches K7 (counted in ``warp_ids.launches``); on a
     CPU tensor it runs ``warp_ids_reference``."""
     _check_warp(key_ids, dy_blocks, dx_blocks, scale, block)
-    if key_ids.device.type == "cpu":
+    dev = key_ids.device
+    if dev.type == "cpu":
         return warp_ids_reference(key_ids, dy_blocks, dx_blocks, scale=scale, block=block,
                                   radius=radius)
-    if key_ids.device.type != "cuda":
-        raise ValueError(f"unsupported device {key_ids.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     if not (key_ids.is_contiguous() and dy_blocks.is_contiguous() and dx_blocks.is_contiguous()):
         raise ValueError("ids and shifts must be contiguous")
-    from tpuseg_torch.ops._build import load_library
-
     b, h, w = key_ids.shape
     out = torch.empty_like(key_ids)
-    lib = load_library()
-    with torch.cuda.device(key_ids.device):
-        stream = torch.cuda.current_stream(key_ids.device).cuda_stream
+    lib = _build.load_library()
+    with _on_device(dev):
         err = lib.tpuseg_warp_ids(key_ids.data_ptr(), dy_blocks.data_ptr(), dx_blocks.data_ptr(),
-                                  out.data_ptr(), b, h, w, scale, block, radius, stream)
+                                  out.data_ptr(), b, h, w, scale, block, radius, _raw_stream(dev))
     _raise_on(lib, "warp_ids", err)
     warp_ids.launches += 1
     return out
