@@ -158,9 +158,12 @@ Phases (any failed check raises and the exit code is non-zero):
      and a period-2 map (ties), and resized luma agreeing on >= 0.99 of the
      blocks; K7 the seam and range cases, (32, 1024, 2048) ids, and at scale
      8 odd shifts, split vectors at the frame's edges, dy seams, shifts
-     outside the radius and a 640-px width; K8 0/255, random planes, 8
-     frames at 1024x2048), a strided input raising, and each timed in turns
-     against its plain version with its bound, and its device time;
+     outside the radius and a 640-px width; K8 on its vector path on
+     0/255, 8 frames at 1024x2048 and at 512x1024, a 640x360 decode and
+     every (Y, U, V) triple, on its byte path on random planes 130 and 854
+     wide and a view one byte off 16-byte alignment), a strided input
+     raising, and each timed in turns against its plain version with its
+     bound, and its device time (K8 also at 8 x 512x1024);
  26. interval 4 with nearest and warped reuse, dense bf16, batch 32: run()
      with exact counts a batch (B1, K3, K6, K7 once), the keyframes' ids
      equal ``ids_for`` on the same 8 frames, the device rate, and device ms
@@ -172,9 +175,9 @@ Phases (any failed check raises and the exit code is non-zero):
      K5's plain version on the CPU, one forward a batch of exactly the
      promoted frames, K5 one launch a batch, the adaptive rate;
  29. yuv420 with a 512x1024 -> 1024x2048 device resize and 5-bit ids at
-     batch 8: K8 and B1 once a batch, ids equal the unpacked run's,
-     device color and overlay equal their reconstruction, bytes up and down
-     a batch;
+     batch 8: K8 (on its vector path) and B1 once a batch, ids equal the
+     unpacked run's, device color and overlay equal their reconstruction,
+     bytes up and down a batch;
  30. ``python -m tpuseg_torch.cli.seg_video --video shapes --size 1024x2048
      --frames 32 --batch 8 --temporal-autotune 0.9 --temporal-warp``: its
      temporal_autotune event and result line parse.
@@ -2221,9 +2224,11 @@ def _new_kernels(torch, np, dev, frames, smi) -> dict:
     with a known translation and on the serving luma (the shapes frames'
     pooled luma against their interval-4 keyframes'); K7 on the seam and
     range cases of tests/test_video.py:460 and on (32, 1024, 2048) ids with
-    shifts in [-6, 6]; K8 on 0/255 planes, random planes and the shapes
-    frames as I420.  A strided input must raise.  Then each in turns against
-    its plain version (and K5 against tpuseg's f32-mean scan in eager
+    shifts in [-6, 6]; K8 on 0/255 planes, random planes, the shapes
+    frames as I420 at 1024x2048 and 512x1024, a 640x360 decode, 854x480, a
+    view one byte off 16-byte alignment and every (Y, U, V) triple, each on
+    the path it must take (vector or byte, from the two counters).  A
+    strided input must raise.  Then each in turns against its plain version (and K5 against tpuseg's f32-mean scan in eager
     PyTorch) at its serving shape, with its bound; K5 as the sequential mode
     serves it, under inference mode, back to back and with its promoted
     count read on the host after each call, its device time from
@@ -2335,19 +2340,36 @@ def _new_kernels(torch, np, dev, frames, smi) -> dict:
               moved=int((want != ids).sum()))
         if not same:
             raise AssertionError(f"K7 differs from its plain version ({label})")
-    # K8
+    # K8, each case on the path it must take (read from the two counters)
     i420 = torch.from_numpy(rgb_to_i420(np.stack(frames[:8]))).to(dev)
-    k8_cases = {
-        "0 and 255": torch.stack([torch.zeros((24, 16), dtype=torch.uint8, device=dev),
-                                  torch.full((24, 16), 255, dtype=torch.uint8, device=dev)]),
-        "random planes": u8(4, 96, 130),
-        "shapes 8 x 1024x2048": i420,
+    i420_half = torch.from_numpy(rgb_to_i420(np.stack(
+        [f[::2, ::2] for f in frames[:8]]))).to(dev)  # phase 29's 512x1024 decode
+    k8_cases = {  # label -> (input, path)
+        "0 and 255": (torch.stack([torch.zeros((24, 16), dtype=torch.uint8, device=dev),
+                                   torch.full((24, 16), 255, dtype=torch.uint8, device=dev)]),
+                      "vector"),
+        "random planes, 130 wide": (u8(4, 96, 130), "byte"),
+        "shapes 8 x 1024x2048": (i420, "vector"),
+        "shapes 8 x 512x1024": (i420_half, "vector"),
+        "640x360 decode": (torch.from_numpy(rgb_to_i420(dec.cpu().numpy())).to(dev), "vector"),
+        "854x480": (u8(2, 720, 854), "byte"),
+        "one byte off 16-byte alignment": (
+            u8(2 * 96 * 64 + 1)[1:].view(2, 96, 64), "byte"),
+        "every (Y, U, V) triple": (_k8_every_triple(torch, dev), "vector"),
     }
-    for label, x in k8_cases.items():
-        same = torch.equal(i420_to_rgb_flat(x), i420_to_rgb_flat_reference(x))
-        _emit(phase="k8_vs_plain", case=label, shape=list(x.shape), bit_equal=same)
-        if not same:
-            raise AssertionError(f"K8 differs from its plain version ({label})")
+    for label, (x, path) in k8_cases.items():
+        torch.cuda.synchronize()
+        before = (i420_to_rgb_flat.launches, i420_to_rgb_flat.vector_launches)
+        got = i420_to_rgb_flat(x)
+        launched = i420_to_rgb_flat.launches - before[0]
+        took = "vector" if i420_to_rgb_flat.vector_launches - before[1] else "byte"
+        same = torch.equal(got, i420_to_rgb_flat_reference(x))
+        _emit(phase="k8_vs_plain", case=label, shape=list(x.shape), path=took, bit_equal=same,
+              launches=launched)
+        if not same or launched != 1 or took != path:
+            raise AssertionError(f"K8 differs from its plain version ({label}), launched "
+                                 f"{launched} times or took its {took} path (want {path})")
+    del k8_cases, got
     strided = {
         "keyframe_select": lambda: keyframe_select(fb[::2], fb[0], n_keyed(0), 1.0),
         "estimate_block_shifts": lambda: estimate_block_shifts(luma[::2], luma[1::2]),
@@ -2409,6 +2431,19 @@ def _new_kernels(torch, np, dev, frames, smi) -> dict:
             extra["with_count_read_ms"] = min(turns["with_count_read"])
         else:
             turns = _time_turns(torch, fns, iters)
+        if name == "i420_to_rgb_flat":  # also at phase 29's served decode
+            def half():
+                return i420_to_rgb_flat(i420_half)
+
+            half_turns = _time_turns(
+                torch, {"kernel": half, "plain": lambda: i420_to_rgb_flat_reference(i420_half)},
+                iters)
+            n_px = i420_half.shape[0] * 512 * 1024
+            extra["decode_512x1024"] = {
+                "shape": list(i420_half.shape), "turns": half_turns,
+                "ms": min(half_turns["kernel"]), "device_ms": _device_ms(torch, half)[0],
+                "plain_ms": min(half_turns["plain"]),
+                "bound_ms": _bound(i420_half.numel() + 3 * n_px, 9 * n_px, "f32")[0]}
         device_ms, extra["device_kernels"] = _device_ms(torch, kern)
         if ops is None:  # K6: issued f32 instructions at the lane rate
             ops_ms = K6_INSTRUCTIONS * 81 * ks.numel() / lane_rate * 1e3
@@ -2424,9 +2459,23 @@ def _new_kernels(torch, np, dev, frames, smi) -> dict:
         times[name] = row
         _emit(phase="new_kernel_time", kernel=name, id=FLOW_ENTRIES[name][0], turns=turns, **row,
               **extra, card=smi)
-    del fb, ids_full, luma, ks, i420
+    del fb, ids_full, luma, ks, i420, i420_half
     torch.cuda.empty_cache()
     return times
+
+
+def _k8_every_triple(torch, dev):
+    """(64, 768, 512) uint8 I420 holding every (Y, U, V) triple once: the
+    256x256 chroma planes hold every (U, V) pair (U the chroma row, V the
+    column), and the four Y values of each 2x2 block are 4f .. 4f + 3 in
+    frame f, so across the 64 frames each block's Y takes all 256 levels."""
+    f = torch.arange(64, device=dev, dtype=torch.int32).view(64, 1, 1, 1, 1)
+    quad = torch.tensor([[0, 1], [2, 3]], device=dev, dtype=torch.int32).view(1, 1, 2, 1, 2)
+    y = (4 * f + quad).expand(64, 256, 2, 256, 2).reshape(64, 512, 512)
+    c = torch.arange(256, device=dev, dtype=torch.int32)
+    u = c.view(256, 1).expand(256, 256).reshape(128, 512)
+    v = c.view(1, 256).expand(256, 256).reshape(128, 512)
+    return torch.cat([y, u.expand(64, 128, 512), v.expand(64, 128, 512)], 1).to(torch.uint8)
 
 
 def _k7_vector_cases(torch, np, dev, gen, rng) -> dict:
@@ -2638,11 +2687,11 @@ def _sequential_full(torch, np, dev, params, state, spec, frames, smi) -> dict:
 def _transport_full(torch, np, dev, params, state, spec, smi) -> dict:
     """Phase 29: transport="yuv420" with target_size from a 512x1024 decode
     to 1024x2048 and ids_bits=5, dense bf16, run() at batch 8 over 32 shapes
-    frames made at decode size: K8 and B1 once a batch; the unpacked ids
-    equal the unpacked-free run's bit for bit; device_outputs' color and
-    overlay equal their reconstruction from the same ids and frames (the
-    palette gather, and the blend of the frames through K8 and the device
-    resize); the bytes each batch ships up (1.5 a decode pixel) and down,
+    frames made at decode size: K8 (every launch on its vector path) and B1
+    once a batch; the unpacked ids equal the unpacked-free run's bit for
+    bit; device_outputs' color and overlay equal their reconstruction from
+    the same ids and frames (the palette gather, and the blend of the
+    frames through K8 and the device resize); the bytes each batch ships up (1.5 a decode pixel) and down,
     and run()'s host work a batch (RGB -> I420, the unpack)."""
     from tpuseg_torch.data.shapes import shapes_video
     from tpuseg_torch.ops.idpack import unpack_ids
@@ -2656,12 +2705,15 @@ def _transport_full(torch, np, dev, params, state, spec, smi) -> dict:
               transport="yuv420")
     seg = VideoSegmenter(params, state, spec, MEAN, STD, ids_bits=5, **kw)
     _zero_counts(torch, i420_to_rgb_flat, upsample_argmax)
+    i420_to_rgb_flat.vector_launches = 0
     packed = seg.run(frames, need_color=False)
     torch.cuda.synchronize()
     got = {"i420_to_rgb_flat": i420_to_rgb_flat.launches,
+           "i420_to_rgb_flat_vector": i420_to_rgb_flat.vector_launches,
            "upsample_argmax": upsample_argmax.launches}
-    forwards = 1 + len(frames) // 8
-    want = {"i420_to_rgb_flat": forwards, "upsample_argmax": forwards}
+    forwards = 1 + len(frames) // 8  # every served K8 launch on its vector path
+    want = {"i420_to_rgb_flat": forwards, "i420_to_rgb_flat_vector": forwards,
+            "upsample_argmax": forwards}
     plain = VideoSegmenter(params, state, spec, MEAN, STD, **kw).run(frames, need_color=False)
     same_ids = bool(np.array_equal(packed["ids"], plain["ids"]))
     outs = {}

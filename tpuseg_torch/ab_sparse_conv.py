@@ -6,7 +6,8 @@ and neighbours.
         [--old-q OLD_sparse_conv_q.cu] [--old-quantize OLD_quantize.cu]
         [--old-stem OLD_sparse_conv_q.cu OLD_sparse_conv_q_narrow.cu]
         [--old-bsr OLD_bsr_matmul.cu] [--old-up OLD_upsample_argmax.cu]
-        [--old-temporal OLD_temporal.cu] [--old-flow OLD_flow.cu] [--skip-fps]
+        [--old-temporal OLD_temporal.cu] [--old-flow OLD_flow.cu]
+        [--old-yuv OLD_yuv.cu] [--skip-fps]
 
 Each option is a copy of that source from another commit, e.g.
 ``git show <commit>:tpuseg_torch/csrc/sparse_conv_q.cu > _scratch/old_q.cu``
@@ -90,6 +91,13 @@ batch-32 shapes of ``chip_smoke.py``:
   back and as device time (``graph_ms``); unless ``--skip-fps``, the device
   fps of interval 4 + nearest + warp (dense bf16, batch 32) with each
   build, beside interval 4 + nearest without the warp.
+- ``--old-yuv`` (K8, ``yuv.cu``; the C interface is unchanged, so
+  ``old_yuv`` puts the copy behind the current wrapper's own host code):
+  the two builds' outputs compared, then K8 on random I420 planes at
+  (8, 1024x2048), (8, 512x1024) and (32, 1024x2048) in turns (old, new,
+  new, old) twice, back to back and as device time (``graph_ms``); unless
+  ``--skip-fps``, the dense bf16 device fps at batch 32 with
+  ``transport="yuv420"`` with each build.
 - ``--old-bsr`` (kernels B5/B6, ``bsr_matmul.cu``): ``bsr_matmul`` and
   ``bsr_matmul_gathered`` at x (512, 2**20) with the 512x512 87.5 % W,
   beside ``torch.mm(..., out_dtype=torch.float32)``.
@@ -116,6 +124,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -145,7 +154,8 @@ SOURCES = {"b2": ("sparse_conv.cu", ("tpuseg_sparse_conv",), "const void* nsteps
            "up": ("upsample_argmax.cu", ("tpuseg_upsample_argmax",), "void* stream"),
            "temporal": ("temporal.cu", ("tpuseg_frame_deltas", "tpuseg_budget_select",
                                         "tpuseg_keyframe_select"), "tpuseg_frame_deltas_budget"),
-           "flow": ("flow.cu", ("tpuseg_block_shifts", "tpuseg_warp_ids"), "void* stream")}
+           "flow": ("flow.cu", ("tpuseg_block_shifts", "tpuseg_warp_ids"), "void* stream"),
+           "yuv": ("yuv.cu", ("tpuseg_i420_to_rgb",), "void* stream")}
 SERVING_LOGITS = (32, 128, 256, 19)
 
 
@@ -510,6 +520,17 @@ def old_flow(fns, _newer: bool) -> dict:
     return {"estimate_block_shifts": estimate_block_shifts, "warp_ids": warp_ids}
 
 
+def old_yuv(fn, _newer: bool) -> dict:
+    """K8's old copy (``fn``; the C interface is the new one's) behind the
+    new wrapper's own host code: a stand-in for the library that
+    ``video/yuv.py`` loads, with the old entry in the new one's place."""
+    lib = _build.load_library()
+    fn.argtypes = lib.tpuseg_i420_to_rgb.argtypes
+    old_lib = types.SimpleNamespace(tpuseg_i420_to_rgb=fn,
+                                    tpuseg_cuda_error_string=lib.tpuseg_cuda_error_string)
+    return {"yuv_library": lambda: old_lib}
+
+
 def _quantize_plain(x, x_scale, chan=None):
     """The PyTorch quantize pass, with the channel map the kernels take."""
     return sc.quantize_activation_reference(
@@ -526,9 +547,9 @@ class Kernels:
     def __init__(self, olds: dict):
         from tpuseg_torch.models import drn
         from tpuseg_torch.ops import polyphase, quant
-        from tpuseg_torch.video import pipeline
+        from tpuseg_torch.video import pipeline, yuv
 
-        self.drn, self.quant, self.poly, self.pipe = drn, quant, polyphase, pipeline
+        self.drn, self.quant, self.poly, self.pipe, self.yuv = drn, quant, polyphase, pipeline, yuv
         self.active = "new"
         self.new = {"b2": sc._launch_b2, "b3": sc._launch_b3, "bsr": bsr._launch,
                     "up": up._launch, "quantize": sc.quantize_activation,
@@ -538,12 +559,14 @@ class Kernels:
                     "keyframe_select": pipeline.keyframe_select,
                     "frame_deltas_budget": pipeline.frame_deltas_budget,
                     "estimate_block_shifts": pipeline.estimate_block_shifts,
-                    "warp_ids": pipeline.warp_ids}
+                    "warp_ids": pipeline.warp_ids, "yuv_library": yuv.load_library}
         self.old = {}
         if "temporal" in olds:
             self.old.update(old_temporal(*olds["temporal"]))
         if "flow" in olds:
             self.old.update(old_flow(*olds["flow"]))
+        if "yuv" in olds:
+            self.old.update(old_yuv(*olds["yuv"]))
         if "b2" in olds:
             self.old["b2"] = old_b2(*olds["b2"])
         if "b3" in olds:
@@ -594,6 +617,7 @@ class Kernels:
         self.pipe.frame_deltas_budget = funcs["frame_deltas_budget"]
         self.pipe.estimate_block_shifts = funcs["estimate_block_shifts"]
         self.pipe.warp_ids = funcs["warp_ids"]
+        self.yuv.load_library = funcs["yuv_library"]
         skip = {k for kinds in self.no_route for k in kinds} if which == "old" else set()
         route = self.new["route"]
         self.drn._sparse_conv_bias_bf16 = (
@@ -988,6 +1012,36 @@ def _flow_turns(kernels: Kernels, frames: list, dev, gen) -> dict:
             "graph_new_over_old": _median_ratios(graph)}
 
 
+YUV_SHAPES = ((8, 1024, 2048), (8, 512, 1024), (32, 1024, 2048))  # (B, H, W) decodes
+
+
+def _yuv_turns(kernels: Kernels, dev, gen) -> dict:
+    """``--old-yuv``: K8 on random I420 planes at each of ``YUV_SHAPES``
+    (the kernels line's shape, phase 29's served decode, a batch of 32);
+    the two builds' outputs compared, then in turns (old, new, new, old)
+    twice, back to back and in CUDA graphs (device time)."""
+    pipe = kernels.pipe
+    xs = {f"{b}x{h}x{w}": torch.randint(0, 256, (b, h * 3 // 2, w), generator=gen, device=dev,
+                                        dtype=torch.int32).to(torch.uint8)
+          for b, h, w in YUV_SHAPES}
+    fns = {name: (lambda x=x: pipe.i420_to_rgb_flat(x)) for name, x in xs.items()}
+    same = {}
+    for name, fn in fns.items():
+        kernels.use("old")
+        old = fn()
+        kernels.use("new")
+        same[name] = torch.equal(old, fn())
+    turns = ab(kernels, fns, iters=50, rounds=2)
+    graph = {name: {"old": [], "new": []} for name in fns}
+    for which in ("old", "new", "new", "old") * 2:
+        kernels.use(which)
+        for name, fn in fns.items():
+            graph[name][which].append(graph_ms(fn, 50))
+    kernels.use("new")
+    return {"old_equals_new": same, "turns": turns, "new_over_old": _median_ratios(turns),
+            "graph_turns": graph, "graph_new_over_old": _median_ratios(graph)}
+
+
 def _device_ms(fn, calls: int = 10) -> dict:
     """Device ms a call of ``fn`` (``torch.profiler`` over ``calls`` calls,
     after a warm one): the sum over kernels and memsets, and each kernel
@@ -1055,19 +1109,20 @@ def main(argv=None) -> int:
     ap.add_argument("--old-temporal", help="temporal.cu of a commit before K5's one launch "
                                            "(K3, K4 and K5)")
     ap.add_argument("--old-flow", help="the other commit's flow.cu (K6 and K7)")
+    ap.add_argument("--old-yuv", help="the other commit's yuv.cu (K8)")
     ap.add_argument("--skip-fps", action="store_true", help="kernel times only")
     args = ap.parse_args(argv)
     copies = {k: v for k, v in (("b2", args.old), ("b3", args.old_q),
                                 ("quantize", args.old_quantize), ("bsr", args.old_bsr),
                                 ("up", args.old_up), ("temporal", args.old_temporal),
-                                ("flow", args.old_flow)) if v}
+                                ("flow", args.old_flow), ("yuv", args.old_yuv)) if v}
     if args.old_stem:
         if args.old_q:
             ap.error("--old-stem and --old-q both replace B3: give one")
         copies["stem_q"], copies["stem_narrow"] = args.old_stem
     if not copies:
         ap.error("give at least one of --old, --old-q, --old-quantize, --old-stem, --old-bsr, "
-                 "--old-up, --old-temporal, --old-flow")
+                 "--old-up, --old-temporal, --old-flow, --old-yuv")
     if not torch.cuda.is_available():
         print("ab_sparse_conv: no CUDA card", file=sys.stderr)
         return 1
@@ -1197,6 +1252,9 @@ def main(argv=None) -> int:
         _emit(phase="flow_kernels", size=list(FULL),
               **_flow_turns(kernels, list(shapes_video(32, FULL, seed=0)[0]), dev, gen),
               card=smi)
+        torch.cuda.empty_cache()
+    if "yuv" in olds:
+        _emit(phase="yuv_kernel", **_yuv_turns(kernels, dev, gen), card=smi)
         torch.cuda.empty_cache()
     if "b3" in olds:
         # each of the 13 dense int8 convs at its batch-32 input: the quantize
@@ -1343,6 +1401,16 @@ def main(argv=None) -> int:
         _emit(phase="warp_device_fps", size=list(FULL), batch=32, device_fps=fps,
               new_over_old=float(np.median(fps["interval4_nearest_warp_new"])
                                  / np.median(fps["interval4_nearest_warp_old"])), card=smi)
+        torch.cuda.empty_cache()
+    if "yuv" in olds:
+        # dense bf16 served over the yuv420 transport with each K8 build
+        seg = VideoSegmenter(params, state, spec, MEAN, STD, device=dev,
+                             compute_dtype=torch.bfloat16, batch=32, transport="yuv420")
+        fps = _fps_turns(kernels, {"dense_yuv420": seg})
+        _emit(phase="yuv420_device_fps", size=list(FULL), batch=32, device_fps=fps,
+              new_over_old=float(np.median(fps["dense_yuv420_new"])
+                                 / np.median(fps["dense_yuv420_old"])), card=smi)
+        del seg
         torch.cuda.empty_cache()
     if "up" in olds:
         # dense bf16 device fps at batch 32 with each B1 build, and one

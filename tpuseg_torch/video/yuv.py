@@ -13,6 +13,14 @@ tensor ``i420_to_rgb_flat`` launches K8 (counted in
 ``i420_to_rgb_flat.launches``); on a CPU tensor it runs
 ``i420_to_rgb_flat_reference``, which equals ``tpuseg``'s function bit for
 bit (each product and sum rounded on its own, round half to even, clip).
+
+K8 takes one chroma row (two luma rows) of one frame a CTA, on one of two
+paths: the vector path where W % 16 == 0 and input and output are 16-byte
+aligned (``k8_vector_path``; 16 columns of both rows a thread, 16-byte
+loads and stores), else the byte path (a 2x2 block a thread).  Vector-path
+launches also count in ``i420_to_rgb_flat.vector_launches``.  Limits of the
+kernel's grid and 32-bit offsets: H/2 <= 65,535, B <= 65,535 and
+3*H*W < 2**31; a call beyond them raises.
 """
 
 from __future__ import annotations
@@ -20,7 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpuseg_torch.ops.sparse_conv import _raise_on
+from tpuseg_torch.ops._build import load_library
+from tpuseg_torch.ops.sparse_conv import _on_device, _raise_on, _raw_stream
 
 
 def rgb_to_i420(frames: np.ndarray) -> np.ndarray:
@@ -85,6 +94,12 @@ def i420_to_rgb_flat_reference(x: torch.Tensor) -> torch.Tensor:
     return rgb.reshape(b, h, w * 3)
 
 
+def k8_vector_path(x: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether K8 converts ``x`` into ``out`` on its vector path: W % 16 == 0
+    and both 16-byte aligned (the kernel's entry makes the same test)."""
+    return x.shape[-1] % 16 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+
+
 def i420_to_rgb_flat(x: torch.Tensor) -> torch.Tensor:
     """(B, H*3/2, W) uint8 I420 -> FLAT (B, H, W*3) uint8 RGB."""
     b, h, w = _check(x)
@@ -94,16 +109,16 @@ def i420_to_rgb_flat(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {x.device}")
     if not x.is_contiguous():
         raise ValueError("I420 frames must be contiguous")
-    from tpuseg_torch.ops._build import load_library
-
     out = torch.empty((b, h, w * 3), dtype=torch.uint8, device=x.device)
     lib = load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tpuseg_i420_to_rgb(x.data_ptr(), out.data_ptr(), b, h, w, stream)
+    with _on_device(x.device):
+        err = lib.tpuseg_i420_to_rgb(x.data_ptr(), out.data_ptr(), b, h, w,
+                                     _raw_stream(x.device))
     _raise_on(lib, "i420_to_rgb_flat", err)
     i420_to_rgb_flat.launches += 1
+    i420_to_rgb_flat.vector_launches += k8_vector_path(x, out)
     return out
 
 
 i420_to_rgb_flat.launches = 0
+i420_to_rgb_flat.vector_launches = 0
