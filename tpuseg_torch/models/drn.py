@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpuseg_torch.metrics.profiling import span
 from tpuseg_torch.models.weights import from_jax_params
 
 Params = dict[str, torch.Tensor]
@@ -774,21 +775,24 @@ def drn_forward(
     for stage_index, (stage_name, stage) in enumerate(spec.stages):
         if stem_fn is not None and stage_index < stem_stages:
             if stage_index == 0:
-                x = nhwc_to_nchw(stem_fn(x))
+                with span("forward.frontend", device=x.device):
+                    x = nhwc_to_nchw(stem_fn(x))
                 if stem_stages == 1:
                     x = F.relu(x)
             continue
         if stage_index == 0:
             x = nhwc_to_nchw(x)
-        if remat:
-            from torch.utils.checkpoint import checkpoint
+        with span(f"forward.{stage_name}", device=x.device):
+            if remat:
+                from torch.utils.checkpoint import checkpoint
 
-            x, stage_updates = checkpoint(_stage_and_updates, x, params, state, stage,
-                                          compute_dtype, sparse_plans, train, ranks,
-                                          use_reentrant=False)
-        else:
-            x, stage_updates = _stage_and_updates(x, params, state, stage, compute_dtype,
-                                                  sparse_plans, train, ranks)
+                x, stage_updates = checkpoint(_stage_and_updates, x, params, state, stage,
+                                              compute_dtype, sparse_plans, train, ranks,
+                                              use_reentrant=False)
+            else:
+                x, stage_updates = _stage_and_updates(x, params, state, stage,
+                                                      compute_dtype, sparse_plans, train,
+                                                      ranks)
         updates.update(stage_updates)
         if stage_name == "stem" and spec.stem_maxpool:
             x = F.max_pool2d(x, 3, 2, 1)

@@ -25,6 +25,7 @@ from typing import Callable, Mapping
 
 import torch
 
+from tpuseg_torch.metrics.profiling import span
 from tpuseg_torch.models.drn import DrnSpec, drn_forward
 from tpuseg_torch.models.drnseg import drnseg_forward
 from tpuseg_torch.sparsity import apply_masks
@@ -136,11 +137,16 @@ def make_seg_train_step(
         return seg_loss_from_logprobs(logp, labels, ranks), updates
 
     def train_step(state: TrainState, images, labels, ranks=None):
-        params = {k: v.detach().requires_grad_(k not in frozen)
-                  for k, v in state.params.items()}
-        loss, bn_updates = loss_fn(params, state.bn_state, images, labels, ranks)
-        grads = _grads(loss, params, state.params, frozen, ranks)
-        new_params, new_opt = _sgd_update(tx, grads, state, frozen)
+        dev = images.device
+        with span("train.step"):
+            params = {k: v.detach().requires_grad_(k not in frozen)
+                      for k, v in state.params.items()}
+            with span("train.forward", device=dev):
+                loss, bn_updates = loss_fn(params, state.bn_state, images, labels, ranks)
+            with span("train.backward", device=dev):
+                grads = _grads(loss, params, state.params, frozen, ranks)
+            with span("train.update", device=dev):
+                new_params, new_opt = _sgd_update(tx, grads, state, frozen)
         new_state = TrainState(
             params=new_params,
             bn_state={**state.bn_state, **bn_updates},
@@ -212,18 +218,24 @@ def make_cls_train_step(
     fwd = classifier_forward(spec, compute_dtype, remat=remat, sparse_plans=sparse_plans)
 
     def train_step(state: TrainState, images, labels, ranks=None):
-        params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-        logits, bn_updates = fwd(params, state.bn_state, images, train=True, ranks=ranks)
-        if teacher is not None:
-            t_fwd, t_params, t_bn = teacher
-            with torch.no_grad():
-                t_logits = t_fwd(t_params, t_bn, images)
-            loss = combined_kd_loss(logits, labels, t_logits, kd_student_wt, kd_distill_wt,
-                                    kd_temperature, ranks=ranks)
-        else:
-            loss = cross_entropy_ignore(logits, labels, ignore_index=-1, ranks=ranks)
-        grads = _grads(loss, params, state.params, ranks=ranks)
-        new_params, new_opt = _sgd_update(tx, grads, state)
+        dev = images.device
+        with span("train.step"):
+            params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+            with span("train.forward", device=dev):
+                logits, bn_updates = fwd(params, state.bn_state, images, train=True,
+                                         ranks=ranks)
+                if teacher is not None:
+                    t_fwd, t_params, t_bn = teacher
+                    with torch.no_grad():
+                        t_logits = t_fwd(t_params, t_bn, images)
+                    loss = combined_kd_loss(logits, labels, t_logits, kd_student_wt,
+                                            kd_distill_wt, kd_temperature, ranks=ranks)
+                else:
+                    loss = cross_entropy_ignore(logits, labels, ignore_index=-1, ranks=ranks)
+            with span("train.backward", device=dev):
+                grads = _grads(loss, params, state.params, ranks=ranks)
+            with span("train.update", device=dev):
+                new_params, new_opt = _sgd_update(tx, grads, state)
         new_state = TrainState(
             params=new_params,
             bn_state={**state.bn_state, **bn_updates},

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from tpuseg_torch.data.cityscapes import CITYSCAPE_PALETTE
 from tpuseg_torch.device import resolve_device
-from tpuseg_torch.metrics.meters import FpsMeter
+from tpuseg_torch.metrics.profiling import span
 from tpuseg_torch.models.drn import DrnSpec
 from tpuseg_torch.models.drnseg import drnseg_logits
 from tpuseg_torch.models.sparse_exec import plans_to, quantize_sparse_plans
@@ -432,11 +432,13 @@ class VideoSegmenter:
             x = frames_u8.reshape(b, h, w, 3).float() / 255.0
             x = (x - self.mean) / self.std
             stem_fn, stem_stages = None, 1
-        seg = drnseg_logits(
-            self.params, {}, x, self.spec, compute_dtype=self.compute_dtype,
-            stem_fn=stem_fn, stem_stages=stem_stages, sparse_plans=self.exec_plans,
-        )
-        ids = upsample_argmax(seg, self.up_kernel)
+        with span("forward", batch=b):
+            seg = drnseg_logits(
+                self.params, {}, x, self.spec, compute_dtype=self.compute_dtype,
+                stem_fn=stem_fn, stem_stages=stem_stages, sparse_plans=self.exec_plans,
+            )
+            with span("forward.upsample_argmax", device=seg.device):
+                ids = upsample_argmax(seg, self.up_kernel)
         # inputs not divisible by 8 round the feature grid up, so the
         # upsampled map can overshoot the frame by a few pixels — crop
         return ids[:, :h, :w]
@@ -628,53 +630,81 @@ class VideoSegmenter:
         batches in flight.
 
         Returns a dict with ``ids`` (N, H, W) uint8, ``color`` (palette or
-        overlay, when ``need_color``), ``frames``, ``seconds`` and ``fps``
-        (wall clock from the first submit to the last collect; the first
-        batch also runs once untimed, so first-call costs stay out),
-        ``batch_times`` (overlapping under pipelining, diagnostic only),
-        ``h2d_bytes`` and ``d2h_bytes`` (the timed batches' frames up, ids
-        and images down); in the adaptive modes also ``promoted`` and
-        ``promotion_rate``, over the returned frames only.  The untimed first
-        call leaves the adaptive carry as it found it."""
+        overlay, when ``need_color``), ``frames`` (the number returned),
+        ``seconds`` and ``fps`` (wall clock from the first submit to the
+        last collect; the first batch also runs once untimed, so first-call
+        costs stay out), ``h2d_bytes`` and ``d2h_bytes`` (the timed
+        batches' frames up, ids and images down); in the adaptive modes
+        also ``promoted`` and ``promotion_rate``, over the returned frames
+        only.  The untimed first call leaves the adaptive carry as it found
+        it.
+
+        Under a ``torch.profiler`` session the call records a ``run`` span
+        (``tpuseg_torch.metrics.profiling.span``) with the attributes
+        ``frames_forwarded`` (frames passed to the model step, the untimed
+        first batch and padding included), ``frames_returned``,
+        ``frames_warm``, ``frames_padded``, ``h2d_bytes`` and
+        ``d2h_bytes``, and children where the work happens: ``run.stack``
+        (``np.stack`` and padding), ``run.encode`` (the host I420 encode),
+        ``run.pin``, ``run.h2d`` (the upload's enqueue), ``run.warm`` (the
+        untimed first batch and its synchronise), ``run.dispatch``,
+        ``run.d2h`` (pinned buffers, the copies' enqueue, the event),
+        ``run.wait`` (the event's synchronise), ``run.unpack``,
+        ``run.color`` and ``run.concat``."""
+        with span("run") as run_span:
+            out = self._run(frames, max_frames, need_color, run_span)
+        return out
+
+    def _run(self, frames, max_frames, need_color, run_span) -> dict:
         cuda = self.device.type == "cuda"
         adaptive = self.temporal_thresh is not None
         promoted_flags = []
         ids_out, color_out = [], []
-        batch_times = []
-        fps_meter = FpsMeter()
         n_done = 0
         pending = []
         first = True
         t_wall0 = None
         moved = {"h2d_bytes": 0, "d2h_bytes": 0}
+        counts = {"frames_forwarded": 0, "frames_warm": 0, "frames_padded": 0}
 
         def submit(buf):
             nonlocal first, t_wall0
-            arr = np.stack(buf)
-            pad = 0
-            if arr.shape[0] < self.batch:
-                pad = self.batch - arr.shape[0]
-                arr = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)])
+            with span("run.stack"):
+                arr = np.stack(buf)
+                pad = 0
+                if arr.shape[0] < self.batch:
+                    pad = self.batch - arr.shape[0]
+                    arr = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)])
             frames_host = arr
             if self.transport == "yuv420" and arr.ndim == 4:
-                arr = rgb_to_i420(arr)  # a 3-D stack is already I420 planes
+                with span("run.encode"):
+                    arr = rgb_to_i420(arr)  # a 3-D stack is already I420 planes
             # flat (B, H, W*3): the same bytes as (B, H, W, 3), a numpy view
             x = torch.from_numpy(arr.reshape(arr.shape[0], arr.shape[1], -1))
             if cuda:
-                x = x.pin_memory().to(self.device, non_blocking=True)
+                with span("run.pin"):
+                    x = x.pin_memory()
+                with span("run.h2d"):
+                    x = x.to(self.device, non_blocking=True)
             if first:
                 # first-call costs (kernel build, cuDNN plans) stay untimed;
                 # the warmup would advance the adaptive carry: restore it
-                carry0 = self._carry
-                self._call(x)
-                if cuda:
-                    torch.cuda.synchronize(self.device)
-                self._carry = carry0
+                with span("run.warm"):
+                    carry0 = self._carry
+                    self._call(x)
+                    if cuda:
+                        torch.cuda.synchronize(self.device)
+                    self._carry = carry0
+                counts["frames_warm"] += x.shape[0]
+                counts["frames_forwarded"] += x.shape[0]
                 first = False
             t0 = time.perf_counter()
             if t_wall0 is None:
                 t_wall0 = t0
-            ids, image, flags = self._call(x)
+            with span("run.dispatch"):
+                ids, image, flags = self._call(x)
+            counts["frames_forwarded"] += x.shape[0]
+            counts["frames_padded"] += pad
             if not need_color:
                 image = None
             moved["h2d_bytes"] += x.numel()
@@ -683,41 +713,43 @@ class VideoSegmenter:
             if cuda:
                 # start the device->host copies now so they overlap the next
                 # batch; collect() waits on the event, not the device
-                ids = torch.empty(ids.shape, dtype=torch.uint8,
-                                  pin_memory=True).copy_(ids, non_blocking=True)
-                if image is not None:
-                    image = torch.empty(image.shape, dtype=torch.uint8,
-                                        pin_memory=True).copy_(image, non_blocking=True)
-                if flags is not None:
-                    flags = torch.empty(flags.shape, dtype=torch.bool,
-                                        pin_memory=True).copy_(flags, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-            return ids, image, done, arr.shape[0] - pad, t0, frames_host, flags
+                with span("run.d2h"):
+                    ids = torch.empty(ids.shape, dtype=torch.uint8,
+                                      pin_memory=True).copy_(ids, non_blocking=True)
+                    if image is not None:
+                        image = torch.empty(image.shape, dtype=torch.uint8,
+                                            pin_memory=True).copy_(image, non_blocking=True)
+                    if flags is not None:
+                        flags = torch.empty(flags.shape, dtype=torch.bool,
+                                            pin_memory=True).copy_(flags, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+            return ids, image, done, arr.shape[0] - pad, frames_host, flags
 
         def collect(flight):
-            ids, image, done, n, t0, frames_host, flags = flight
+            ids, image, done, n, frames_host, flags = flight
             if done is not None:
-                done.synchronize()
-            ids = ids.numpy()
-            if self.ids_bits and not self.device_outputs:
-                ids = unpack_ids(ids, self.ids_bits)
-            if flags is not None:
-                promoted_flags.append(flags.numpy()[:n])
+                with span("run.wait"):
+                    done.synchronize()
+            with span("run.unpack"):
+                ids = ids.numpy()
+                if self.ids_bits and not self.device_outputs:
+                    ids = unpack_ids(ids, self.ids_bits)
+                if flags is not None:
+                    promoted_flags.append(flags.numpy()[:n])
             color = None
-            if image is not None:
-                color = image.numpy()
-            elif need_color:
-                # host reconstruction from ids: palette gather / overlay blend
-                color = self.palette_np[ids]
-                if self.want_overlay:
-                    color = self._host_overlay(frames_host, color)
-            dt = time.perf_counter() - t0
-            batch_times.append((dt, n))
+            if image is not None or need_color:
+                with span("run.color"):
+                    if image is not None:
+                        color = image.numpy()
+                    else:
+                        # host reconstruction from ids: palette gather / overlay blend
+                        color = self.palette_np[ids]
+                        if self.want_overlay:
+                            color = self._host_overlay(frames_host, color)
             ids_out.append(ids[:n])
             if color is not None:
                 color_out.append(color[:n])
-            fps_meter.tick()
             return n
 
         DEPTH = 2  # batches in flight; depth 2 overlaps D2H with compute
@@ -741,22 +773,23 @@ class VideoSegmenter:
             n_done += collect(flights.pop(0))
 
         total_t = (time.perf_counter() - t_wall0) if t_wall0 is not None else 0.0
-        total_n = sum(n for _, n in batch_times)
-        ids_all = np.concatenate(ids_out) if ids_out else np.zeros((0,), np.uint8)
-        color_all = np.concatenate(color_out) if color_out else np.zeros((0,), np.uint8)
+        with span("run.concat"):
+            ids_all = np.concatenate(ids_out) if ids_out else np.zeros((0,), np.uint8)
+            color_all = np.concatenate(color_out) if color_out else np.zeros((0,), np.uint8)
+        total_n = n_done
         if max_frames is not None and len(ids_all) > max_frames:
             # the last flush can overshoot the request; return exactly
             # max_frames
             ids_all = ids_all[:max_frames]
             color_all = color_all[:max_frames]
             total_n = max_frames
+        run_span.set(frames_returned=total_n, **counts, **moved)
         out = {
             "ids": ids_all,
             "color": color_all,
             "frames": total_n,
             "seconds": total_t,
             "fps": total_n / total_t if total_t > 0 else 0.0,
-            "batch_times": batch_times,
             **moved,
         }
         if adaptive:
