@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from torch.profiler import ProfilerActivity, profile
 
 from tpuseg.data.cityscapes import CITYSCAPE_PALETTE as J_PALETTE
 from tpuseg.data.shapes import shapes_video as j_shapes_video
@@ -19,10 +20,13 @@ from tpuseg.video.pipeline import SyntheticFrames as JFrames
 from tpuseg.video.pipeline import VideoSegmenter as JSegmenter
 from tpuseg_torch.data.cityscapes import CITYSCAPE_PALETTE as T_PALETTE
 from tpuseg_torch.data.shapes import shapes_video as t_shapes_video
+from tpuseg_torch.metrics import profiling
 from tpuseg_torch.models.drnseg import init_drnseg as t_init
 from tpuseg_torch.ops.upsample import upsample_argmax
+from tpuseg_torch.video.pipeline import DEPTH
 from tpuseg_torch.video.pipeline import SyntheticFrames as TFrames
 from tpuseg_torch.video.pipeline import VideoSegmenter as TSegmenter
+from tpuseg_torch.video.yuv import i420_to_rgb_flat, rgb_to_i420
 
 torch.set_num_threads(2)
 
@@ -84,6 +88,113 @@ def test_pipeline_pads_last_batch_and_overlays():
     np.testing.assert_array_equal(out["ids"], full[:3])
     want = (np.stack(frames) // 2 + T_PALETTE[out["ids"]] // 2).astype(np.uint8)
     np.testing.assert_array_equal(out["color"], want)
+
+
+def _per_batch_reference(seg, frames, n_out):
+    """What run() ships and returns for its first ``n_out`` frames, built
+    batch by batch: the batches it forwards, ``seg.batch`` frames each, the
+    last padded with repeats of its last frame (flat, I420 where the
+    transport is yuv420), and their ids through K8's plain version and
+    ``ids_for``; the color is the palette gather or the overlay blend of
+    each frame."""
+    b = seg.batch
+    shipped, ids = [], []
+    for i in range(0, n_out, b):
+        chunk = list(frames[i:i + b])
+        arr = np.stack(chunk + chunk[-1:] * (b - len(chunk)))
+        if seg.transport == "yuv420" and arr.ndim == 4:
+            arr = rgb_to_i420(arr)
+        shipped.append(arr.reshape(b, arr.shape[1], -1))
+        x = torch.from_numpy(shipped[-1])
+        if seg.transport == "yuv420":
+            x = i420_to_rgb_flat(x)
+        with torch.inference_mode():
+            ids.append(seg.ids_for(x)[:len(chunk)].numpy())
+    ids = np.concatenate(ids)[:n_out]
+    color = T_PALETTE[ids]
+    if seg.want_overlay:
+        rgb = np.stack(frames[:n_out])
+        color = (rgb // 2 + color // 2).astype(np.uint8)
+    return shipped, ids, color
+
+
+# name: (segmenter keywords, frames, feed, max_frames, need_color, out_grows)
+RUN_CASES = {
+    # no len: sized from the 3 frames returned before, grown 3 -> 6 -> 12
+    "generator_past_capacity": ({}, 9, "generator", None, False, 2),
+    "list": ({}, 6, "list", None, False, 0),
+    "max_frames_mid_batch": ({}, 7, "list", 5, True, 0),
+    # no len and nothing returned before: the first batch's 2 rows, then 4, 8
+    "max_frames_generator": ({}, 7, "generator", 5, False, 2),
+    "padded_last_batch": ({}, 5, "list", None, True, 0),
+    "ids_bits_5": ({"ids_bits": 5}, 5, "list", None, False, 0),
+    "yuv420": ({"transport": "yuv420"}, 5, "list", None, True, 0),
+    "yuv420_planes": ({"transport": "yuv420"}, 5, "i420", None, False, 0),
+    # DEPTH + 3 batches of distinct frames: a ring buffer rewritten before
+    # its batch's overlay is made would show in the color
+    "overlay": ({"want_overlay": True}, 2 * DEPTH + 5, "list", None, True, 0),
+    "second_call": ({}, 6, "list", None, True, 0),
+}
+
+
+def _spans_of_run(seg, frames, **kw):
+    profiling.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            out = seg.run(frames, **kw)
+        (run,) = [s for s in profiling.spans() if s.name == "run"]
+    finally:
+        profiling.clear()
+    return out, run.attrs
+
+
+@pytest.mark.parametrize("case", list(RUN_CASES))
+def test_run_writes_into_kept_buffers(case):
+    """run() stacks each batch into its input ring and copies each batch's
+    ids (and color) into one output array: byte-equal to the per-batch
+    reference, the ring allocated once per batch shape and transport, the
+    output grown only past the remembered or given size."""
+    kw, n, feed, max_frames, need_color, grows = RUN_CASES[case]
+    p, s, spec = t_init(0, "drn_d_22", 19)
+    seg = TSegmenter(p, s, spec, MEAN, STD, device="cpu", compute_dtype=torch.float32,
+                     batch=2, **kw)
+    frames = list(TFrames(n, (32, 64), seed=3))
+    if feed == "i420":
+        frames = [rgb_to_i420(f)[0] for f in frames]
+    n_out = n if max_frames is None else max_frames
+    want_shipped, want_ids, want_color = _per_batch_reference(seg, frames, n_out)
+    staged = 0  # ring buffers already allocated
+    if case == "generator_past_capacity":
+        seg.run(frames[:3], need_color=False)
+        staged = 2
+    shipped, step = [], seg._call
+
+    def recording_call(x):
+        shipped.append(x.numpy().copy())
+        return step(x)
+
+    seg._call = recording_call
+    for _ in range(2 if case == "second_call" else 1):
+        shipped.clear()
+        served = (f for f in frames) if feed == "generator" else frames
+        out, attrs = _spans_of_run(seg, served, max_frames=max_frames, need_color=need_color)
+        # the untimed warm call forwards the first batch once more
+        assert len(shipped) == len(want_shipped) + 1
+        for got, want in zip(shipped, want_shipped[:1] + want_shipped):
+            np.testing.assert_array_equal(got, want)
+        ids = out["ids"]
+        assert ids.shape == (n_out, 32, 64) and ids.dtype == np.uint8
+        assert ids.flags.c_contiguous and out["frames"] == attrs["frames_returned"] == n_out
+        np.testing.assert_array_equal(ids, want_ids)
+        if need_color:
+            assert out["color"].shape == (n_out, 32, 64, 3) and out["color"].flags.c_contiguous
+            np.testing.assert_array_equal(out["color"], want_color)
+        else:
+            assert out["color"].shape == (0,)
+        batches = -(-n_out // 2)
+        assert attrs["staging_allocs"] == max(min(batches, DEPTH + 1) - staged, 0)
+        assert attrs["out_grows"] == grows
+        staged = max(staged, min(batches, DEPTH + 1))
 
 
 def test_device_fps_refuses_cpu():

@@ -122,7 +122,9 @@ def test_cap_counts_what_it_drops(monkeypatch):
 
 
 def test_run_spans_and_counters():
-    """5 frames at batch 4: the warm batch (4), then 4 and 1 + 3 padded."""
+    """5 frames at batch 4: the warm batch (4), then 4 and 1 + 3 padded; the
+    two batches take two new input ring buffers, and the output, sized from
+    the list's length, never grows."""
     seg, frames = _serve()
     with _cpu_profile():
         out = seg.run(frames)
@@ -133,12 +135,13 @@ def test_run_spans_and_counters():
     assert run.parent is None and all(s.call == run.id for s in spans)
     assert run.attrs == {"frames_forwarded": 12, "frames_returned": 5, "frames_warm": 4,
                          "frames_padded": 3, "h2d_bytes": out["h2d_bytes"],
-                         "d2h_bytes": out["d2h_bytes"]}
+                         "d2h_bytes": out["d2h_bytes"], "staging_allocs": 2, "out_grows": 0}
     kids = _children(spans, run)
-    # no pin, h2d, d2h or wait on the CPU: that work happens only on the card
+    # no h2d, d2h or wait on the CPU: that work happens only on the card; each
+    # batch's rows go into the output in its run.unpack and run.color
     assert [s.name for s in kids] == [
         "run.stack", "run.warm", "run.dispatch", "run.stack", "run.dispatch",
-        "run.unpack", "run.color", "run.unpack", "run.color", "run.concat"]
+        "run.unpack", "run.color", "run.unpack", "run.color"]
     assert all(a.t1_ns <= b.t0_ns for a, b in zip(kids, kids[1:]))
     forwards = [s for s in spans if s.name == "forward"]
     assert [s.attrs for s in forwards] == [{"batch": 4}] * 3

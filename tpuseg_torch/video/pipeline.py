@@ -18,7 +18,10 @@ as RGB or as I420 planes for the yuv420 transport.
 ``run`` keeps two batches in flight: each batch's ids are copied to pinned
 host memory with ``non_blocking=True`` and a CUDA event marks the copy's
 end, so the fetch overlaps the next batch's upload and compute; ``collect``
-waits on that event only.
+waits on that event only.  The host buffers it writes are kept: frames are
+stacked straight into a ring of pinned batch buffers owned by the
+segmenter, and each batch's ids are copied into the call's output array as
+they come back.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ from tpuseg_torch.ops.temporal import frame_deltas, frame_deltas_budget, keyfram
 from tpuseg_torch.ops.upsample import upsample_argmax
 from tpuseg_torch.video.flow import estimate_block_shifts, pooled_luma, warp_ids
 from tpuseg_torch.video.yuv import i420_geometry, i420_to_rgb_flat, rgb_to_i420
+
+DEPTH = 2  # run()'s batches in flight; depth 2 overlaps D2H with compute
 
 
 class FrameSource:
@@ -310,6 +315,10 @@ class VideoSegmenter:
         self.temporal_warp = temporal_warp
         self._carry = None  # adaptive modes: persists across run() batches
         self._nearest_maps = {}  # interval nearest: (frames, keys) -> index tensors
+        # run()'s input ring: DEPTH + 1 uint8 host batch buffers (pinned
+        # for a CUDA device), each made anew when its batch shape changes
+        self._staging = [None] * (DEPTH + 1)
+        self._out_rows = 0  # the most frames a run() call has returned
 
         folded = fold_bn(params, bn_state, spec)
         n_cls = folded["seg.weight"].shape[0]
@@ -643,14 +652,17 @@ class VideoSegmenter:
         (``tpuseg_torch.metrics.profiling.span``) with the attributes
         ``frames_forwarded`` (frames passed to the model step, the untimed
         first batch and padding included), ``frames_returned``,
-        ``frames_warm``, ``frames_padded``, ``h2d_bytes`` and
-        ``d2h_bytes``, and children where the work happens: ``run.stack``
-        (``np.stack`` and padding), ``run.encode`` (the host I420 encode),
-        ``run.pin``, ``run.h2d`` (the upload's enqueue), ``run.warm`` (the
+        ``frames_warm``, ``frames_padded``, ``h2d_bytes``, ``d2h_bytes``,
+        ``staging_allocs`` (input ring buffers allocated by this call: 0
+        once a call at the same batch shape and transport has run) and
+        ``out_grows`` (times the output array had to grow), and children
+        where the work happens: ``run.stack`` (stacking and padding into
+        the input ring), ``run.encode`` (the host I420 encode, landed in
+        the ring), ``run.h2d`` (the upload's enqueue), ``run.warm`` (the
         untimed first batch and its synchronise), ``run.dispatch``,
         ``run.d2h`` (pinned buffers, the copies' enqueue, the event),
-        ``run.wait`` (the event's synchronise), ``run.unpack``,
-        ``run.color`` and ``run.concat``."""
+        ``run.wait`` (the event's synchronise), ``run.unpack`` and
+        ``run.color`` (each with its copy into the output)."""
         with span("run") as run_span:
             out = self._run(frames, max_frames, need_color, run_span)
         return out
@@ -659,31 +671,63 @@ class VideoSegmenter:
         cuda = self.device.type == "cuda"
         adaptive = self.temporal_thresh is not None
         promoted_flags = []
-        ids_out, color_out = [], []
+        try:
+            capacity = len(frames)
+        except TypeError:
+            capacity = self._out_rows
+        if max_frames is not None:
+            capacity = min(capacity, max_frames)
+        ids_out, color_out = _Rows(capacity), _Rows(capacity)
         n_done = 0
         pending = []
         first = True
         t_wall0 = None
         moved = {"h2d_bytes": 0, "d2h_bytes": 0}
         counts = {"frames_forwarded": 0, "frames_warm": 0, "frames_padded": 0}
+        ring = {"submits": 0, "staging_allocs": 0}
 
-        def submit(buf):
+        def fill(rows):
+            """The batch's rows, then repeats of its last row as padding,
+            into the next buffer of the input ring.  Batch k takes buffer
+            k % (DEPTH + 1), last used by batch k - DEPTH - 1, which has been
+            collected: submit() is called with at most DEPTH batches in
+            flight (the loop collects the oldest as soon as a submit makes
+            DEPTH + 1), and collect() returns only after the batch's ``done``
+            event, which follows its upload, and after ``_host_overlay`` has
+            read its ``frames_host``."""
+            n = len(rows)
+            slot = ring["submits"] % (DEPTH + 1)
+            ring["submits"] += 1
+            shape = (self.batch,) + np.shape(rows[0])
+            buf = self._staging[slot]
+            if buf is None or buf.shape != shape:
+                buf = torch.empty(shape, dtype=torch.uint8, pin_memory=cuda)
+                self._staging[slot] = buf
+                ring["staging_allocs"] += 1
+            host = buf.numpy()
+            np.stack(rows, out=host[:n])
+            host[n:] = host[n - 1]
+            return buf
+
+        def submit(rows):
             nonlocal first, t_wall0
+            n = len(rows)
+            pad = self.batch - n
+            encode = self.transport == "yuv420" and np.ndim(rows[0]) == 3
             with span("run.stack"):
-                arr = np.stack(buf)
-                pad = 0
-                if arr.shape[0] < self.batch:
-                    pad = self.batch - arr.shape[0]
-                    arr = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)])
-            frames_host = arr
-            if self.transport == "yuv420" and arr.ndim == 4:
+                if encode:
+                    # RGB frames for the yuv420 transport: their stack feeds the
+                    # encode and the host overlay; the I420 lands in the ring
+                    frames_host = np.stack(rows)
+                else:
+                    buf = fill(rows)
+                    frames_host = buf.numpy()[:n]
+            if encode:
                 with span("run.encode"):
-                    arr = rgb_to_i420(arr)  # a 3-D stack is already I420 planes
-            # flat (B, H, W*3): the same bytes as (B, H, W, 3), a numpy view
-            x = torch.from_numpy(arr.reshape(arr.shape[0], arr.shape[1], -1))
+                    buf = fill(rgb_to_i420(frames_host))
+            # flat (B, H, W*3): the same bytes as (B, H, W, 3), a view
+            x = buf.view(buf.shape[0], buf.shape[1], -1)
             if cuda:
-                with span("run.pin"):
-                    x = x.pin_memory()
                 with span("run.h2d"):
                     x = x.to(self.device, non_blocking=True)
             if first:
@@ -724,35 +768,36 @@ class VideoSegmenter:
                                             pin_memory=True).copy_(flags, non_blocking=True)
                     done = torch.cuda.Event()
                     done.record()
-            return ids, image, done, arr.shape[0] - pad, frames_host, flags
+            return ids, image, done, n, frames_host, flags
 
         def collect(flight):
             ids, image, done, n, frames_host, flags = flight
+            if max_frames is not None:
+                # the last flush can overshoot the request; return exactly
+                # max_frames
+                n = min(n, max_frames - n_done)
             if done is not None:
                 with span("run.wait"):
                     done.synchronize()
             with span("run.unpack"):
-                ids = ids.numpy()
+                ids = ids.numpy()[:n]
                 if self.ids_bits and not self.device_outputs:
                     ids = unpack_ids(ids, self.ids_bits)
+                ids_out.put(ids)
                 if flags is not None:
                     promoted_flags.append(flags.numpy()[:n])
-            color = None
             if image is not None or need_color:
                 with span("run.color"):
                     if image is not None:
-                        color = image.numpy()
+                        color = image.numpy()[:n]
                     else:
                         # host reconstruction from ids: palette gather / overlay blend
                         color = self.palette_np[ids]
                         if self.want_overlay:
-                            color = self._host_overlay(frames_host, color)
-            ids_out.append(ids[:n])
-            if color is not None:
-                color_out.append(color[:n])
+                            color = self._host_overlay(frames_host[:n], color)
+                    color_out.put(color)
             return n
 
-        DEPTH = 2  # batches in flight; depth 2 overlaps D2H with compute
         flights = []
 
         def n_flight():
@@ -773,33 +818,25 @@ class VideoSegmenter:
             n_done += collect(flights.pop(0))
 
         total_t = (time.perf_counter() - t_wall0) if t_wall0 is not None else 0.0
-        with span("run.concat"):
-            ids_all = np.concatenate(ids_out) if ids_out else np.zeros((0,), np.uint8)
-            color_all = np.concatenate(color_out) if color_out else np.zeros((0,), np.uint8)
-        total_n = n_done
-        if max_frames is not None and len(ids_all) > max_frames:
-            # the last flush can overshoot the request; return exactly
-            # max_frames
-            ids_all = ids_all[:max_frames]
-            color_all = color_all[:max_frames]
-            total_n = max_frames
-        run_span.set(frames_returned=total_n, **counts, **moved)
+        self._out_rows = max(self._out_rows, n_done)
+        run_span.set(frames_returned=n_done, **counts, **moved,
+                     staging_allocs=ring["staging_allocs"], out_grows=ids_out.grows)
         out = {
-            "ids": ids_all,
-            "color": color_all,
-            "frames": total_n,
+            "ids": ids_out.result(),
+            "color": color_out.result(),
+            "frames": n_done,
             "seconds": total_t,
-            "fps": total_n / total_t if total_t > 0 else 0.0,
+            "fps": n_done / total_t if total_t > 0 else 0.0,
             **moved,
         }
         if adaptive:
             # promotions over exactly the returned frames (tpuseg
             # pipeline.py:1063-1073): flights past a max_frames cut do not
             # count
-            flags = (np.concatenate(promoted_flags)[:total_n] if promoted_flags
+            flags = (np.concatenate(promoted_flags) if promoted_flags
                      else np.zeros((0,), bool))
             out["promoted"] = int(flags.sum())
-            out["promotion_rate"] = out["promoted"] / total_n if total_n else 0.0
+            out["promotion_rate"] = out["promoted"] / n_done if n_done else 0.0
         return out
 
     def benchmark_device_fps(
@@ -893,6 +930,32 @@ class VideoSegmenter:
         n = len(arr)
         return {"device_fps": n / best, "promotion_rate": n_promoted / n, "frames": n,
                 "frames_dropped": dropped}
+
+
+class _Rows:
+    """run()'s output array: each batch's rows are copied in as they come
+    back, into one array made at the first batch with room for
+    ``capacity`` rows and doubled, with one copy of the rows written, when
+    a call returns more (``grows`` counts the doublings)."""
+
+    def __init__(self, capacity: int):
+        self.capacity, self.n, self.array, self.grows = capacity, 0, None, 0
+
+    def put(self, rows: np.ndarray) -> None:
+        end = self.n + len(rows)
+        if self.array is None:
+            self.array = np.empty((max(self.capacity, end),) + rows.shape[1:], rows.dtype)
+        elif end > len(self.array):
+            grown = np.empty((max(2 * len(self.array), end),) + rows.shape[1:], rows.dtype)
+            grown[:self.n] = self.array[:self.n]
+            self.array = grown
+            self.grows += 1
+        self.array[self.n:end] = rows
+        self.n = end
+
+    def result(self) -> np.ndarray:
+        """The rows written, C-contiguous (a leading slice of the array)."""
+        return self.array[:self.n] if self.array is not None else np.zeros((0,), np.uint8)
 
 
 def _interval_maps(nb: int, n_keys: int, interval: int, device) -> list[torch.Tensor]:
