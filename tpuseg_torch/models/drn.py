@@ -659,7 +659,15 @@ def _conv_maybe_bn(x, params, state, cdef: ConvDef, bdef: BNDef | None, compute_
 
 
 def _run_block(x, params, state, block: BlockDef, compute_dtype, sparse_plans=None,
-               updates=None, ranks=None):
+               updates=None, ranks=None, stage=None):
+    """One residual block.  A bottleneck block's three parts are spans of
+    their own (``block.reduce``: conv1 and its ReLU; ``block.spatial``:
+    conv2 and its ReLU; ``block.expand``: conv3, the downsample, the
+    residual add and the last ReLU), each with the attributes ``stage``
+    (the stage index) and ``width`` (the block's output channels)."""
+    if block.kind == "bottleneck":
+        return _run_bottleneck(x, params, state, block, compute_dtype, sparse_plans, updates,
+                               ranks, stage)
     residual = x
     out = x
     n = len(block.convs)
@@ -672,17 +680,38 @@ def _run_block(x, params, state, block: BlockDef, compute_dtype, sparse_plans=No
         cdef, bdef = block.downsample
         residual = _conv_maybe_bn(residual, params, state, cdef, bdef, compute_dtype,
                                   sparse_plans, updates, ranks)
-    # Bottleneck always adds the residual (drn.py:103); BasicBlock honors the
-    # flag (drn.py:61-62) even when a downsample path exists.
-    if block.kind == "bottleneck" or block.residual:
+    # BasicBlock honors the residual flag (drn.py:61-62) even when a
+    # downsample path exists.
+    if block.residual:
         out = out + residual
     return F.relu_(out)
 
 
+def _run_bottleneck(x, params, state, block: BlockDef, compute_dtype, sparse_plans, updates,
+                    ranks, stage):
+    """``_run_block`` of a bottleneck block, which always adds the residual
+    (drn.py:103)."""
+    def conv(cdef, bdef, v):
+        return _conv_maybe_bn(v, params, state, cdef, bdef, compute_dtype, sparse_plans,
+                              updates, ranks)
+
+    (c1, c2, c3), (b1, b2, b3) = block.convs, block.bns
+    attrs = dict(device=x.device, stage=stage, width=c3.cout)
+    with span("block.reduce", **attrs):
+        out = F.relu_(conv(c1, b1, x))
+    with span("block.spatial", **attrs):
+        out = F.relu_(conv(c2, b2, out))
+    with span("block.expand", **attrs):
+        out = conv(c3, b3, out)
+        residual = x if block.downsample is None else conv(*block.downsample, x)
+        return F.relu_(out + residual)
+
+
 def _run_stage(x, params, state, stage: StageDef, compute_dtype, sparse_plans=None,
-               updates=None, ranks=None):
+               updates=None, ranks=None, stage_index=None):
     """One backbone stage; ``updates`` (a dict) selects train-mode BatchNorm
-    and receives the stage's running-stat updates."""
+    and receives the stage's running-stat updates; ``stage_index`` is the
+    ``stage`` attribute of its bottleneck blocks' spans."""
     if stage.kind == "convs":
         for cdef, bdef in stage.convs:
             x = F.relu_(_conv_maybe_bn(x, params, state, cdef, bdef, compute_dtype,
@@ -690,17 +719,18 @@ def _run_stage(x, params, state, stage: StageDef, compute_dtype, sparse_plans=No
     else:
         for block in stage.blocks:
             x = _run_block(x, params, state, block, compute_dtype, sparse_plans, updates,
-                           ranks)
+                           ranks, stage_index)
     return x
 
 
 def _stage_and_updates(x, params, state, stage: StageDef, compute_dtype, sparse_plans,
-                       train: bool, ranks=None):
+                       train: bool, ranks=None, stage_index=None):
     """``x -> (x, bn_updates)`` of one stage (no updates in eval):
     functional, so that under ``remat`` the checkpoint's recompute returns
     its updates instead of writing them a second time."""
     updates: State | None = {} if train else None
-    x = _run_stage(x, params, state, stage, compute_dtype, sparse_plans, updates, ranks)
+    x = _run_stage(x, params, state, stage, compute_dtype, sparse_plans, updates, ranks,
+                   stage_index)
     return x, updates or {}
 
 
@@ -788,11 +818,11 @@ def drn_forward(
 
                 x, stage_updates = checkpoint(_stage_and_updates, x, params, state, stage,
                                               compute_dtype, sparse_plans, train, ranks,
-                                              use_reentrant=False)
+                                              stage_index, use_reentrant=False)
             else:
                 x, stage_updates = _stage_and_updates(x, params, state, stage,
                                                       compute_dtype, sparse_plans, train,
-                                                      ranks)
+                                                      ranks, stage_index)
         updates.update(stage_updates)
         if stage_name == "stem" and spec.stem_maxpool:
             x = F.max_pool2d(x, 3, 2, 1)
